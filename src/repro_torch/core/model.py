@@ -1,0 +1,272 @@
+"""Full AlphaFold2 inference model: embedder -> extra-MSA stack -> Evoformer
+stack -> structure module -> heads, with adaptive early-exit recycling
+(counterpart of ``repro/core/model.py:28-251,314-443``).
+
+Single-protein functions, as in the reference; ``fold_cycle`` loops over the
+batch where the reference vmaps.  The serving path is forward-only and runs
+under ``torch.no_grad`` with no checkpointing (the reference's inference plan
+sets ``remat="none"``).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core import evoformer as evo
+from repro_torch.core import heads as heads_lib
+from repro_torch.core import structure as struct
+from repro_torch.core.config import AlphaFold2Config
+from repro_torch.device import resolve_device
+from repro_torch.nn.layers import Dense, LayerNorm, Policy, dense, layernorm
+
+
+# ---------------------------------------------------------------------------
+# Input embedder (Algorithm 3) + recycling embedder (Algorithm 32)
+# ---------------------------------------------------------------------------
+
+class Embedder(nn.Module):
+    def __init__(self, cfg: AlphaFold2Config, *, generator: torch.Generator):
+        super().__init__()
+        g = generator
+        rel_dim = 2 * cfg.max_relative_idx + 1
+        self.msa_proj = Dense(cfg.msa_feat_dim, cfg.c_m, generator=g)
+        self.target_msa = Dense(cfg.target_feat_dim, cfg.c_m, generator=g)
+        self.target_left = Dense(cfg.target_feat_dim, cfg.c_z, generator=g)
+        self.target_right = Dense(cfg.target_feat_dim, cfg.c_z, generator=g)
+        self.relpos = Dense(rel_dim, cfg.c_z, generator=g)
+        self.extra_msa_proj = Dense(cfg.msa_feat_dim, cfg.extra.c_m, generator=g)
+        self.rec_msa_ln = LayerNorm(cfg.c_m)
+        self.rec_z_ln = LayerNorm(cfg.c_z)
+        self.rec_dist = Dense(15, cfg.c_z, generator=g)
+        self.single_proj = Dense(cfg.c_m, cfg.structure.c_s, generator=g)
+
+
+class AlphaFold2(nn.Module):
+    """All parameters, under the reference's key paths (``embedder.*``,
+    ``extra_stack.<i>.*``, ``evoformer.<i>.*``, ``structure.*``, ``heads.*``).
+    Initialised from ``seed`` (or a CPU ``generator``), fp32, then moved to
+    ``device``: ``cuda`` by default, raising without a card unless
+    ``device="cpu"`` is passed."""
+
+    def __init__(self, cfg: AlphaFold2Config, *, seed: int = 0,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        g = generator if generator is not None else torch.Generator().manual_seed(seed)
+        self.embedder = Embedder(cfg, generator=g)
+        self.extra_stack = nn.ModuleList(
+            evo.EvoformerBlock(cfg.extra, generator=g)
+            for _ in range(cfg.n_extra_msa_blocks))
+        self.evoformer = nn.ModuleList(
+            evo.EvoformerBlock(cfg.evoformer, generator=g)
+            for _ in range(cfg.n_evoformer))
+        self.structure = struct.StructureModule(cfg.structure, generator=g)
+        self.heads = heads_lib.Heads(cfg, generator=g)
+        self.to(device)
+
+
+def embed_inputs(p: Embedder, cfg: AlphaFold2Config, batch: dict,
+                 dtype=torch.bfloat16):
+    """batch: msa_feat (s, r, f_m), target_feat (r, f_t), residue_index (r,),
+    extra_msa_feat (se, r, f_m)."""
+    tf = batch["target_feat"].to(dtype)
+    msa = dense(p.msa_proj, batch["msa_feat"].to(dtype))
+    msa = msa + dense(p.target_msa, tf)[None]
+    z = dense(p.target_left, tf)[:, None] + dense(p.target_right, tf)[None, :]
+    ri = batch["residue_index"].long()
+    m = cfg.max_relative_idx
+    rel = torch.clamp(ri[:, None] - ri[None, :], -m, m) + m
+    z = z + dense(p.relpos, F.one_hot(rel, 2 * m + 1).to(dtype))
+    extra = dense(p.extra_msa_proj, batch["extra_msa_feat"].to(dtype))
+    return msa, z, extra
+
+
+# float32 edges of the reference's jnp.linspace(3.375, 21.375, 14), bit for
+# bit (torch.linspace rounds three of them one ulp apart, which would move
+# a distance sitting on an edge into the next bin)
+_RECYCLE_EDGES = tuple(float.fromhex(h) for h in (
+    "0x1.b000000000000p+1", "0x1.309d8a0000000p+2", "0x1.893b140000000p+2",
+    "0x1.e1d89e0000000p+2", "0x1.1d3b140000000p+3", "0x1.4989d80000000p+3",
+    "0x1.75d89e0000000p+3", "0x1.a227640000000p+3", "0x1.ce76280000000p+3",
+    "0x1.fac4ee0000000p+3", "0x1.1389da0000000p+4", "0x1.29b13c0000000p+4",
+    "0x1.3fd89e0000000p+4", "0x1.5600000000000p+4"))
+
+
+def recycle_distance_bins(x: torch.Tensor) -> torch.Tensor:
+    """CA coords (..., r, 3) -> binned distance map (..., r, r) int32: THE
+    recycling discretization (15 bins), shared by the recycling embedder and
+    ``predict``'s convergence test."""
+    d = torch.sqrt((x[..., :, None, :] - x[..., None, :, :]).square().sum(-1)
+                   + 1e-8)
+    edges = torch.tensor(_RECYCLE_EDGES, dtype=torch.float32, device=x.device)
+    return (d[..., None] > edges).sum(-1).to(torch.int32)
+
+
+def embed_recycle(p: Embedder, cfg: AlphaFold2Config, msa, z, prev):
+    """Add the recycled first MSA row, pair rep and binned CA distances."""
+    prev_msa0, prev_z, prev_x = prev
+    row0 = msa[0] + layernorm(p.rec_msa_ln, prev_msa0).to(msa.dtype)
+    msa = torch.cat([row0[None], msa[1:]], 0)
+    z = z + layernorm(p.rec_z_ln, prev_z).to(z.dtype)
+    bins = F.one_hot(recycle_distance_bins(prev_x).long(), 15).to(z.dtype)
+    return msa, z + dense(p.rec_dist, bins)
+
+
+# ---------------------------------------------------------------------------
+# Stacks and trunk
+# ---------------------------------------------------------------------------
+
+def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
+                    masks: Optional[evo.EvoMasks] = None):
+    """Apply the blocks in order (the reference scans over stacked params)."""
+    for blk in blocks:
+        m, zz = evo.evoformer_block(blk, cfg_block, msa, z, masks=masks)
+        msa, z = m.to(msa.dtype), zz.to(z.dtype)
+    return msa, z
+
+
+def trunk_masks(batch) -> Optional[dict]:
+    """Padded-bucket validity masks of an inference sample, or None when it
+    carries no row mask (``res_mask`` alone does not trigger masking)."""
+    if not any(k in batch for k in ("msa_row_mask", "extra_row_mask")):
+        return None
+    return {"res": batch.get("res_mask"),
+            "msa_rows": batch.get("msa_row_mask"),
+            "extra_rows": batch.get("extra_row_mask")}
+
+
+def run_trunk(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, *,
+              dtype=torch.bfloat16, masks: Optional[dict] = None):
+    """One recycling iteration of the trunk: returns (msa, z, single)."""
+    msa, z, extra = embed_inputs(params.embedder, cfg, batch, dtype)
+    msa, z = embed_recycle(params.embedder, cfg, msa, z, prev)
+    extra_masks = main_masks = None
+    if masks is not None:
+        ones = lambda n: torch.ones((n,), device=z.device)
+        res = masks.get("res")
+        res = ones(z.shape[0]) if res is None else res
+        rows = masks.get("extra_rows")
+        extra_masks = evo.EvoMasks(ones(extra.shape[0]) if rows is None else rows, res)
+        rows = masks.get("msa_rows")
+        main_masks = evo.EvoMasks(ones(msa.shape[0]) if rows is None else rows, res)
+    _, z = evoformer_stack(params.extra_stack, cfg.extra, extra, z,
+                           masks=extra_masks)
+    msa, z = evoformer_stack(params.evoformer, cfg.evoformer, msa, z,
+                             masks=main_masks)
+    single = dense(params.embedder.single_proj, msa[0])
+    return msa, z, single
+
+
+# ---------------------------------------------------------------------------
+# Inference: batched recycling with per-sample early exit
+# ---------------------------------------------------------------------------
+
+def fold_pair_mask(batch):
+    """(pair_mask (B, r, r), pair_count (B,)): padded residues never vote on
+    whether a sample converged."""
+    bsz, r = batch["target_feat"].shape[:2]
+    res_mask = batch.get("res_mask")
+    dev = batch["target_feat"].device
+    if res_mask is not None:
+        pair_mask = (res_mask[:, :, None] * res_mask[:, None, :]).float()
+    else:
+        pair_mask = torch.ones((bsz, r, r), device=dev)
+    return pair_mask, torch.clamp(pair_mask.sum((1, 2)), min=1.0)
+
+
+def fold_carry_init(cfg: AlphaFold2Config, bsz: int, r: int, dtype, device):
+    """Zero recycling carry: (prev (msa0, z, x), s_final)."""
+    prev = (torch.zeros((bsz, r, cfg.c_m), dtype=dtype, device=device),
+            torch.zeros((bsz, r, r, cfg.c_z), dtype=dtype, device=device),
+            torch.zeros((bsz, r, 3), device=device))
+    return prev, torch.zeros((bsz, r, cfg.structure.c_s), dtype=dtype,
+                             device=device)
+
+
+def fold_cycle(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, sf,
+               conv, n_rec, *, tol: float, pair_mask, pair_count,
+               dtype=torch.bfloat16, active=None):
+    """ONE batched recycling cycle with per-sample freeze semantics.
+
+    ``params`` is already cast to the compute dtype.  A converged sample, or
+    an unoccupied micro-batch slot (``active`` False), keeps its carry and
+    its recycle count; the reference computes it and throws the result
+    away, this loop skips it, which gives the same carry.
+    """
+    keep = conv if active is None else (conv | ~active)
+    new_prev = [t.clone() for t in prev]
+    new_sf = sf.clone()
+    for b, frozen in enumerate(keep.tolist()):
+        if frozen:
+            continue
+        sample = {k: v[b] for k, v in batch.items()}
+        msa, z, single = run_trunk(params, cfg, sample, tuple(t[b] for t in prev),
+                                   dtype=dtype, masks=trunk_masks(sample))
+        (_, trans), _, s_final = struct.structure_module(
+            params.structure, cfg.structure, single, z, sample.get("res_mask"))
+        new_prev[0][b], new_prev[1][b], new_prev[2][b] = msa[0], z, trans
+        new_sf[b] = s_final
+    old_bins = recycle_distance_bins(prev[2])
+    new_bins = recycle_distance_bins(new_prev[2])
+    frac = ((old_bins != new_bins) * pair_mask).sum((1, 2)) / pair_count
+    n_rec = n_rec + (~keep).to(n_rec.dtype)
+    conv = conv | ((frac < tol) & ~keep)
+    return tuple(new_prev), new_sf, conv, n_rec
+
+
+def fold_heads(params: AlphaFold2, cfg: AlphaFold2Config, z, s_final) -> dict:
+    """Confidence heads over a batched carry (params already cast)."""
+    plddt_logits = heads_lib.plddt_logits(params.heads, s_final)
+    disto_logits = heads_lib.distogram_logits(params.heads, z)
+    return {
+        "plddt": heads_lib.plddt_from_logits(plddt_logits),
+        "contact_probs": heads_lib.contact_probs_from_distogram(disto_logits),
+        "plddt_logits": plddt_logits,
+        "distogram_logits": disto_logits,
+    }
+
+
+@torch.no_grad()
+def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
+            max_recycle: int, tol: float = 0.0, dtype=torch.bfloat16,
+            active=None) -> dict:
+    """Batched inference with adaptive early-exit recycling.
+
+    ``batch``: per-sample features with a leading batch axis (B, ...) —
+    msa_feat, extra_msa_feat, target_feat, residue_index, plus (padded
+    buckets) res_mask / msa_row_mask / extra_row_mask.  Arrays are moved to
+    the model's device.  A sample converges when fewer than ``tol`` of its
+    valid residue pairs changed recycling bin in a cycle, and then freezes;
+    the loop ends when all froze or ``max_recycle`` cycles ran.  ``tol=0``
+    never converges.  ``active`` (B,) bool marks the occupied slots of a
+    padded micro-batch: the others never run (``n_recycles`` 0).
+
+    Returns coords (B, r, 3) fp32, plddt (B, r), contact_probs (B, r, r),
+    the plddt / distogram logits, n_recycles (B,) and converged (B,).
+    """
+    if max_recycle < 1:
+        raise ValueError(f"max_recycle must be >= 1, got {max_recycle}")
+    device = next(model.parameters()).device
+    params = Policy(compute_dtype=dtype).cast(model)   # fp32 -> compute, once
+    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    bsz, r = batch["target_feat"].shape[:2]
+    prev, sf = fold_carry_init(cfg, bsz, r, dtype, device)
+    pair_mask, pair_count = fold_pair_mask(batch)
+    conv = torch.zeros((bsz,), dtype=torch.bool, device=device)
+    n_rec = torch.zeros((bsz,), dtype=torch.int32, device=device)
+    if active is not None:
+        active = torch.as_tensor(active, dtype=torch.bool, device=device)
+    for _ in range(max_recycle):
+        if bool((conv if active is None else conv | ~active).all()):
+            break
+        prev, sf, conv, n_rec = fold_cycle(
+            params, cfg, batch, prev, sf, conv, n_rec, tol=tol,
+            pair_mask=pair_mask, pair_count=pair_count, dtype=dtype,
+            active=active)
+    _, z, coords = prev
+    out = fold_heads(params, cfg, z, sf)
+    out.update(coords=coords, n_recycles=n_rec, converged=conv)
+    return out

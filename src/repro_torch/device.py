@@ -1,0 +1,19 @@
+"""Where the port runs: the card, unless the caller asks for the CPU."""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+
+def resolve_device(device: Optional[Union[str, torch.device]] = None
+                   ) -> torch.device:
+    """``None`` -> ``cuda``, raising when no card is visible; anything else
+    is taken as given.  The port never drops to the CPU on its own."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device visible: the port runs on the GPU; pass "
+                "device='cpu' to run it on the CPU")
+        return torch.device("cuda")
+    return torch.device(device)

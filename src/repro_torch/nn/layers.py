@@ -1,0 +1,104 @@
+"""Basic layers: parameter-holding modules plus the functions that apply them.
+
+Counterpart of ``repro/nn/layers.py``.  Conventions:
+
+* A module holds parameters under the JAX pytree's names (``Dense.w`` of
+  shape (in, out) and ``Dense.b``; ``LayerNorm.scale`` / ``.bias``), so a
+  ``state_dict`` key is the JAX key path joined with dots.
+* The apply function takes the module as its ``p`` argument, as the JAX
+  functions take a params dict: ``dense(p, x) = x @ p.w + p.b``.
+* Modules initialise themselves as the JAX ``*_init`` functions do, drawing
+  on the CPU from a ``torch.Generator`` (the same seed gives the same weights
+  on any device); ``.to(device)`` then places them.
+* Parameters are fp32 masters; :class:`Policy` casts them to the compute
+  dtype once at the model's entry (paper §5.1 AMP recipe).
+"""
+from __future__ import annotations
+
+import copy
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class Policy:
+    """Mixed-precision policy (fp32 params, bf16 activations)."""
+
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+
+    def cast(self, module: nn.Module) -> nn.Module:
+        """``module`` with floating parameters in the compute dtype: the
+        module itself when nothing changes, else a cast copy (the fp32
+        masters are left as they are)."""
+        if all(p.dtype == self.compute_dtype or not p.is_floating_point()
+               for p in module.parameters()):
+            return module
+        with torch.no_grad():
+            return copy.deepcopy(module).to(self.compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Linear / dense
+# ---------------------------------------------------------------------------
+
+def lecun_normal(shape, generator: torch.Generator, scale: float = 1.0):
+    """Truncated (±2σ) normal with σ = scale / sqrt(fan_in), fan_in = shape[0]."""
+    w = torch.empty(shape, dtype=torch.float32)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w * (float(scale) / shape[0] ** 0.5)
+
+
+class Dense(nn.Module):
+    """``w`` (in, out) lecun truncated normal, or zeros for ``scale="zeros"``
+    (AF2 final layers); ``b`` zeros, or absent with ``use_bias=False``."""
+
+    def __init__(self, in_dim: int, out_dim: int, *, generator: torch.Generator,
+                 use_bias: bool = True, scale: float | str = 1.0):
+        super().__init__()
+        if scale == "zeros":
+            w = torch.zeros((in_dim, out_dim))
+        else:
+            w = lecun_normal((in_dim, out_dim), generator, scale)
+        self.w = nn.Parameter(w)
+        if use_bias:
+            self.b = nn.Parameter(torch.zeros((out_dim,)))
+        else:
+            self.register_parameter("b", None)
+
+
+def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p.w
+    if p.b is not None:
+        y = y + p.b
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Normalization
+# ---------------------------------------------------------------------------
+
+class LayerNorm(nn.Module):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones((dim,)))
+        self.bias = nn.Parameter(torch.zeros((dim,)))
+
+
+def layernorm(p: LayerNorm, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with fp32 statistics and fp32 normalisation, output in x's
+    dtype (the reference's default ``LN_FP32_IO=True`` path).  With the
+    params in x's dtype this is one ``F.layer_norm`` call, which computes in
+    fp32 internally for bf16 inputs; otherwise x is upcast first."""
+    if p.scale.dtype == x.dtype:
+        return F.layer_norm(x, x.shape[-1:], p.scale, p.bias, eps)
+    y = F.layer_norm(x.float(), x.shape[-1:], p.scale.float(), p.bias.float(),
+                     eps)
+    return y.to(x.dtype)
+
+
+def count_params(module: nn.Module) -> int:
+    return sum(p.numel() for p in module.parameters())

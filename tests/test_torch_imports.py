@@ -1,0 +1,59 @@
+"""Import hygiene of the PyTorch port: ``repro_torch`` and ``chip_smoke.py``
+import no JAX and nothing of the JAX package ``repro``."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        yield ".".join(parts), path
+
+
+def _imported_names(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_jax_or_reference_imports_in_source():
+    files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = []
+    for path in files:
+        for name in _imported_names(path):
+            top = name.split(".")[0]
+            if top in ("jax", "jaxlib", "flax", "repro"):
+                bad.append(f"{path.relative_to(ROOT)}: {name}")
+    assert not bad, bad
+
+
+def test_every_module_imports_with_jax_blocked():
+    names = [m for m, _ in _modules()]
+    code = (
+        "import sys\n"
+        "for blocked in ('jax', 'jaxlib', 'repro'):\n"
+        "    sys.modules[blocked] = None\n"
+        "import importlib\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert not any(k == 'jax' or k.startswith(('jax.', 'repro.'))\n"
+        "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok', len(sys.modules))\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.startswith("ok")

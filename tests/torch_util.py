@@ -1,0 +1,58 @@
+"""Helpers shared by the port's parity tests (tests/test_torch_*.py): carry
+JAX parameters and numpy inputs into the PyTorch port."""
+import dataclasses
+
+import jax
+import numpy as np
+import torch
+
+from repro_torch import bridge
+
+
+def np_tree(params):
+    """JAX pytree -> the same nested dict with numpy leaves."""
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def randomize_np(tree, seed: int, scale: float = 0.02):
+    """``tests/util.py::randomize`` drawn with numpy: every leaf plus
+    N(0, scale) noise, so AF2's zero-init output layers do not make a
+    comparison vacuous.  For whole-model trees: jax.random over the full
+    af2_tiny tree takes ~25 s to compile on the CPU."""
+    rng = np.random.default_rng(seed)
+    return jax.tree_util.tree_map(
+        lambda x: (np.asarray(x) + scale * rng.standard_normal(np.shape(x))
+                   ).astype(np.asarray(x).dtype), tree)
+
+
+def load_into(module, params, *, stacked=bridge.STACKED):
+    """Load a JAX param tree into a port module through the bridge."""
+    return bridge.load_jax_params(module, np_tree(params), stacked=stacked)
+
+
+def port_cfg(cfg):
+    """Port config: every attention / triangle update on the kernel impls
+    (their plain versions, on CPU tensors)."""
+    from repro_torch.core import config as tcfg
+    ev = tcfg.EvoformerConfig(**dataclasses.asdict(cfg.evoformer))
+    ex = tcfg.EvoformerConfig(**dataclasses.asdict(cfg.extra))
+    st = tcfg.StructureConfig(**dataclasses.asdict(cfg.structure))
+    top = {f.name: getattr(cfg, f.name)
+           for f in dataclasses.fields(cfg)
+           if f.name not in ("evoformer", "extra", "structure")}
+    return tcfg.with_kernels(tcfg.AlphaFold2Config(
+        evoformer=ev, extra=ex, structure=st, **top))
+
+
+def t(x, dtype=torch.float32):
+    return torch.as_tensor(np.array(x)).to(dtype)
+
+
+def to_np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
+
+
+def max_abs(a, b) -> float:
+    return float(np.max(np.abs(to_np(a) - to_np(b))))
