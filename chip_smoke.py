@@ -20,6 +20,20 @@ Phases, each raising on failure (exit code != 0, no result line):
   6. profile: one more largest-bucket step of the main path's engine,
      plain and under torch.profiler (device busy time, idle share, time by
      kernel family).
+  7. training kernels: K1 with its log-sum-exp, K2, K3 with its fp32 s, K4
+     and K5 against their plain versions at every shape the af2_initial
+     training step gives them, plus ragged shapes (S 100, r 100), in bf16
+     and at one fp32 shape each; max |diff|, kernel / plain / library
+     times and the bound.
+  8. small train step: af2_tiny loss and every parameter gradient on the
+     card (kernels K1-K5) against the CPU (their plain versions), fp32 and
+     bf16.
+  9. training main path: TrainRunner at af2_initial width and depth (48 + 4
+     blocks, r 256 s 128 se 1024), batch 1, its defaults (AdamW, per-sample
+     clipping, EMA, stochastic recycling 1..4, dropout, remat="block"), one
+     warm-up step then 3 steps; finite losses and gradient norms, changed
+     parameters and EMA, launch counters equal to what each step's drawn
+     n_recycle implies; then one more step under torch.profiler.
 Then one JSON line of kernel figures, the nvidia-smi line, and the result
 line ``{"ok": true, "device": {...}}`` last.
 """
@@ -37,8 +51,10 @@ import torch.nn.functional as F
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet, dense): bf16 tensor cores, fp32 outside
+# the tensor cores, HBM3
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 # kernel vs plain version: |diff| <= ATOL + RTOL * |plain|, bf16 outputs
 # (the reference's bf16 tolerance, plus one bf16 ulp relative)
@@ -77,8 +93,8 @@ def check_close(got, want, what: str) -> float:
     return err
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -315,8 +331,9 @@ def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
         sample_cycles += res.n_recycles
     k1 = 4 * cfg.n_evoformer + 3 * cfg.n_extra_msa_blocks
     k3 = 2 * (cfg.n_evoformer + cfg.n_extra_msa_blocks)
-    want = {"evo_attention_fwd": k1 * sample_cycles,
-            "triangle_mult_fwd": k3 * sample_cycles}
+    want = {k: 0 for k in counts}     # serving launches no backward kernel
+    want.update(evo_attention_fwd=k1 * sample_cycles,
+                triangle_mult_fwd=k3 * sample_cycles)
     assert counts == want, f"launches {counts} != path's {want}"
     return sample_cycles
 
@@ -327,8 +344,16 @@ def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
 
 def kernel_family(name: str) -> str:
     n = name.lower()
-    if "evo_attention" in n:
+    if "evo_attention_fwd" in n:
         return "K1 evo_attention_fwd"
+    if "evo_bwd" in n:
+        return "K2 evo_attention_bwd"
+    if "tri_proj_f32" in n or "tri_dx" in n:
+        return "K5 triangle_mult_bwd_dx"
+    if "tri_epi" in n:
+        return "K4 triangle_mult_bwd_epilogue (per-pair pass)"
+    if "outer_acc" in n or "col_sum" in n or "sum_chunks" in n:
+        return "K2/K4/K5 gradient sums over rows and chunks"
     if "tri_proj" in n:
         return "K3 gated projections"
     if "tri_contract" in n:
@@ -355,18 +380,26 @@ def union_ms(spans) -> float:
 
 def profile_step(engine, reqs, done):
     """Serve the main path's largest-bucket requests again (warm, same model
-    and inputs): once plain, once under torch.profiler.  Prints both walls,
-    the device's busy time (union of kernel intervals) and its idle share of
-    the profiled wall, device time by kernel family and the top kernels.
-    The Chrome trace goes to build/profile/fold_trace.json."""
-    from torch.profiler import ProfilerActivity, profile
+    and inputs): once plain, once under torch.profiler (see
+    :func:`profile_run`)."""
     top = max(res.bucket for res in done.values())
     group = [r for r in reqs if done[r.rid].bucket == top]
+    profile_run(lambda: engine.run(group), "fold",
+                f"bucket {top.describe()}, {len(group)} requests x "
+                f"{engine.max_recycle} recycles")
+
+
+def profile_run(work, tag: str, what: str):
+    """Run ``work`` once plain and once under torch.profiler.  Prints both
+    walls, the device's busy time (union of kernel intervals) and its idle
+    share of the profiled wall, device time by kernel family and the top
+    kernels.  The Chrome trace goes to build/profile/<tag>_trace.json."""
+    from torch.profiler import ProfilerActivity, profile
 
     def run():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.run(group)
+        work()
         torch.cuda.synchronize()
         return 1e3 * (time.perf_counter() - t0)
 
@@ -374,7 +407,7 @@ def profile_step(engine, reqs, done):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_prof = run()
-    path = ROOT / "build" / "profile" / "fold_trace.json"
+    path = ROOT / "build" / "profile" / f"{tag}_trace.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(str(path))
     events = json.loads(path.read_text())["traceEvents"]
@@ -388,16 +421,420 @@ def profile_step(engine, reqs, done):
         f = kernel_family(e["name"])
         by_family[f] = by_family.get(f, 0.0) + e["dur"] / 1e3
     busy = union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
-    print(f"[profile] bucket {top.describe()}, {len(group)} requests x "
-          f"{engine.max_recycle} recycles: wall {wall_plain:.1f} ms plain, "
+    print(f"[profile {tag}] {what}: wall {wall_plain:.1f} ms plain, "
           f"{wall_prof:.1f} ms under the profiler; device busy {busy:.1f} ms, "
           f"idle share {1 - busy / wall_prof:.3f} of the profiled wall; "
           f"{len(kernels)} kernel launches", flush=True)
     for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
-        print(f"[profile family] {ms:10.2f} ms  {ms / busy:6.3f}  {f}")
+        print(f"[profile {tag} family] {ms:10.2f} ms  {ms / busy:6.3f}  {f}")
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:20]:
-        print(f"[profile kernel] {ms:10.2f} ms  {n:6d}  {name[:110]}")
+        print(f"[profile {tag} kernel] {ms:10.2f} ms  {n:6d}  {name[:110]}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the training kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_grad_close(got, want, what: str, extra=0.0) -> float:
+    """|kernel - plain| <= 1e-4 * max(1, max|plain|) + rtol * |plain|
+    (+ ``extra``), rtol 2^-7 for a bf16 output (one ulp either side), 1e-5
+    for an fp32 one: both compute in fp32 from the same inputs, in another
+    order."""
+    if want is None:
+        if got is not None:
+            raise AssertionError(f"{what}: unexpected output")
+        return 0.0
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    rtol = 2.0 ** -7 if got.dtype == torch.bfloat16 else 1e-5
+    atol = 1e-4 * max(1.0, w.abs().max().item())
+    d = (g - w).abs()
+    if ((d - atol - rtol * w.abs() - extra).max().item()) > 0:
+        raise AssertionError(f"{what}: max |diff| {d.max().item()} over "
+                             f"tolerance (max |plain| {w.abs().max().item()})")
+    return d.max().item()
+
+
+def train_shapes(cfg):
+    """Shapes the af2_initial training step gives the kernels (full bucket
+    r 256, s 128, se 1024; no key masks), with launches per sample-cycle of
+    the backward (each forward kernel runs twice as often with its residual:
+    forward and remat recompute), plus ragged shapes (0 per cycle).  K1/K2:
+    (name, (L, S, H, C), per cycle, biased); K3/K4/K5: (name, r, outgoing,
+    per cycle of K4 (K5 twice that))."""
+    ev, ex = cfg.evoformer, cfg.extra
+    r, s, se = cfg.n_res, cfg.n_seq, cfg.n_extra_seq
+    att = [("msa_row", (s, r, ev.n_head_msa, ev.c_hidden_att), cfg.n_evoformer, True),
+           ("msa_col", (r, s, ev.n_head_msa, ev.c_hidden_att), cfg.n_evoformer, False),
+           ("triangle_start_end", (r, r, ev.n_head_pair, ev.c_hidden_pair_att),
+            2 * (cfg.n_evoformer + cfg.n_extra_msa_blocks), True),
+           ("extra_row", (se, r, ex.n_head_msa, ex.c_hidden_att),
+            cfg.n_extra_msa_blocks, True),
+           ("ragged", (64, 100, 4, 32), 0, True),
+           ("ragged_nobias", (64, 100, 4, 32), 0, False)]
+    assert ev.c_hidden_pair_att == ex.c_hidden_pair_att
+    assert ev.n_head_pair == ex.n_head_pair
+    per = cfg.n_evoformer + cfg.n_extra_msa_blocks
+    tri = [("outgoing", r, True, per), ("incoming", r, False, per),
+           ("ragged_incoming", 100, False, 0)]
+    return att, tri
+
+
+def _rand(g, shape, dtype, scale=1.0):
+    return (scale * torch.randn(shape, device=g.device, generator=g)).to(dtype)
+
+
+def _tot():
+    return {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+            "flops": 0.0, "bytes": 0.0, "err": 0.0}
+
+
+def _add(tot, per, ms, plain_ms, lib_ms, b_ms, flops, nbytes, err):
+    for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                     ("library_ms", lib_ms), ("bound_ms", b_ms),
+                     ("flops", flops), ("bytes", nbytes)):
+        tot[key] += per * val
+    tot["err"] = max(tot["err"], err)
+
+
+def check_attention_train(dev, shapes, dtype, fp32_shape):
+    """K1 with its log-sum-exp and K2, per shape: max |diff| against the
+    plain versions, times, bounds.  Returns (rows, {K1-lse, K2} totals per
+    sample-cycle of bf16 training)."""
+    from repro_torch.kernels import evo_attention as ka
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(7)
+    rows, tots = [], {"k1_lse": _tot(), "k2": _tot()}
+    runs = [(n, sh, per, b, dtype) for n, sh, per, b in shapes]
+    runs.append(("fp32_" + fp32_shape[0], fp32_shape[1], 0, True, torch.float32))
+    for name, (L, S, H, C), per, biased, dt in runs:
+        el = 2 if dt == torch.bfloat16 else 4
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        q, k, v, gate, do = (_rand(g, (L, S, H, C), dt) for _ in range(5))
+        bias = _rand(g, (H, S, S), dt) if biased else None
+        out, lse = ka.evo_attention_fwd(q, k, v, bias, gate, return_lse=True)
+        out_r, lse_r = ref.evo_attention_ref(q, k, v, bias, gate, return_lse=True)
+        torch.cuda.synchronize()
+        err_f = max(check_close(out, out_r, f"K1 {name}"),
+                    check_grad_close(lse, lse_r, f"K1 lse {name}"))
+        got = ka.evo_attention_bwd(q, k, v, bias, gate, out_r, lse_r, do)
+        want = ref.evo_attention_bwd_ref(q, k, v, bias, gate, out_r, lse_r, do)
+        torch.cuda.synchronize()
+        # bf16 outputs: dS, P and do_raw are rounded to bf16 as tensor-core
+        # operands on both sides, from fp32 values summed in another order,
+        # so a few terms may round one ulp apart: one bf16 ulp of the
+        # output's largest value on top
+        lowp = lambda b: b is not None and b.dtype == torch.bfloat16
+        err_b = max(check_grad_close(
+            a, b, f"K2 {name} {n}",
+            2.0 ** -7 * max(1.0, b.abs().max().item()) if lowp(b) else 0.0)
+                    for n, a, b in zip(("dq", "dk", "dv", "dbias", "dgate"),
+                                       got, want))
+        del got, want
+        big = L * S * S * H >= 2 ** 27
+        iters = 5 if big else 20
+        ms_f = cuda_time(lambda: ka.evo_attention_fwd(
+            q, k, v, bias, gate, return_lse=True), iters)
+        ms_b = cuda_time(lambda: ka.evo_attention_bwd(
+            q, k, v, bias, gate, out, lse, do), iters)
+        plain_f = cuda_time(lambda: ref.evo_attention_ref(
+            q, k, v, bias, gate, return_lse=True), 2)
+        plain_b = cuda_time(lambda: ref.evo_attention_bwd_ref(
+            q, k, v, bias, gate, out, lse, do), 2)
+        # library: scaled_dot_product_attention with the same float bias
+        # (no gate); backward = autograd's dq, dk, dv (no dbias asked)
+        qt, kt_, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                       for t in (q, k, v))
+        mask = None if bias is None else bias.to(dt)
+        lib_f = cuda_time(lambda: F.scaled_dot_product_attention(
+            qt, kt_, vt, attn_mask=mask), iters)
+        o_lib = F.scaled_dot_product_attention(qt, kt_, vt, attn_mask=mask)
+        do_t = do.transpose(1, 2)
+        lib_b = cuda_time(lambda: torch.autograd.grad(
+            o_lib, (qt, kt_, vt), do_t, retain_graph=True), iters)
+        del o_lib, qt, kt_, vt
+        act = L * S * H * C * el
+        f_flops = 4.0 * L * H * S * S * C
+        f_bytes = 5 * act + (H * S * S * el if biased else 0) + L * H * S * 4
+        b_flops = 10.0 * L * H * S * S * C
+        b_bytes = (10 * act + (H * S * S * (el + 4) if biased else 0)
+                   + L * H * S * 4)
+        bf_ms, bf_by = bound(f_flops, f_bytes, peak)
+        bb_ms, bb_by = bound(b_flops, b_bytes, peak)
+        rows.append(dict(kernel="K1+lse", shape=name, dtype=str(dt)[6:], L=L,
+                         S=S, H=H, C=C, biased=biased, per_cycle=2 * per,
+                         max_abs_err=err_f, ms=ms_f, plain_ms=plain_f,
+                         library_ms=lib_f, bound_ms=bf_ms, bound_by=bf_by))
+        rows.append(dict(kernel="K2", shape=name, dtype=str(dt)[6:], L=L,
+                         S=S, H=H, C=C, biased=biased, per_cycle=per,
+                         max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                         library_ms=lib_b, bound_ms=bb_ms, bound_by=bb_by))
+        if dt == torch.bfloat16:
+            _add(tots["k1_lse"], 2 * per, ms_f, plain_f, lib_f, bf_ms, f_flops,
+                 f_bytes, err_f)
+            _add(tots["k2"], per, ms_b, plain_b, lib_b, bb_ms, b_flops,
+                 b_bytes, err_b)
+        del q, k, v, gate, do, bias, out, lse, out_r, lse_r
+        torch.cuda.empty_cache()
+    return rows, tots
+
+
+def check_triangle_train(dev, shapes, c_z, c, dtype, fp32_shape):
+    """K3 with its fp32 s, K4, and K5 for both operand sides (the second
+    with ds transposed by strides), per shape.  Returns (rows, totals per
+    sample-cycle of bf16 training for K3-s, K4 and K5)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import triangle as kt
+    g = torch.Generator(device=dev).manual_seed(8)
+    rows, tots = [], {"k3_s": _tot(), "k4": _tot(), "k5": _tot()}
+    runs = [(n, r, o, per, dtype) for n, r, o, per in shapes]
+    runs.append(("fp32_" + fp32_shape[0], fp32_shape[1], fp32_shape[2], 0,
+                 torch.float32))
+    for name, r, outgoing, per, dt in runs:
+        el = 2 if dt == torch.bfloat16 else 4
+        peak = PEAK_BF16_FLOPS if dt == torch.bfloat16 else PEAK_FP32_FLOPS
+        x = _rand(g, (r, r, c_z), dt)
+        w = (_rand(g, (c_z, 2 * c), dt, c_z ** -0.5), _rand(g, (2 * c,), dt, 0.5),
+             _rand(g, (c_z, 2 * c), dt, c_z ** -0.5), _rand(g, (2 * c,), dt, 0.5),
+             (1 + _rand(g, (c,), torch.float32, 0.1)).to(dt),
+             _rand(g, (c,), dt, 0.1), _rand(g, (c, c_z), dt, c ** -0.5),
+             _rand(g, (c_z,), dt, 0.1), _rand(g, (c_z, c_z), dt, c_z ** -0.5),
+             _rand(g, (c_z,), dt, 0.5))
+        w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g = w
+        xab = x if outgoing else x.transpose(0, 1)
+        dy = _rand(g, (r, r, c_z), dt)
+        y, s_k = kt.triangle_mult_fwd(xab, xab, x, *w, return_s=True)
+        y_r, s_r = ref.triangle_mult_ref(xab, xab, x, *w, return_s=True)
+        torch.cuda.synchronize()
+        extra = 0.0
+        if dt == torch.bfloat16:
+            # K3 stages the gated projections in bf16 and the plain version
+            # rounds its own: an element may round one ulp apart, moving a
+            # term of s by up to 2^-7 |a_k b_k|
+            pa = ref.gated_projection(xab, w_a, b_a).to(dt).float().abs()
+            pb = ref.gated_projection(xab, w_b, b_b).to(dt).float().abs()
+            extra = 2.0 ** -7 * torch.einsum("ikc,jkc->ijc", pa, pb)
+            del pa, pb
+        err3 = max(check_close(y, y_r, f"K3 {name}"),
+                   check_grad_close(s_k, s_r, f"K3 s {name}", extra))
+        del extra
+        epi = kt.triangle_mult_bwd_epilogue(s_r, x, dy, ln_s, ln_b, w_o, b_o,
+                                            w_g, b_g)
+        epi_r = ref.triangle_mult_bwd_epilogue_ref(s_r, x, dy, ln_s, ln_b,
+                                                   w_o, b_o, w_g, b_g)
+        torch.cuda.synchronize()
+        err4 = max(check_grad_close(a, b, f"K4 {name} {i}")
+                   for i, (a, b) in enumerate(zip(epi, epi_r)))
+        ds = epi_r[0]
+        sides = ((ds, w_a, b_a, w_b, b_b), (ds.transpose(0, 1), w_b, b_b, w_a, b_a))
+        err5 = 0.0
+        for side, (dsv, wl, bl, ws, bs) in enumerate(sides):
+            got = kt.triangle_mult_bwd_dx(dsv, xab, xab, wl, bl, ws, bs)
+            want = ref.triangle_mult_bwd_dx_ref(dsv, xab, xab, wl, bl, ws, bs)
+            torch.cuda.synchronize()
+            err5 = max([err5] + [check_grad_close(a, b, f"K5 {name} side {side} {i}")
+                                 for i, (a, b) in enumerate(zip(got, want))])
+        del epi, epi_r, got, want
+        ms3 = cuda_time(lambda: kt.triangle_mult_fwd(xab, xab, x, *w,
+                                                     return_s=True), 10)
+        ms4 = cuda_time(lambda: kt.triangle_mult_bwd_epilogue(
+            s_k, x, dy, ln_s, ln_b, w_o, b_o, w_g, b_g), 10)
+        # the second side, as the backward calls it: ds transposed by strides
+        ms5 = cuda_time(lambda: kt.triangle_mult_bwd_dx(
+            ds.transpose(0, 1), xab, xab, w_b, b_b, w_a, b_a), 10)
+        plain3 = cuda_time(lambda: ref.triangle_mult_ref(xab, xab, x, *w,
+                                                         return_s=True), 2)
+        plain4 = cuda_time(lambda: ref.triangle_mult_bwd_epilogue_ref(
+            s_k, x, dy, ln_s, ln_b, w_o, b_o, w_g, b_g), 2)
+        plain5 = cuda_time(lambda: ref.triangle_mult_bwd_dx_ref(
+            ds.transpose(0, 1), xab, xab, w_b, b_b, w_a, b_a), 2)
+        # library: bf16 einsum of the k-contraction (K3); its autograd
+        # backward for one operand side (K5); none computes K4's LayerNorm
+        # + out-projection + gate backward in one call
+        a = ref.gated_projection(xab, w_a, b_a).to(dt).requires_grad_(True)
+        bb = ref.gated_projection(xab, w_b, b_b).to(dt)
+        lib3 = cuda_time(lambda: torch.einsum("ikc,jkc->ijc", a, bb), 10)
+        s_lib = torch.einsum("ikc,jkc->ijc", a, bb)
+        ds_lib = ds.to(dt)
+        lib5 = cuda_time(lambda: torch.autograd.grad(
+            s_lib, a, ds_lib, retain_graph=True), 10)
+        del s_lib, a, bb
+        P = r * r
+        f3 = (2 * 2.0 * P * c_z * 2 * c + 2.0 * r ** 3 * c + 2.0 * P * c * c_z
+              + 2.0 * P * c_z * c_z)
+        by3 = 2 * P * c_z * el + sum(t.numel() * el for t in w) + P * c * 4
+        f4 = 6 * 2.0 * P * c * c_z
+        by4 = P * c * 4 * 2 + 3 * P * c_z * el + (c * c_z + c_z * c_z) * (el + 4)
+        f5 = 2.0 * r ** 3 * c + 4 * 2.0 * P * c_z * 2 * c
+        by5 = P * c * 4 + 3 * P * c_z * el + 2 * c_z * 2 * c * el + c_z * 2 * c * 4
+        b3, b3_by = bound(f3, by3, peak)
+        b4, b4_by = bound(f4, by4, peak)
+        b5, b5_by = bound(f5, by5, peak)
+        common = dict(shape=name, dtype=str(dt)[6:], r=r, c_z=c_z, c=c)
+        rows += [dict(kernel="K3+s", per_cycle=2 * per, max_abs_err=err3, ms=ms3,
+                      plain_ms=plain3, library_ms=lib3, bound_ms=b3,
+                      bound_by=b3_by, **common),
+                 dict(kernel="K4", per_cycle=per, max_abs_err=err4, ms=ms4,
+                      plain_ms=plain4, library_ms=None, bound_ms=b4,
+                      bound_by=b4_by, **common),
+                 dict(kernel="K5", per_cycle=2 * per, max_abs_err=err5, ms=ms5,
+                      plain_ms=plain5, library_ms=lib5, bound_ms=b5,
+                      bound_by=b5_by, **common)]
+        if dt == torch.bfloat16:
+            _add(tots["k3_s"], 2 * per, ms3, plain3, lib3, b3, f3, by3, err3)
+            _add(tots["k4"], per, ms4, plain4, 0.0, b4, f4, by4, err4)
+            _add(tots["k5"], 2 * per, ms5, plain5, lib5, b5, f5, by5, err5)
+        del x, w, dy, y, s_k, y_r, s_r, ds
+        torch.cuda.empty_cache()
+    tots["k4"]["library_ms"] = None
+    return rows, tots
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: af2_tiny loss gradients, card against CPU
+# ---------------------------------------------------------------------------
+
+def small_train_check(dev):
+    """af2_tiny training loss (n_recycle 2, no dropout) and every parameter
+    gradient through the kernels on the card against the plain versions on
+    the CPU.  The loss is ``loss_fn``'s, with one change: the pLDDT term's
+    target bins (the binned lDDT-Cα of the predicted structure, a step
+    function of the predicted distances) are those of the CPU's fp32 run on
+    both sides, so a rounding-level move of a distance across an lDDT
+    threshold cannot change the loss being compared.  fp32: the loss within
+    1e-5 relative, each gradient leaf within 1e-4 * max(1, max|leaf|) +
+    1e-3 |x| (the CPU's own tolerance against JAX).  bf16: the card's
+    gradients may stray from the CPU's fp32 ones at most 3x as far
+    (relative L2 over all leaves) as the CPU's own bf16 gradients do.
+    Returns (fp32 max |diff|, bf16 card distance, bf16 CPU distance)."""
+    import torch.nn.functional as Fn
+    from repro_torch.core import heads as hd
+    from repro_torch.core import model as af2
+    from repro_torch.core.config import af2_tiny, with_kernels
+    from repro_torch.data.protein import protein_batch
+    cfg = with_kernels(af2_tiny())
+    model = seeded_model(cfg, seed=4, noise=0.05)
+    on_card = copy.deepcopy(model).to(dev)
+    sample = {k: v[0] for k, v in protein_batch(4, 0, 1, cfg).items()}
+    nb = cfg.n_plddt_bins
+
+    def loss_of(m, dtype, bins=None):
+        out = af2.forward(m, cfg, sample, n_recycle=2, dtype=dtype)
+        b = af2.to_device(sample, out["z"].device)
+        mask = b["res_mask"].float()
+        if bins is None:
+            lddt = hd.lddt_ca(out["trans"], b["true_trans"], mask,
+                              per_residue=True).detach()
+            bins = torch.clamp((lddt / 100.0 * nb).long(), 0, nb - 1).cpu()
+        traj = out["traj"]
+        loss = (0.5 * hd.fape_loss(traj[0], traj[1], b["true_rots"],
+                                   b["true_trans"], mask)
+                + 0.3 * hd.distogram_loss(hd.distogram_logits(m.heads, out["z"]),
+                                          b["true_trans"], mask,
+                                          n_bins=cfg.n_distogram_bins)
+                + 2.0 * hd.masked_msa_loss(hd.masked_msa_logits(m.heads, out["msa"]),
+                                           b["true_msa"],
+                                           b["msa_mask_positions"].float())
+                + 0.01 * hd.softmax_xent(hd.plddt_logits(m.heads, out["s_final"]),
+                                         Fn.one_hot(bins.to(mask.device), nb).float(),
+                                         mask))
+        return loss, bins
+
+    def grads(m, dtype, bins):
+        m.zero_grad(set_to_none=True)
+        loss, bins = loss_of(m, dtype, bins)
+        loss.backward()
+        return loss.item(), bins, {k: (p.grad if p.grad is not None
+                                       else torch.zeros_like(p)).detach().float().cpu()
+                                   for k, p in m.named_parameters()}
+
+    loss32, bins, cpu32 = grads(model, torch.float32, None)
+    with torch.no_grad():       # the unchanged loss agrees as well
+        want = af2.loss_fn(model, cfg, sample, n_recycle=2, dtype=torch.float32)[0].item()
+    if not abs(want - loss32) <= 1e-6 * abs(want):
+        raise AssertionError(f"fixed-target loss {loss32} != loss_fn {want}")
+    loss_c, _, card32 = grads(on_card, torch.float32, bins)
+    if not abs(loss_c - loss32) <= 1e-5 * abs(loss32):
+        raise AssertionError(f"af2_tiny fp32 loss: card {loss_c} CPU {loss32}")
+    err32 = 0.0
+    for k, w in cpu32.items():
+        d = (card32[k] - w).abs()
+        tol = 1e-4 * max(1.0, w.abs().max().item()) + 1e-3 * w.abs()
+        if not bool((d <= tol).all()):
+            raise AssertionError(f"af2_tiny fp32 grad {k}: max |diff| "
+                                 f"{d.max().item()}")
+        err32 = max(err32, d.max().item())
+    norm = lambda gs: sum(x.square().sum() for x in gs.values()).sqrt().item()
+    dist = lambda a: norm({k: a[k] - cpu32[k] for k in cpu32}) / norm(cpu32)
+    _, _, cpu16 = grads(model, torch.bfloat16, bins)
+    _, _, card16 = grads(on_card, torch.bfloat16, bins)
+    d_card, d_cpu = dist(card16), dist(cpu16)
+    if not d_card <= 3 * d_cpu:
+        raise AssertionError(f"af2_tiny bf16 grads: card {d_card} from the "
+                             f"fp32 grads, over 3x the CPU's bf16 {d_cpu}")
+    return err32, d_card, d_cpu
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: the training main path
+# ---------------------------------------------------------------------------
+
+def train_launches(cfg, n_recycle: int) -> dict:
+    """Kernel launches one protein's training step implies: K1 and K3 run in
+    every cycle's forward and once more in the grad cycle's remat recompute;
+    K2 and K4 once per forward launch of the grad cycle, K5 twice (one per
+    operand side)."""
+    k1 = 4 * cfg.n_evoformer + 3 * cfg.n_extra_msa_blocks
+    k3 = 2 * (cfg.n_evoformer + cfg.n_extra_msa_blocks)
+    return {"evo_attention_fwd": k1 * (n_recycle + 1),
+            "evo_attention_bwd": k1,
+            "triangle_mult_fwd": k3 * (n_recycle + 1),
+            "triangle_mult_bwd_epilogue": k3,
+            "triangle_mult_bwd_dx": 2 * k3}
+
+
+def train_main_path(cfg, dev, *, warmup=1, steps=3):
+    """TrainRunner at ``cfg`` with its defaults, batch 1: ``warmup`` steps,
+    then ``steps`` steps with the launch counters set to 0 just before and
+    read just after, each step checked."""
+    from repro_torch.kernels import ops
+    from repro_torch.train.trainer import TrainRunner
+    model = seeded_model(cfg, seed=0).to(dev)
+    runner = TrainRunner(cfg, batch_size=1, seed=0, device=dev, model=model)
+    runner.run(warmup)
+    before = {k: p.detach().clone() for k, p in runner.model.named_parameters()}
+    ema_before = {k: e.clone() for k, e in runner.state["ema"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    norms = []
+    for _ in range(steps):
+        runner.run(runner.step + 1)
+        m = runner.last_metrics
+        if not all(np.isfinite(m[k]) for k in ("loss", "grad_norm",
+                                                "sample_grad_norm")):
+            raise AssertionError(f"step {runner.step - 1}: {m}")
+        norms.append(m["sample_grad_norm"])
+    counts = ops.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    drawn = runner.history["n_recycle"][warmup:]
+    want = {k: 0 for k in counts}
+    for nr in drawn:
+        for k, v in train_launches(runner.cfg, nr).items():
+            want[k] += v
+    if counts != want:
+        raise AssertionError(f"training launches {counts} != the path's {want} "
+                             f"(n_recycle {drawn})")
+    moved = sum(not torch.equal(p, before[k])
+                for k, p in runner.model.named_parameters())
+    ema_moved = sum(not torch.equal(e, ema_before[k])
+                    for k, e in runner.state["ema"].items())
+    if moved < 0.9 * len(before) or ema_moved < 0.9 * len(before):
+        raise AssertionError(f"{moved} parameters / {ema_moved} EMA leaves "
+                             f"of {len(before)} changed")
+    return runner, counts, norms, peak_gib
 
 
 def main() -> int:
@@ -449,22 +886,71 @@ def main() -> int:
           f"{[round(s, 3) for s in step_s]} s; {sample_cycles} sample-cycles; "
           f"peak memory {peak_gib:.2f} GiB; launches {counts}", flush=True)
     profile_step(engine, reqs, done)
+    del engine, done
+    torch.cuda.empty_cache()
 
-    def entry(name, source, replaces, tot, err):
+    att_shapes, tri_shapes = train_shapes(cfg)
+    att_rows, att_tot = check_attention_train(
+        dev, att_shapes, torch.bfloat16, ("msa_row", (16, 256, 8, 32)))
+    tri_rows, tri_tot = check_triangle_train(
+        dev, tri_shapes, cfg.evoformer.c_z, cfg.evoformer.c_hidden_mul,
+        torch.bfloat16, ("incoming", 128, False))
+    for row in att_rows + tri_rows:
+        print(f"[train kernel] {json.dumps(row)}", flush=True)
+    for name, tot in {**att_tot, **tri_tot}.items():
+        print(f"[train kernel total] {name} per sample-cycle: "
+              f"{json.dumps(tot)}", flush=True)
+
+    t_err32, t_d16, t_n16 = small_train_check(dev)
+    print(f"[small train] af2_tiny loss gradients: fp32 card vs CPU max "
+          f"|diff| {t_err32:.3g}; bf16 card {t_d16:.3g} from the CPU's fp32 "
+          f"gradients (CPU bf16 {t_n16:.3g}, bound 3x)", flush=True)
+
+    runner, t_counts, norms, t_peak = train_main_path(cfg, dev)
+    step_s = runner.history["step_s"][1:]
+    drawn = runner.history["n_recycle"][1:]
+    print(f"[train path] af2_initial (48+4 blocks) TrainRunner, batch 1: "
+          f"steps {list(range(1, runner.step))}, n_recycle {drawn}, losses "
+          f"{[round(x, 4) for x in runner.history['loss'][1:]]}, gradient "
+          f"norms before the 0.1 clip "
+          f"{[round(x, 4) for x in norms]}; step latency "
+          f"{[round(x, 3) for x in step_s]} s = "
+          f"{len(step_s) / sum(step_s):.3f} proteins/s; peak memory "
+          f"{t_peak:.2f} GiB; launches {t_counts}", flush=True)
+    nr_prof = runner.recycle_draw(runner.step)
+    profile_run(lambda: runner.run(runner.step + 1), "train",
+                f"training step {runner.step}, n_recycle {nr_prof}")
+
+    def entry(name, source, replaces, tot, err, launches, per):
+        by = tot["flops"] / PEAK_BF16_FLOPS >= tot["bytes"] / PEAK_BYTES
         return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": counts[name],
+                "replaces": replaces, "launches": launches,
                 "max_abs_err": err, "ms": tot["ms"], "plain_ms": tot["plain_ms"],
                 "bound_ms": tot["bound_ms"],
-                "bound_by": ("operations" if tot["flops"] / PEAK_BF16_FLOPS
-                             >= tot["bytes"] / PEAK_BYTES else "bytes"),
-                "library_ms": tot["library_ms"],
-                "per": "one sample-cycle of af2_initial launches, bucket "
-                       "r 256"}
+                "bound_by": "operations" if by else "bytes",
+                "library_ms": tot["library_ms"], "per": per}
+    serve_per = "one sample-cycle of af2_initial serving, bucket r 256"
+    train_per = "the backward of one af2_initial training sample-cycle"
     kernels = [
         entry("evo_attention_fwd", "src/repro_torch/csrc/evo_attention_fwd.cu",
-              "src/repro/kernels/flash_attention.py:181", k1_tot, k1_err),
+              "src/repro/kernels/flash_attention.py:181", k1_tot, k1_err,
+              counts["evo_attention_fwd"], serve_per),
         entry("triangle_mult_fwd", "src/repro_torch/csrc/triangle_mult_fwd.cu",
-              "src/repro/kernels/triangle.py:128", k3_tot, k3_err),
+              "src/repro/kernels/triangle.py:128", k3_tot, k3_err,
+              counts["triangle_mult_fwd"], serve_per),
+        entry("evo_attention_bwd", "src/repro_torch/csrc/evo_attention_bwd.cu",
+              "src/repro/kernels/flash_attention.py:347", att_tot["k2"],
+              att_tot["k2"]["err"], t_counts["evo_attention_bwd"], train_per),
+        entry("triangle_mult_bwd_epilogue",
+              "src/repro_torch/csrc/triangle_mult_bwd.cu",
+              "src/repro/kernels/triangle.py:239", tri_tot["k4"],
+              tri_tot["k4"]["err"], t_counts["triangle_mult_bwd_epilogue"],
+              train_per),
+        entry("triangle_mult_bwd_dx",
+              "src/repro_torch/csrc/triangle_mult_bwd.cu",
+              "src/repro/kernels/triangle.py:319", tri_tot["k5"],
+              tri_tot["k5"]["err"], t_counts["triangle_mult_bwd_dx"],
+              train_per),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,4 +1,5 @@
-"""Carry a JAX parameter pytree into the port and back, through numpy.
+"""Carry a JAX parameter pytree, and the optimizer state and EMA parameters
+of training, into the port and back, through numpy.
 
 The JAX model's params are nested dicts whose leaves the caller turns into
 numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``); this module
@@ -6,6 +7,9 @@ imports neither JAX nor the JAX package.  Key paths are the same on both
 sides, joined with dots; the stacks' leading block axis (the reference scans
 over stacked params) is split across the port's ``ModuleList``:
 ``evoformer.w`` of shape (n, ...) becomes ``evoformer.0.w`` ... ``evoformer.<n-1>.w``.
+The reference's ``OptState`` (``step``, ``mu``, ``nu``; ``mu``/``nu`` trees
+like the params) and its EMA tree become the port's ``train.optim.OptState``
+and EMA dict, keyed like ``model.named_parameters()``.
 """
 from __future__ import annotations
 
@@ -71,3 +75,22 @@ def load_jax_params(module: torch.nn.Module, tree: dict, *,
     """Load a JAX param tree into ``module`` (strict: every key must match)."""
     module.load_state_dict(params_to_state_dict(tree, stacked=stacked))
     return module
+
+
+def opt_state_to_port(step, mu: dict, nu: dict, *, stacked=STACKED):
+    """The reference's ``OptState(step, mu, nu)`` (numpy leaves) -> the
+    port's ``OptState`` (int step, CPU tensor dicts keyed like
+    ``model.named_parameters()``).  An EMA tree goes across as a
+    params tree does (:func:`params_to_state_dict`)."""
+    from repro_torch.train.optim import OptState
+    return OptState(step=int(step),
+                    mu=params_to_state_dict(mu, stacked=stacked),
+                    nu=params_to_state_dict(nu, stacked=stacked))
+
+
+def opt_state_to_jax(state, *, stacked=STACKED) -> dict:
+    """The port's ``OptState`` -> ``{"step": int32, "mu": tree, "nu": tree}``
+    of numpy arrays (``repro.train.optim.OptState(**...)`` rebuilds it)."""
+    return {"step": np.asarray(state.step, np.int32),
+            "mu": state_dict_to_params(state.mu, stacked=stacked),
+            "nu": state_dict_to_params(state.nu, stacked=stacked)}

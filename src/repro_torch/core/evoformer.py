@@ -7,7 +7,12 @@ block variants of paper Fig. 1 (counterpart of ``repro/core/evoformer.py``).
   inputs; the OPM lands at the end of the block.
 
 All functions work on one protein: ``msa`` (s, r, c_m), ``pair`` (r, r, c_z).
-This slice is the inference path: no dropout (``deterministic=True``).
+Dropout (training, ``deterministic=False``) is AF2's shared-axis dropout.
+Its randomness comes from an ``rng``: a tuple of ints, the port's
+counterpart of a JAX key, extended by :func:`fold_in` at every level
+(sample, cycle, stack, block, branch, site).  Each dropout site seeds a
+generator of its own from that tuple, so recomputing a block under
+``torch.utils.checkpoint`` draws the very same masks.
 
 Impls: ``attention_impl="evo_pallas"`` and ``tri_mult_impl="pallas"`` go
 through ``kernels.ops`` — the hand-written CUDA kernels for CUDA tensors,
@@ -17,8 +22,9 @@ impls are not ported.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -37,6 +43,42 @@ class EvoMasks(NamedTuple):
 def mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
     """(S,) validity -> (S,) additive fp32 attention bias: 0 valid, -1e9 padded."""
     return (key_mask.float() - 1.0) * 1e9
+
+
+# ---------------------------------------------------------------------------
+# Dropout with shared axes (AF2 row-/column-wise dropout)
+# ---------------------------------------------------------------------------
+
+Rng = Optional[Tuple[int, ...]]
+
+
+def fold_in(rng: Rng, i: int) -> Rng:
+    """The rng of sub-stream ``i`` (``jax.random.fold_in``'s counterpart);
+    None stays None."""
+    return None if rng is None else (*rng, int(i))
+
+
+def rng_seed(rng: Tuple[int, ...]) -> int:
+    """A 63-bit generator seed from an rng tuple (numpy's SeedSequence mixes
+    every entry, so nearby tuples give unrelated seeds)."""
+    hi, lo = np.random.SeedSequence([int(v) for v in rng]).generate_state(2)
+    return (int(hi) << 31) ^ int(lo)
+
+
+def shared_dropout(x: torch.Tensor, rate: float, *, shared_axis: int,
+                   rng: Rng, deterministic: bool) -> torch.Tensor:
+    """Dropout whose keep-mask is shared along ``shared_axis`` (one draw per
+    row or column), kept entries scaled by 1 / (1 - rate).  The mask comes
+    from a generator seeded by ``rng`` on x's device: the same rng gives the
+    same mask."""
+    if deterministic or rate == 0.0 or rng is None:
+        return x
+    shape = list(x.shape)
+    shape[shared_axis] = 1
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(rng_seed(rng))
+    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 def _not_ported(kind: str, impl: str):
@@ -343,17 +385,20 @@ class EvoformerBlock(nn.Module):
 
 
 def msa_branch(p: EvoformerBlock, cfg: EvoformerConfig, msa, z_bias_src, *,
+               rng: Rng = None, deterministic: bool = True,
                masks: Optional[EvoMasks] = None):
-    """Row attention (pair-biased) -> column attention -> transition.  Row
-    attention masks padded residue keys; column attention padded MSA rows."""
+    """Row attention (pair-biased, row-wise dropout) -> column attention ->
+    transition.  Row attention masks padded residue keys; column attention
+    padded MSA rows."""
     impl = cfg.attention_impl
     rows_mask = res_mask = None
     if masks is not None:
         rows_mask, res_mask = masks.rows, masks.res
-    msa = msa + gated_attention(p.row_attn, msa, n_head=cfg.n_head_msa,
-                                c_hidden=cfg.c_hidden_att,
-                                bias_input=z_bias_src, key_mask=res_mask,
-                                attention_impl=impl)
+    upd = gated_attention(p.row_attn, msa, n_head=cfg.n_head_msa,
+                          c_hidden=cfg.c_hidden_att, bias_input=z_bias_src,
+                          key_mask=res_mask, attention_impl=impl)
+    msa = msa + shared_dropout(upd, cfg.dropout_msa, shared_axis=0,
+                               rng=fold_in(rng, 0), deterministic=deterministic)
     cols = msa.transpose(0, 1)
     if cfg.global_column_attn:
         col = global_attention(p.col_attn, cols, n_head=cfg.n_head_msa,
@@ -367,39 +412,54 @@ def msa_branch(p: EvoformerBlock, cfg: EvoformerConfig, msa, z_bias_src, *,
 
 
 def pair_branch(p: EvoformerBlock, cfg: EvoformerConfig, z, *,
+                rng: Rng = None, deterministic: bool = True,
                 masks: Optional[EvoMasks] = None):
-    """Triangle updates + triangle attention + transition; ``masks.res``
-    masks the k-contractions and the triangle-attention keys."""
+    """Triangle updates + triangle attention (each with shared-axis
+    dropout) + transition; ``masks.res`` masks the k-contractions and the
+    triangle-attention keys."""
     impl = cfg.attention_impl
     res_mask = masks.res if masks is not None else None
-    z = z + tri_mult_apply(p.tri_mul_out, cfg, z, outgoing=True, k_mask=res_mask)
-    z = z + tri_mult_apply(p.tri_mul_in, cfg, z, outgoing=False, k_mask=res_mask)
-    z = z + gated_attention(p.tri_att_start, z, n_head=cfg.n_head_pair,
-                            c_hidden=cfg.c_hidden_pair_att, bias_input=z,
-                            key_mask=res_mask, attention_impl=impl)
+
+    def drop(site, x, shared_axis):
+        return shared_dropout(x, cfg.dropout_pair, shared_axis=shared_axis,
+                              rng=fold_in(rng, site),
+                              deterministic=deterministic)
+
+    z = z + drop(0, tri_mult_apply(p.tri_mul_out, cfg, z, outgoing=True,
+                                   k_mask=res_mask), 0)
+    z = z + drop(1, tri_mult_apply(p.tri_mul_in, cfg, z, outgoing=False,
+                                   k_mask=res_mask), 0)
+    z = z + drop(2, gated_attention(p.tri_att_start, z, n_head=cfg.n_head_pair,
+                                    c_hidden=cfg.c_hidden_pair_att,
+                                    bias_input=z, key_mask=res_mask,
+                                    attention_impl=impl), 0)
     zt = z.transpose(0, 1)
     att_end = gated_attention(p.tri_att_end, zt, n_head=cfg.n_head_pair,
                               c_hidden=cfg.c_hidden_pair_att, bias_input=zt,
                               key_mask=res_mask, attention_impl=impl)
-    z = z + att_end.transpose(0, 1)
+    z = z + drop(3, att_end.transpose(0, 1), 1)
     return z + transition(p.pair_trans, z)
 
 
 def evoformer_block(p: EvoformerBlock, cfg: EvoformerConfig, msa, z, *,
+                    rng: Rng = None, deterministic: bool = True,
                     masks: Optional[EvoMasks] = None):
     """Dispatch on ``cfg.variant`` (paper Fig 1a/1b/1c); the variants only
-    reorder the same three pieces."""
+    reorder the same three pieces.  The MSA and pair branches draw their
+    dropout from sub-streams 0 and 1 of ``rng``."""
     row_mask = masks.rows if masks is not None else None
+    kw = dict(deterministic=deterministic, masks=masks)
+    rm, rz = fold_in(rng, 0), fold_in(rng, 1)
     if cfg.variant == "af2":
-        msa_out = msa_branch(p, cfg, msa, z, masks=masks)
+        msa_out = msa_branch(p, cfg, msa, z, rng=rm, **kw)
         z = z + opm_apply(p.opm, cfg, msa_out, row_mask=row_mask)
-        return msa_out, pair_branch(p, cfg, z, masks=masks)
+        return msa_out, pair_branch(p, cfg, z, rng=rz, **kw)
     if cfg.variant == "multimer":
         z = z + opm_apply(p.opm, cfg, msa, row_mask=row_mask)
-        msa_out = msa_branch(p, cfg, msa, z, masks=masks)
-        return msa_out, pair_branch(p, cfg, z, masks=masks)
+        msa_out = msa_branch(p, cfg, msa, z, rng=rm, **kw)
+        return msa_out, pair_branch(p, cfg, z, rng=rz, **kw)
     if cfg.variant == "parallel":
-        msa_out = msa_branch(p, cfg, msa, z, masks=masks)
-        z_out = pair_branch(p, cfg, z, masks=masks)
+        msa_out = msa_branch(p, cfg, msa, z, rng=rm, **kw)
+        z_out = pair_branch(p, cfg, z, rng=rz, **kw)
         return msa_out, z_out + opm_apply(p.opm, cfg, msa_out, row_mask=row_mask)
     raise ValueError(f"unknown Evoformer variant {cfg.variant!r}")

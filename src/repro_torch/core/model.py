@@ -1,11 +1,17 @@
-"""Full AlphaFold2 inference model: embedder -> extra-MSA stack -> Evoformer
-stack -> structure module -> heads, with adaptive early-exit recycling
-(counterpart of ``repro/core/model.py:28-251,314-443``).
+"""Full AlphaFold2 model: embedder -> extra-MSA stack -> Evoformer stack ->
+structure module -> heads, with recycling (counterpart of
+``repro/core/model.py``).
 
 Single-protein functions, as in the reference; ``fold_cycle`` loops over the
-batch where the reference vmaps.  The serving path is forward-only and runs
-under ``torch.no_grad`` with no checkpointing (the reference's inference plan
-sets ``remat="none"``).
+batch where the reference vmaps.  Two paths:
+
+* training — :func:`forward` and :func:`loss_fn`: ``n_recycle - 1`` cycles
+  without gradients, then one cycle with them; dropout when
+  ``deterministic=False``; ``remat="block"`` recomputes each Evoformer block
+  in the backward (``torch.utils.checkpoint``).
+* serving — :func:`predict`: forward-only under ``torch.no_grad`` with no
+  checkpointing (the reference's inference plan sets ``remat="none"``), and
+  adaptive early-exit recycling.
 """
 from __future__ import annotations
 
@@ -14,13 +20,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import evoformer as evo
 from repro_torch.core import heads as heads_lib
 from repro_torch.core import structure as struct
 from repro_torch.core.config import AlphaFold2Config
 from repro_torch.device import resolve_device
-from repro_torch.nn.layers import Dense, LayerNorm, Policy, dense, layernorm
+from repro_torch.nn.layers import (Dense, LayerNorm, Policy, cast_params, dense,
+                                   layernorm)
 
 
 # ---------------------------------------------------------------------------
@@ -120,12 +128,33 @@ def embed_recycle(p: Embedder, cfg: AlphaFold2Config, msa, z, prev):
 # ---------------------------------------------------------------------------
 
 def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
-                    masks: Optional[evo.EvoMasks] = None):
-    """Apply the blocks in order (the reference scans over stacked params)."""
-    for blk in blocks:
-        m, zz = evo.evoformer_block(blk, cfg_block, msa, z, masks=masks)
-        msa, z = m.to(msa.dtype), zz.to(z.dtype)
+                    masks: Optional[evo.EvoMasks] = None, rng=None,
+                    deterministic: bool = True, remat: bool = False):
+    """Apply the blocks in order (the reference scans over stacked params);
+    block i draws its dropout from ``fold_in(rng, i)``.  With ``remat`` and
+    autograd on, each block keeps only its inputs and is recomputed in the
+    backward (``torch.utils.checkpoint``, non-reentrant); its dropout masks
+    come from generators seeded inside the block, so the recompute draws
+    the same masks."""
+    for i, blk in enumerate(blocks):
+        def one(m, zz, blk=blk, key=evo.fold_in(rng, i)):
+            mo, zo = evo.evoformer_block(blk, cfg_block, m, zz, rng=key,
+                                         deterministic=deterministic,
+                                         masks=masks)
+            return mo.to(m.dtype), zo.to(zz.dtype)
+        if remat and torch.is_grad_enabled():
+            msa, z = checkpoint(one, msa, z, use_reentrant=False)
+        else:
+            msa, z = one(msa, z)
     return msa, z
+
+
+def remat_blocks(cfg: AlphaFold2Config) -> bool:
+    """``cfg.remat`` as the stacks take it: 'none' or 'block'."""
+    if cfg.remat not in ("none", "block"):
+        raise ValueError(f"remat={cfg.remat!r} is not ported; the port has "
+                         "'none' and 'block'")
+    return cfg.remat == "block"
 
 
 def trunk_masks(batch) -> Optional[dict]:
@@ -139,8 +168,10 @@ def trunk_masks(batch) -> Optional[dict]:
 
 
 def run_trunk(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, *,
-              dtype=torch.bfloat16, masks: Optional[dict] = None):
-    """One recycling iteration of the trunk: returns (msa, z, single)."""
+              dtype=torch.bfloat16, masks: Optional[dict] = None, rng=None,
+              deterministic: bool = True, remat: bool = False):
+    """One recycling iteration of the trunk: returns (msa, z, single).  The
+    extra and main stacks draw dropout from sub-streams 1 and 2 of ``rng``."""
     msa, z, extra = embed_inputs(params.embedder, cfg, batch, dtype)
     msa, z = embed_recycle(params.embedder, cfg, msa, z, prev)
     extra_masks = main_masks = None
@@ -152,12 +183,101 @@ def run_trunk(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, *,
         extra_masks = evo.EvoMasks(ones(extra.shape[0]) if rows is None else rows, res)
         rows = masks.get("msa_rows")
         main_masks = evo.EvoMasks(ones(msa.shape[0]) if rows is None else rows, res)
+    kw = dict(deterministic=deterministic, remat=remat)
     _, z = evoformer_stack(params.extra_stack, cfg.extra, extra, z,
-                           masks=extra_masks)
+                           masks=extra_masks, rng=evo.fold_in(rng, 1), **kw)
     msa, z = evoformer_stack(params.evoformer, cfg.evoformer, msa, z,
-                             masks=main_masks)
+                             masks=main_masks, rng=evo.fold_in(rng, 2), **kw)
     single = dense(params.embedder.single_proj, msa[0])
     return msa, z, single
+
+
+# ---------------------------------------------------------------------------
+# Training: forward with recycling, and the loss
+# ---------------------------------------------------------------------------
+
+def cycle_rng(rng, i: int):
+    """Per-recycle-cycle dropout stream: sub-stream ``i`` of ``rng``, so no
+    cycle reuses another's masks (the reference's ``fold_in`` of the cycle
+    index)."""
+    return evo.fold_in(rng, i)
+
+
+def to_device(batch: dict, device) -> dict:
+    """A sample's arrays (numpy or torch) as tensors on ``device``."""
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def forward(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
+            n_recycle: int = 1, rng=None, deterministic: bool = True,
+            dtype=torch.bfloat16) -> dict:
+    """Full forward of one protein with ``n_recycle`` trunk passes, the
+    gradient through the last only.
+
+    The fp32 master parameters are cast to ``dtype`` once, through autograd
+    (:func:`cast_params`), so the gradients reach the masters.  The first
+    ``n_recycle - 1`` cycles run under ``torch.no_grad`` (the kernels take
+    their forward-only launches) and their recycled outputs are detached;
+    the last cycle records the graph, with ``cfg.remat="block"``
+    checkpointing each Evoformer block.  Cycle i draws dropout from
+    ``cycle_rng(rng, i)``.
+    """
+    if n_recycle < 1:
+        raise ValueError(f"n_recycle must be >= 1, got {n_recycle}")
+    device = next(model.parameters()).device
+    params = cast_params(model, dtype)
+    batch = to_device(batch, device)
+    r = batch["target_feat"].shape[0]
+    prev = (torch.zeros((r, cfg.c_m), dtype=dtype, device=device),
+            torch.zeros((r, r, cfg.c_z), dtype=dtype, device=device),
+            torch.zeros((r, 3), device=device))
+    remat = remat_blocks(cfg)
+
+    def cycle(prev, key):
+        msa, z, single = run_trunk(params, cfg, batch, prev, dtype=dtype,
+                                   rng=key, deterministic=deterministic,
+                                   remat=remat)
+        (rots, trans), traj, s_final = struct.structure_module(
+            params.structure, cfg.structure, single, z)
+        out = {"msa": msa, "z": z, "single": single, "s_final": s_final,
+               "rots": rots, "trans": trans, "traj": traj}
+        return out, (msa[0], z, trans)
+
+    with torch.no_grad():
+        for i in range(n_recycle - 1):
+            _, prev = cycle(prev, cycle_rng(rng, i))
+    prev = tuple(t.detach() for t in prev)
+    out, _ = cycle(prev, cycle_rng(rng, n_recycle - 1))
+    return out
+
+
+def loss_fn(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
+            n_recycle: int = 1, rng=None, deterministic: bool = True,
+            dtype=torch.bfloat16) -> tuple:
+    """(total, metrics) of one protein: 0.5 FAPE + 0.3 distogram + 2.0
+    masked-MSA + 0.01 pLDDT.  The heads read the fp32 masters, as the
+    reference's ``loss_fn`` does; mixed-type products promote to fp32."""
+    out = forward(model, cfg, batch, n_recycle=n_recycle, rng=rng,
+                  deterministic=deterministic, dtype=dtype)
+    batch = to_device(batch, out["z"].device)
+    hp = model.heads
+    res_mask = batch["res_mask"].float()
+    rots_traj, trans_traj = out["traj"]
+    l_fape = heads_lib.fape_loss(rots_traj, trans_traj, batch["true_rots"],
+                                 batch["true_trans"], res_mask)
+    l_dist = heads_lib.distogram_loss(
+        heads_lib.distogram_logits(hp, out["z"]), batch["true_trans"],
+        res_mask, n_bins=cfg.n_distogram_bins)
+    l_msa = heads_lib.masked_msa_loss(
+        heads_lib.masked_msa_logits(hp, out["msa"]), batch["true_msa"],
+        batch["msa_mask_positions"].float())
+    l_plddt = heads_lib.plddt_loss(
+        heads_lib.plddt_logits(hp, out["s_final"]), out["trans"],
+        batch["true_trans"], res_mask, n_bins=cfg.n_plddt_bins)
+    total = 0.5 * l_fape + 0.3 * l_dist + 2.0 * l_msa + 0.01 * l_plddt
+    metrics = {"loss": total, "fape": l_fape, "distogram": l_dist,
+               "masked_msa": l_msa, "plddt": l_plddt}
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------
@@ -251,7 +371,7 @@ def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
         raise ValueError(f"max_recycle must be >= 1, got {max_recycle}")
     device = next(model.parameters()).device
     params = Policy(compute_dtype=dtype).cast(model)   # fp32 -> compute, once
-    batch = {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+    batch = to_device(batch, device)
     bsz, r = batch["target_feat"].shape[:2]
     prev, sf = fold_carry_init(cfg, bsz, r, dtype, device)
     pair_mask, pair_count = fold_pair_mask(batch)

@@ -31,9 +31,11 @@
 //    query row keeps q and the accumulator in registers, and the bias tile
 //    goes through shared memory so its global reads stay coalesced.
 // Ragged S is handled by masking: rows past S are not written and keys past
-// S get probability 0.  The output is written in q's type.  The
-// log-sum-exp residual of the Pallas kernel feeds only the backward and is
-// not emitted here.
+// S get probability 0.  The output is written in q's type.  When `lse` is
+// not null (autograd needs the backward), each row's fp32 log-sum-exp
+// m + log(l), laid out (L*H, S), is written too: the residual that K2
+// (csrc/evo_attention_bwd.cu) recomputes the probabilities from.  Without a
+// gradient the pointer is null and the launch is the serving one.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,7 +60,7 @@ __global__ void __launch_bounds__(BQ)
 evo_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const BT* __restrict__ bias,
                          const T* __restrict__ gate, T* __restrict__ out,
-                         int S, int H, float scale) {
+                         float* __restrict__ lse, int S, int H, float scale) {
   __shared__ __align__(16) float ks[BK][C];
   __shared__ __align__(16) float vs[BK][C];
   __shared__ float bs[BQ][BK + 1];  // +1: row reads by thread stay conflict-free
@@ -150,6 +152,7 @@ evo_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_ok) return;
+  if (lse != nullptr) lse[(size_t)lh * S + i] = m + logf(fmaxf(lsum, 1e-30f));
   const float inv = 1.f / fmaxf(lsum, 1e-30f);
 #pragma unroll
   for (int c = 0; c < C; ++c) {
@@ -189,7 +192,8 @@ evo_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ v,
                              const BT* __restrict__ bias,
                              const __nv_bfloat16* __restrict__ gate,
-                             __nv_bfloat16* __restrict__ out, int S, int H, int C,
+                             __nv_bfloat16* __restrict__ out,
+                             float* __restrict__ lse, int S, int H, int C,
                              float scale) {
   __shared__ __align__(16) __nv_bfloat16 ks[MK][CP + 8];   // key-major
   __shared__ __align__(16) __nv_bfloat16 vt[CP][MK + 8];   // channel-major
@@ -317,6 +321,10 @@ evo_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 1);
     lsum[r] += __shfl_xor_sync(0xffffffffu, lsum[r], 2);
   }
+  if (lse != nullptr && t == 0) {
+    if (row0 < S) lse[(size_t)lh * S + row0] = m[0] + logf(fmaxf(lsum[0], 1e-30f));
+    if (row1 < S) lse[(size_t)lh * S + row1] = m[1] + logf(fmaxf(lsum[1], 1e-30f));
+  }
   const float inv[2] = {1.f / fmaxf(lsum[0], 1e-30f), 1.f / fmaxf(lsum[1], 1e-30f)};
 #pragma unroll
   for (int ct = 0; ct < CP / 8; ++ct) {
@@ -340,7 +348,7 @@ evo_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <typename BT>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* bias,
-                       const void* gate, void* out, int L, int S, int H, int C,
+                       const void* gate, void* out, float* lse, int L, int S, int H, int C,
                        float scale, cudaStream_t stream) {
   const dim3 grid((unsigned)(L * H), (unsigned)((S + MQ - 1) / MQ));
   const auto* q_ = static_cast<const __nv_bfloat16*>(q);
@@ -350,9 +358,9 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   auto* o_ = static_cast<__nv_bfloat16*>(out);
   const auto* b_ = static_cast<const BT*>(bias);
   if (C <= 16)
-    evo_attention_fwd_mma_kernel<BT, 16><<<grid, 128, 0, stream>>>(q_, k_, v_, b_, g_, o_, S, H, C, scale);
+    evo_attention_fwd_mma_kernel<BT, 16><<<grid, 128, 0, stream>>>(q_, k_, v_, b_, g_, o_, lse, S, H, C, scale);
   else if (C <= 32)
-    evo_attention_fwd_mma_kernel<BT, 32><<<grid, 128, 0, stream>>>(q_, k_, v_, b_, g_, o_, S, H, C, scale);
+    evo_attention_fwd_mma_kernel<BT, 32><<<grid, 128, 0, stream>>>(q_, k_, v_, b_, g_, o_, lse, S, H, C, scale);
   else
     return cudaErrorInvalidValue;
   return cudaGetLastError();
@@ -364,47 +372,49 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
 
 template <typename T, typename BT, int C>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
-                   const void* gate, void* out, int L, int S, int H, float scale,
+                   const void* gate, void* out, float* lse, int L, int S, int H, float scale,
                    cudaStream_t stream) {
   const dim3 grid((unsigned)(L * H), (unsigned)((S + BQ - 1) / BQ));
   evo_attention_fwd_kernel<T, BT, C><<<grid, BQ, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const BT*>(bias), static_cast<const T*>(gate), static_cast<T*>(out),
-      S, H, scale);
+      lse, S, H, scale);
   return cudaGetLastError();
 }
 
 template <typename T, typename BT>
 cudaError_t dispatch_c(const void* q, const void* k, const void* v, const void* bias,
-                       const void* gate, void* out, int L, int S, int H, int C,
+                       const void* gate, void* out, float* lse, int L, int S, int H, int C,
                        float scale, cudaStream_t stream) {
   switch (C) {
-    case 4: return launch<T, BT, 4>(q, k, v, bias, gate, out, L, S, H, scale, stream);
-    case 8: return launch<T, BT, 8>(q, k, v, bias, gate, out, L, S, H, scale, stream);
-    case 16: return launch<T, BT, 16>(q, k, v, bias, gate, out, L, S, H, scale, stream);
-    case 32: return launch<T, BT, 32>(q, k, v, bias, gate, out, L, S, H, scale, stream);
+    case 4: return launch<T, BT, 4>(q, k, v, bias, gate, out, lse, L, S, H, scale, stream);
+    case 8: return launch<T, BT, 8>(q, k, v, bias, gate, out, lse, L, S, H, scale, stream);
+    case 16: return launch<T, BT, 16>(q, k, v, bias, gate, out, lse, L, S, H, scale, stream);
+    case 32: return launch<T, BT, 32>(q, k, v, bias, gate, out, lse, L, S, H, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  `bias` and `gate` may be null.
+// dtype codes: 0 = float32, 1 = bfloat16.  `bias`, `gate` and `lse` may be
+// null; `lse`, when given, receives (L*H, S) fp32 log-sum-exps.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int evo_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate, void* out,
-                                 int L, int S, int H, int C, int dtype,
+                                 void* lse_out, int L, int S, int H, int C, int dtype,
                                  int bias_dtype, float scale, void* stream) {
   if (L <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);
   if (dtype == 0 && bias_dtype == 0)
-    return (int)dispatch_c<float, float>(q, k, v, bias, gate, out, L, S, H, C, scale, st);
+    return (int)dispatch_c<float, float>(q, k, v, bias, gate, out, lse, L, S, H, C, scale, st);
   if (dtype == 0 && bias_dtype == 1)
-    return (int)dispatch_c<float, __nv_bfloat16>(q, k, v, bias, gate, out, L, S, H, C, scale, st);
+    return (int)dispatch_c<float, __nv_bfloat16>(q, k, v, bias, gate, out, lse, L, S, H, C, scale, st);
   if (C != 4 && C != 8 && C != 16 && C != 32) return (int)cudaErrorInvalidValue;
   if (dtype == 1 && bias_dtype == 0)
-    return (int)launch_mma<float>(q, k, v, bias, gate, out, L, S, H, C, scale, st);
+    return (int)launch_mma<float>(q, k, v, bias, gate, out, lse, L, S, H, C, scale, st);
   if (dtype == 1 && bias_dtype == 1)
-    return (int)launch_mma<__nv_bfloat16>(q, k, v, bias, gate, out, L, S, H, C, scale, st);
+    return (int)launch_mma<__nv_bfloat16>(q, k, v, bias, gate, out, lse, L, S, H, C, scale, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,6 +38,10 @@
 //    tri_contract_kernel: one block per 8x8 tile, one thread per channel).
 // Ragged r_i / r_j are masked (rows past the edge are zeros and not
 // written); k is looped exactly or zero-padded, so any r_k works.
+// When `s_out` is not null (autograd needs the backward), the contraction
+// kernels also write the fp32 pre-LayerNorm s (r_i, r_j, c) from shared
+// memory: the residual that K4 (csrc/triangle_mult_bwd.cu) starts from.
+// Without a gradient the pointer is null and s stays on chip.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -141,7 +145,7 @@ tri_contract_kernel(const T* __restrict__ a, const T* __restrict__ b,
                     const T* __restrict__ ln_b, const T* __restrict__ w_o,
                     const T* __restrict__ b_o, const T* __restrict__ w_g,
                     const T* __restrict__ b_g, T* __restrict__ out,
-                    int ri, int rj, int rk, int cz, int c) {
+                    float* __restrict__ s_out, int ri, int rj, int rk, int cz, int c) {
   extern __shared__ __align__(16) float smem[];
   float* st = smem;            // [TP][c]
   float* gt = smem + TP * c;   // [TP][cz]
@@ -191,6 +195,13 @@ tri_contract_kernel(const T* __restrict__ a, const T* __restrict__ b,
       for (int jj = 0; jj < TJ; ++jj) st[(ii * TJ + jj) * c + ch] = acc[ii][jj];
   }
   __syncthreads();
+  if (s_out != nullptr)
+    for (int e = tid; e < TP * c; e += THREADS) {
+      const int p = e / c;
+      const int i = i0 + p / TJ, j = j0 + p % TJ;
+      if (i < ri && j < rj) s_out[((size_t)i * rj + j) * c + (e - p * c)] = st[e];
+    }
+  __syncthreads();  // the LayerNorm below rewrites st in place
 
   // LayerNorm over channels, one warp per pair, in place: st <- LN(s)
   const float inv_c = 1.f / (float)c;
@@ -380,8 +391,8 @@ tri_contract_mma_kernel(const bf16* __restrict__ a_t, const bf16* __restrict__ b
                         const bf16* __restrict__ xg, const bf16* __restrict__ ln_s,
                         const bf16* __restrict__ ln_b, const bf16* __restrict__ w_o,
                         const bf16* __restrict__ b_o, const bf16* __restrict__ w_g,
-                        const bf16* __restrict__ b_g, bf16* __restrict__ out, int ri,
-                        int rj, int rkp, int cz, int c) {
+                        const bf16* __restrict__ b_g, bf16* __restrict__ out,
+                        float* __restrict__ s_out, int ri, int rj, int rkp, int cz, int c) {
   extern __shared__ __align__(16) float smem_f[];
   const int cs = c + 4;                        // s row stride (floats)
   float* st = smem_f;                          // [MT * MT][cs], pair = il * MT + jl
@@ -420,6 +431,12 @@ tri_contract_mma_kernel(const bf16* __restrict__ a_t, const bf16* __restrict__ b
       }
   }
   __syncthreads();
+  if (s_out != nullptr)
+    for (int e = threadIdx.x; e < MT * MT * c; e += MT_WARPS * 32) {
+      const int p = e / c, ch = e - p * c;
+      const int i = i0 + p / MT, j = j0 + p % MT;
+      if (i < ri && j < rj) s_out[((size_t)i * rj + j) * c + ch] = st[p * cs + ch];
+    }
 
   // LayerNorm statistics over channels, one warp per pair
   const float inv_c = 1.f / (float)c;
@@ -519,7 +536,7 @@ cudaError_t run_mma(const void* xa, long long xa_si, long long xa_sk, const void
                     const void* w_a, const void* b_a, const void* w_b, const void* b_b,
                     const void* ln_s, const void* ln_b, const void* w_o, const void* b_o,
                     const void* w_g, const void* b_g, void* a_buf, void* b_buf, void* out,
-                    int ri, int rj, int rk, int cz, int c, cudaStream_t stream) {
+                    float* s_out, int ri, int rj, int rk, int cz, int c, cudaStream_t stream) {
   if (cz % 16 != 0 || c % 16 != 0) return cudaErrorInvalidValue;
   const int rkp = (rk + 15) / 16 * 16;
   const size_t proj_smem = (size_t)2 * MP_ROWS * (cz + 8) * sizeof(bf16);
@@ -549,7 +566,7 @@ cudaError_t run_mma(const void* xa, long long xa_si, long long xa_sk, const void
       static_cast<const bf16*>(xg), static_cast<const bf16*>(ln_s),
       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w_o),
       static_cast<const bf16*>(b_o), static_cast<const bf16*>(w_g),
-      static_cast<const bf16*>(b_g), static_cast<bf16*>(out), ri, rj, rkp, cz, c);
+      static_cast<const bf16*>(b_g), static_cast<bf16*>(out), s_out, ri, rj, rkp, cz, c);
   return cudaGetLastError();
 }
 
@@ -563,7 +580,7 @@ cudaError_t run(const void* xa, long long xa_si, long long xa_sk, const void* xb
                 const void* w_a, const void* b_a, const void* w_b, const void* b_b,
                 const void* ln_s, const void* ln_b, const void* w_o, const void* b_o,
                 const void* w_g, const void* b_g, void* a_buf, void* b_buf, void* out,
-                int ri, int rj, int rk, int cz, int c, cudaStream_t stream) {
+                float* s_out, int ri, int rj, int rk, int cz, int c, cudaStream_t stream) {
   const size_t proj_smem = (size_t)PROJ_ROWS * cz * sizeof(float);
   const size_t tile_smem = (size_t)TP * (c + cz) * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(tri_proj_kernel<T>,
@@ -591,7 +608,7 @@ cudaError_t run(const void* xa, long long xa_si, long long xa_sk, const void* xb
       static_cast<const T*>(a_buf), static_cast<const T*>(b_buf), static_cast<const T*>(xg),
       static_cast<const T*>(ln_s), static_cast<const T*>(ln_b), static_cast<const T*>(w_o),
       static_cast<const T*>(b_o), static_cast<const T*>(w_g), static_cast<const T*>(b_g),
-      static_cast<T*>(out), ri, rj, rk, cz, c);
+      static_cast<T*>(out), s_out, ri, rj, rk, cz, c);
   return cudaGetLastError();
 }
 
@@ -600,7 +617,8 @@ cudaError_t run(const void* xa, long long xa_si, long long xa_sk, const void* xb
 // dtype codes: 0 = float32, 1 = bfloat16 (every tensor argument but kmask,
 // which is float32 or null).  a_buf / b_buf are scratch of c * ri * rkp and
 // c * rj * rkp elements, rkp = rk rounded up to a multiple of 16.  cz and c
-// must be multiples of 4 (float32) or 16 (bfloat16).
+// must be multiples of 4 (float32) or 16 (bfloat16).  `s_out` may be null;
+// when given it receives the fp32 pre-LayerNorm contraction (ri, rj, c).
 // Returns the first cudaError_t met (0 = success).
 extern "C" int triangle_mult_fwd(const void* xa, long long xa_si, long long xa_sk,
                                  const void* xb, long long xb_sj, long long xb_sk,
@@ -608,18 +626,19 @@ extern "C" int triangle_mult_fwd(const void* xa, long long xa_si, long long xa_s
                                  const void* b_a, const void* w_b, const void* b_b,
                                  const void* ln_s, const void* ln_b, const void* w_o,
                                  const void* b_o, const void* w_g, const void* b_g,
-                                 void* a_buf, void* b_buf, void* out, int ri, int rj, int rk,
-                                 int cz, int c, int dtype, void* stream) {
+                                 void* a_buf, void* b_buf, void* out, void* s_out, int ri,
+                                 int rj, int rk, int cz, int c, int dtype, void* stream) {
   if (ri <= 0 || rj <= 0 || rk <= 0 || cz % 4 != 0 || c % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* km = static_cast<const float*>(kmask);
   if (dtype == 0)
     return (int)run<float>(xa, xa_si, xa_sk, xb, xb_sj, xb_sk, xg, km, w_a, b_a, w_b, b_b,
-                           ln_s, ln_b, w_o, b_o, w_g, b_g, a_buf, b_buf, out, ri, rj, rk, cz,
-                           c, st);
+                           ln_s, ln_b, w_o, b_o, w_g, b_g, a_buf, b_buf, out,
+                           static_cast<float*>(s_out), ri, rj, rk, cz, c, st);
   if (dtype == 1)
     return (int)run_mma(xa, xa_si, xa_sk, xb, xb_sj, xb_sk, xg, km, w_a, b_a, w_b, b_b, ln_s,
-                        ln_b, w_o, b_o, w_g, b_g, a_buf, b_buf, out, ri, rj, rk, cz, c, st);
+                        ln_b, w_o, b_o, w_g, b_g, a_buf, b_buf, out,
+                        static_cast<float*>(s_out), ri, rj, rk, cz, c, st);
   return (int)cudaErrorInvalidValue;
 }

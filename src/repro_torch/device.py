@@ -9,11 +9,16 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` -> ``cuda``, raising when no card is visible; anything else
-    is taken as given.  The port never drops to the CPU on its own."""
+    is taken as given.  A CUDA device gets its index (the current one when
+    none is named), so it compares equal to a tensor's device.  The port
+    never drops to the CPU on its own."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "no CUDA device visible: the port runs on the GPU; pass "
                 "device='cpu' to run it on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

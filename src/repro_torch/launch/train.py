@@ -1,0 +1,64 @@
+"""Training launcher of the PyTorch port: ``TrainRunner`` on one device,
+every attention and triangle update on the hand-written kernels.
+
+  # on the GPU (the default device)
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 3 --batch 1
+  # on the CPU (the kernels' plain versions), small shapes
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--af2", choices=["tiny", "small", "initial"],
+                    required=True, help="AF2 config")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--lr", type=float, default=1e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--recycle-sample", action="store_true",
+                    help="draw n_recycle per step from 1..max_recycle "
+                         "(stochastic recycling); else one cycle")
+    ap.add_argument("--max-recycle", type=int, default=0,
+                    help="upper bound of the draw (0: the config's)")
+    ap.add_argument("--ema", type=float, default=0.999,
+                    help="EMA decay of the eval parameters (0: no EMA)")
+    ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda, which must exist)")
+    args = ap.parse_args(argv)
+    return run_af2(args)
+
+
+def run_af2(args):
+    from repro_torch.core.config import PRESETS
+    from repro_torch.nn.layers import count_params
+    from repro_torch.train.optim import adamw, af2_lr_schedule
+    from repro_torch.train.trainer import TrainRunner
+
+    cfg = PRESETS[args.af2]()
+    # paper §5.2 / AF2 suppl. 1.11.3: clip each SAMPLE's gradient at 0.1
+    opt = adamw(af2_lr_schedule(args.lr, warmup_steps=100),
+                per_sample_clip=0.1)
+    runner = TrainRunner(cfg, optimizer=opt, batch_size=args.batch,
+                         seed=args.seed, recycle_sample=args.recycle_sample,
+                         max_recycle=args.max_recycle or None,
+                         ema_decay=args.ema or None, deterministic=False,
+                         device=args.device)
+    print(f"train: {args.af2} cfg on {runner.device}, params "
+          f"{count_params(runner.model):,}, recycle_sample="
+          f"{args.recycle_sample} (max {runner.max_recycle}), ema="
+          f"{args.ema or 'off'}")
+    t0 = time.time()
+    runner.run(args.steps, log_every=args.log_every)
+    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s; last loss "
+          f"{runner.history['loss'][-1]:.4f}")
+    return runner
+
+
+if __name__ == "__main__":
+    main()

@@ -11,7 +11,10 @@ Counterpart of ``repro/nn/layers.py``.  Conventions:
   on the CPU from a ``torch.Generator`` (the same seed gives the same weights
   on any device); ``.to(device)`` then places them.
 * Parameters are fp32 masters; :class:`Policy` casts them to the compute
-  dtype once at the model's entry (paper §5.1 AMP recipe).
+  dtype once at the model's entry (paper §5.1 AMP recipe), and
+  :func:`cast_params` does so through autograd for training.
+* Mixed float types promote as in JAX: ``dense`` of a bf16 activation with
+  fp32 weights computes in fp32 (the loss heads read the fp32 masters).
 """
 from __future__ import annotations
 
@@ -31,14 +34,24 @@ class Policy:
     compute_dtype: torch.dtype = torch.bfloat16
 
     def cast(self, module: nn.Module) -> nn.Module:
-        """``module`` with floating parameters in the compute dtype: the
-        module itself when nothing changes, else a cast copy (the fp32
-        masters are left as they are)."""
-        if all(p.dtype == self.compute_dtype or not p.is_floating_point()
-               for p in module.parameters()):
-            return module
+        """``module`` with floating parameters in the compute dtype, outside
+        autograd: the module itself when nothing changes, else a cast copy
+        (the fp32 masters are left as they are)."""
         with torch.no_grad():
-            return copy.deepcopy(module).to(self.compute_dtype)
+            return cast_params(module, self.compute_dtype)
+
+
+def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``module`` with its floating parameters cast to ``dtype`` through
+    autograd: the copy holds ``p.to(dtype)`` of each fp32 master, so
+    gradients of anything computed from the copy reach the masters (the
+    reference's ``Policy.cast`` inside a differentiated function).  The
+    module itself when nothing changes."""
+    params = [p for p in module.parameters() if p.is_floating_point()]
+    if all(p.dtype == dtype for p in params):
+        return module
+    memo = {id(p): p.to(dtype) for p in params}
+    return copy.deepcopy(module, memo)
 
 
 # ---------------------------------------------------------------------------
@@ -71,7 +84,11 @@ class Dense(nn.Module):
 
 
 def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p.w
+    w = p.w
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    y = x @ w
     if p.b is not None:
         y = y + p.b
     return y

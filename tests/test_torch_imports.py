@@ -28,9 +28,15 @@ def _imported_names(path):
             yield node.module
 
 
+TRAINING_MODULES = ("repro_torch.data.protein", "repro_torch.train.optim",
+                    "repro_torch.train.trainstep", "repro_torch.train.trainer",
+                    "repro_torch.launch.train")
+
+
 def test_no_jax_or_reference_imports_in_source():
     files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert set(TRAINING_MODULES) <= {m for m, _ in _modules()}
     bad = []
     for path in files:
         for name in _imported_names(path):
