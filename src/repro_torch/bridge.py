@@ -6,7 +6,8 @@ numpy arrays (``jax.tree_util.tree_map(np.asarray, params)``); this module
 imports neither JAX nor the JAX package.  Key paths are the same on both
 sides, joined with dots; the stacks' leading block axis (the reference scans
 over stacked params) is split across the port's ``ModuleList``:
-``evoformer.w`` of shape (n, ...) becomes ``evoformer.0.w`` ... ``evoformer.<n-1>.w``.
+``evoformer.w`` of shape (n, ...) becomes ``evoformer.0.w`` ... ``evoformer.<n-1>.w``
+(an LM's scanned ``layers`` likewise, with ``stacked=LM_STACKED``).
 The reference's ``OptState`` (``step``, ``mu``, ``nu``; ``mu``/``nu`` trees
 like the params) and its EMA tree become the port's ``train.optim.OptState``
 and EMA dict, keyed like ``model.named_parameters()``.
@@ -17,13 +18,17 @@ import numpy as np
 import torch
 
 STACKED = ("extra_stack", "evoformer")
+LM_STACKED = ("layers",)     # the LM zoo's scanned layer stack
 
 
 def flatten(tree: dict, prefix: str = "") -> dict:
-    """Nested dict -> {dotted key path: leaf}."""
+    """Nested dict (lists of dicts index as ``name.<i>``) -> {dotted key path:
+    leaf}."""
     out = {}
     for k, v in tree.items():
         key = f"{prefix}{k}"
+        if isinstance(v, (list, tuple)):
+            v = dict(enumerate(v))
         if isinstance(v, dict):
             out.update(flatten(v, key + "."))
         else:

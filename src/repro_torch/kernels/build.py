@@ -20,7 +20,7 @@ import time
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("evo_attention_fwd", "evo_attention_bwd", "triangle_mult_fwd",
-           "triangle_mult_bwd")
+           "triangle_mult_bwd", "flash_attention_fwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

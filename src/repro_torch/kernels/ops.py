@@ -3,14 +3,16 @@
 
 A tensor on the CPU goes to the kernel's plain version (``kernels.ref``); a
 CUDA tensor launches the hand-written kernel or raises — there is no
-fallback.  Without a gradient to track, the forward kernels K1 and K3 take
+fallback.  Without a gradient to track, the forward kernels K1, K3 and K6 take
 their serving launch.  When autograd needs the backward, each entry point
 runs as a ``torch.autograd.Function`` whose forward also writes the
 residual (K1's log-sum-exp, K3's fp32 contraction s) and whose backward is
 the flash-attention backward K2, or the triangle backward K4 + K5 — the
 VJPs of the reference's ``_ea_bwd``, ``_eanb_bwd`` and ``_tm_bwd``.
 ``triangle_mult_masked`` stays forward-only on the card, as in the
-reference.
+reference.  The LM's ``flash_attention`` (K6) keeps the reference's
+backward: autograd through the plain chunked attention, recomputed from q,
+k and v (the reference's ``_fa_bwd`` is chunked XLA, not a kernel).
 """
 from __future__ import annotations
 
@@ -19,15 +21,18 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import evo_attention as _ka
+from repro_torch.kernels import flash_attention as _kf
 from repro_torch.kernels import ref
 from repro_torch.kernels import triangle as _kt
+from repro_torch.nn.attention import attention_chunked
 
 # kernel name -> (wrapper module, its launch counter)
 KERNELS = {"evo_attention_fwd": (_ka, "launches"),
            "evo_attention_bwd": (_ka, "bwd_launches"),
            "triangle_mult_fwd": (_kt, "launches"),
            "triangle_mult_bwd_epilogue": (_kt, "epi_launches"),
-           "triangle_mult_bwd_dx": (_kt, "dx_launches")}
+           "triangle_mult_bwd_dx": (_kt, "dx_launches"),
+           "flash_attention_fwd": (_kf, "launches")}
 
 
 def launch_counts() -> dict:
@@ -51,6 +56,40 @@ def _on_cuda(*tensors) -> bool:
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+# ---------------------------------------------------------------------------
+# LM flash attention: K6 forward, the plain chunked attention's backward
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.scale = causal, scale
+        if _on_cuda(q):
+            return _kf.flash_attention_fwd(q, k, v, causal, scale)
+        return ref.flash_attention_ref(q, k, v, causal, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            out = attention_chunked(*qkv, causal=ctx.causal, scale=ctx.scale)
+            dq, dk, dv = torch.autograd.grad(out, qkv, do)
+        return dq, dk, dv, None, None
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    scale: Optional[float] = None):
+    """Grouped-query attention: q (B, S, H, D), k/v (B, T, KV, D), H a
+    multiple of KV; ``causal``: query i sees keys 0..i."""
+    if _needs_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, scale)
+    if _on_cuda(q, k, v):
+        return _kf.flash_attention_fwd(q, k, v, causal, scale)
+    return ref.flash_attention_ref(q, k, v, causal, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -99,6 +138,17 @@ def evo_attention_nobias(q, k, v, gate, scale: Optional[float] = None):
     if _on_cuda(q, k, v, gate):
         return _ka.evo_attention_fwd(q, k, v, None, gate, scale)
     return ref.evo_attention_ref(q, k, v, None, gate, scale)
+
+
+def evo_attention_nogate(q, k, v, bias, scale: Optional[float] = None):
+    """Bias attention with no gate (the gate multiply is compiled out): the
+    LM dispatcher's biased self-attention, ``attention(impl="pallas",
+    bias=...)``.  q/k/v (L, S, H, C), bias (H, S, S)."""
+    if _needs_grad(q, k, v, bias):
+        return _EvoAttention.apply(q, k, v, bias, None, scale)
+    if _on_cuda(q, k, v, bias):
+        return _ka.evo_attention_fwd(q, k, v, bias, None, scale)
+    return ref.evo_attention_ref(q, k, v, bias, None, scale)
 
 
 # ---------------------------------------------------------------------------

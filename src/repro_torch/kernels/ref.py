@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels: the forwards K1 and K3
-(each optionally returning its backward residual) and the backwards K2, K4
-and K5.
+(each optionally returning its backward residual), the backwards K2, K4
+and K5, and the LM flash-attention forward K6.
 
 Each repeats its kernel's arithmetic in eager torch: the CPU path of
 ``kernels.ops`` runs them, and ``chip_smoke.py`` holds each CUDA kernel
@@ -91,6 +91,32 @@ def evo_attention_bwd_ref(q, k, v, bias, gate, out, lse, do,
     dv = torch.einsum("lhst,lshc->lthc", rnd(p), do_raw)
     dbias = ds.sum(0) if bias is not None else None
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dgate
+
+
+def flash_attention_ref(q, k, v, causal: bool = True,
+                        scale: Optional[float] = None):
+    """Grouped-query attention (kernel K6): q (B, S, H, D), k/v (B, T, KV, D)
+    with H = KV * G; query head h reads kv head h // G.  ``causal``: query i
+    sees keys 0..i (both positions from 0, also when T != S).  Scores and the
+    softmax are fp32; for bf16 inputs the unnormalised probabilities are
+    rounded to bf16 before the product with v (the kernel's tensor-core
+    operand, the Pallas kernel's ``p.astype(v.dtype)``) and divided by the
+    fp32 row sum afterwards.  Returns (B, S, H, D) in q's dtype."""
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    scale = d ** -0.5 if scale is None else scale
+    qg = q.float().reshape(b, s, kv, h // kv, d)
+    logits = torch.einsum("bskgd,btkd->bkgst", qg, k.float()) * scale
+    if causal:
+        keep = torch.arange(s, device=q.device)[:, None] >= torch.arange(
+            t, device=q.device)[None, :]
+        logits = logits.masked_fill(~keep, float("-inf"))
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))
+    denom = e.sum(-1, keepdim=True)
+    if v.dtype != torch.float32:
+        e = e.to(v.dtype).float()
+    o = torch.einsum("bkgst,btkd->bskgd", e / denom, v.float())
+    return o.reshape(b, s, h, d).to(q.dtype)
 
 
 def gated_projection(x, w, b, k_mask: Optional[torch.Tensor] = None):

@@ -1,11 +1,17 @@
-"""Fold-serving launcher of the PyTorch port: a mixed-length synthetic queue
-through ``FoldEngine`` on one device, every attention and triangle update on
-the hand-written kernels.
+"""Serving launcher of the PyTorch port, on one device: LM batched decode
+through ``DecodeEngine`` (``--arch``; prefill attention on the flash kernel
+K6), or AF2 fold serving of a mixed-length synthetic queue through
+``FoldEngine`` (``--fold``; every attention and triangle update on the
+hand-written kernels).
 
   # on the GPU (the default device)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
+      --requests 8 --slots 4 --max-new 32 --prompt-len 2048 --max-len 4096
   PYTHONPATH=src python -m repro_torch.launch.serve --fold initial \
       --requests 4 --micro-batch 2 --max-recycle 3
   # on the CPU (the kernels' plain versions), small shapes
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke \
+      --device cpu --requests 3 --slots 2 --max-new 4 --prompt-len 8 --max-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu
 """
 from __future__ import annotations
@@ -16,9 +22,18 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", help="LM arch id (decode serving)")
     ap.add_argument("--fold", choices=["tiny", "small", "initial", "finetune"],
-                    required=True, help="AF2 config")
+                    help="AF2 config (fold serving)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--arch: the reduced config of the same family")
     ap.add_argument("--requests", type=int, default=6)
+    # LM decode knobs
+    ap.add_argument("--slots", type=int, default=2)
+    ap.add_argument("--max-new", type=int, default=12)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--max-len", type=int, default=128)
+    # fold knobs
     ap.add_argument("--micro-batch", type=int, default=2)
     ap.add_argument("--max-recycle", type=int, default=3)
     ap.add_argument("--tol", type=float, default=0.0,
@@ -28,7 +43,55 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args(argv)
-    run_fold(args)
+    if bool(args.arch) == bool(args.fold):
+        raise SystemExit("pass one of --arch <lm-arch> (decode) and --fold "
+                         "<tiny|small|initial|finetune> (AF2)")
+    if args.fold:
+        return run_fold(args)
+    return run_lm_decode(args)
+
+
+def run_lm_decode(args):
+    import numpy as np
+    import torch
+
+    from repro_torch import configs as cfglib
+    from repro_torch.device import resolve_device
+    from repro_torch.models import get_model
+    from repro_torch.models.lmconfig import with_kernels
+    from repro_torch.serve.engine import DecodeEngine, Request
+
+    try:
+        cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
+               else cfglib.get_config(args.arch))
+    except KeyError:
+        raise SystemExit(
+            f"unknown --arch {args.arch!r}; known LM archs: "
+            f"{', '.join(cfglib.ARCH_IDS)}.  AF2 fold serving uses --fold "
+            "<tiny|small|initial|finetune> instead of --arch")
+    cfg = with_kernels(cfg)
+    model = get_model(cfg)
+    dev = resolve_device(args.device)
+    params = model.init_params(cfg, seed=args.seed, device=dev,
+                               dtype=torch.bfloat16)
+    engine = DecodeEngine(model, cfg, params, batch_slots=args.slots,
+                          max_len=args.max_len, device=dev)
+    rng = np.random.default_rng(args.seed)
+    reqs = [Request(rid=i,
+                    prompt=rng.integers(0, cfg.vocab, args.prompt_len,
+                                        dtype=np.int32),
+                    max_new_tokens=args.max_new)
+            for i in range(args.requests)]
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    dt = time.perf_counter() - t0
+    total = sum(len(v) for v in done.values())
+    print(f"{cfg.arch_id} ({cfg.n_layer} layers, d {cfg.d_model}) on "
+          f"{engine.device}: served {len(done)} requests, {total} tokens in "
+          f"{dt:.1f}s ({total / dt:.1f} tok/s aggregate)")
+    for rid in sorted(done)[:3]:
+        print(f"  req {rid}: {done[rid][:10]}...")
+    return done
 
 
 def run_fold(args):

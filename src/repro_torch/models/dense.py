@@ -1,0 +1,219 @@
+"""Dense decoder-only transformer (GQA + RoPE + SwiGLU + RMSNorm):
+glm4-9b, qwen1.5-110b (QKV bias), deepseek-67b, deepseek-coder-33b.
+Counterpart of ``repro/models/dense.py``, serving functions only
+(``bp_parallel_layer``, ``loss`` and ``partition_rules`` come with the LM
+training and tensor-parallel slices).
+
+Parameters live in a :class:`DenseLM` under the reference's key paths
+(``embed.table``, ``layers.<i>.wq.w``, ``layers.<i>.mlp.w_gate.w``,
+``ln_f.scale``, ``lm_head.w``); the reference scans over a stacked layer
+axis, which ``bridge`` splits across ``layers`` (``stacked=("layers",)``).
+
+``prefill`` and ``decode_step`` write the new keys and values into the
+cache's tensors in place and return the cache: the reference's functional
+updates would copy the whole cache at every layer of every token.  Like the
+reference's ``dynamic_update_slice``, a write at a position past the end of
+the cache lands on its last slot.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.lmconfig import LMConfig
+from repro_torch.nn.attention import attention, decode_attention
+from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
+                                   dense, rmsnorm, swiglu)
+from repro_torch.nn.rope import apply_rope
+
+BF16 = Policy()
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+class Layer(nn.Module):
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        d, hd = cfg.d_model, cfg.d_head
+        kw = dict(generator=generator, device=device)
+        self.ln1 = RMSNorm(d, device=device)
+        self.wq = Dense(d, cfg.n_head * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wk = Dense(d, cfg.n_kv_head * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wv = Dense(d, cfg.n_kv_head * hd, use_bias=cfg.qkv_bias, **kw)
+        self.wo = Dense(cfg.n_head * hd, d, use_bias=False, **kw)
+        self.ln2 = RMSNorm(d, device=device)
+        self.mlp = SwiGLU(d, cfg.d_ff, **kw)
+
+
+class DenseLM(nn.Module):
+    """All parameters, drawn on ``device`` (``cuda`` by default, raising
+    without a card unless ``device="cpu"``) from a generator there seeded
+    with ``seed``, one module at a time, each cast to ``dtype`` as soon as it
+    is drawn: at bf16 the card holds at most one module (a layer, the
+    embedding or the head) in fp32 besides the bf16 weights."""
+
+    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        kw = dict(generator=g, device=device)
+        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
+        self.layers = nn.ModuleList(Layer(cfg, **kw).to(dtype)
+                                    for _ in range(cfg.n_layer))
+        self.ln_f = RMSNorm(cfg.d_model, device=device).to(dtype)
+        if not cfg.tie_embeddings:
+            self.lm_head = Dense(cfg.d_model, cfg.vocab, use_bias=False,
+                                 **kw).to(dtype)
+
+
+def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> DenseLM:
+    return DenseLM(cfg, seed=seed, device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def attention_block(p: Layer, cfg: LMConfig, x, positions, *, causal=True,
+                    kv_cache: Optional[tuple] = None, cache_lengths=None):
+    """Returns (out, (k, v)): the new K/V for cache maintenance."""
+    b, s, _ = x.shape
+    h = rmsnorm(p.ln1, x)
+    q = dense(p.wq, h).reshape(b, s, cfg.n_head, cfg.d_head)
+    k = dense(p.wk, h).reshape(b, s, cfg.n_kv_head, cfg.d_head)
+    v = dense(p.wv, h).reshape(b, s, cfg.n_kv_head, cfg.d_head)
+    q = apply_rope(q, positions, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    if kv_cache is not None:
+        o = decode_attention(q, kv_cache[0], kv_cache[1], lengths=cache_lengths)
+    else:
+        o = attention(q, k, v, causal=causal, impl=cfg.attention_impl,
+                      chunk_size=cfg.attention_chunk)
+    o = dense(p.wo, o.reshape(b, s, cfg.n_head * cfg.d_head))
+    return o, (k, v)
+
+
+def layer_apply(p: Layer, cfg: LMConfig, x, positions, *, causal=True,
+                kv_cache=None, cache_lengths=None):
+    att, kv = attention_block(p, cfg, x, positions, causal=causal,
+                              kv_cache=kv_cache, cache_lengths=cache_lengths)
+    if cfg.parallel_block:
+        # PaLM-style: x + Attn(LN1 x) + MLP(LN2 x), two independent branches
+        mlp = swiglu(p.mlp, rmsnorm(p.ln2, x))
+        return (x + att + mlp).to(att.dtype), kv
+    x = x + att
+    x = x + swiglu(p.mlp, rmsnorm(p.ln2, x))
+    return x.to(att.dtype), kv
+
+
+def backbone(params: DenseLM, cfg: LMConfig, x, positions, *, causal=True):
+    """Run the layer stack on embeddings x (B, S, D).  No rematerialisation:
+    the port's LM path is forward-only."""
+    for lp in params.layers:
+        x, _ = layer_apply(lp, cfg, x, positions, causal=causal)
+    return rmsnorm(params.ln_f, x)
+
+
+def logits_fn(params: DenseLM, cfg: LMConfig, x):
+    head = getattr(params, "lm_head", None)
+    if cfg.tie_embeddings or head is None:
+        return x @ params.embed.table.to(x.dtype).T
+    return dense(head, x)
+
+
+def _positions(b: int, s: int, device):
+    return torch.arange(s, dtype=torch.int32, device=device).expand(b, s)
+
+
+def forward(params: DenseLM, cfg: LMConfig, tokens):
+    """tokens (B, S) -> logits (B, S, V), in bf16."""
+    params = BF16.cast(params)
+    b, s = tokens.shape
+    x = params.embed.table[tokens.long()]
+    x = backbone(params, cfg, x, _positions(b, s, x.device))
+    return logits_fn(params, cfg, x)
+
+
+# ---------------------------------------------------------------------------
+# serving: cache + prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    device = resolve_device(device)
+    shape = (cfg.n_layer, batch, max_len, cfg.n_kv_head, cfg.d_head)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+@torch.no_grad()
+def prefill(params: DenseLM, cfg: LMConfig, tokens, cache):
+    """Fill the cache with the prompt tokens (B, S); returns (last-token
+    logits (B, 1, V), cache)."""
+    params = BF16.cast(params)
+    b, s = tokens.shape
+    x = params.embed.table[tokens.long()]
+    positions = _positions(b, s, x.device)
+    for i, lp in enumerate(params.layers):
+        x, (k, v) = layer_apply(lp, cfg, x, positions, causal=True)
+        cache["k"][i, :, :s] = k
+        cache["v"][i, :, :s] = v
+    x = rmsnorm(params.ln_f, x)
+    logits = logits_fn(params, cfg, x[:, -1:])
+    return logits, {"k": cache["k"], "v": cache["v"],
+                    "length": torch.full((b,), s, dtype=torch.int32,
+                                         device=x.device)}
+
+
+def write_kv_cache(c, new, lengths, *, uniform: bool):
+    """Write ``new`` (B, 1, KV, Hd) into the cache ``c`` (B, T, KV, Hd), in
+    place, at each sequence's length, clamped to T - 1 as the reference's
+    ``dynamic_update_slice`` clamps.  ``uniform=True`` writes every sequence
+    at ``lengths[0]`` (the reference's uniform-length batch contract)."""
+    last = c.shape[1] - 1
+    if uniform:
+        idx = lengths[:1].long().clamp(0, last)
+        return c.index_copy_(1, idx, new.to(c.dtype))
+    idx = lengths.long().clamp(0, last)
+    rows = torch.arange(c.shape[0], device=c.device)
+    c[rows, idx] = new[:, 0].to(c.dtype)
+    return c
+
+
+@torch.no_grad()
+def decode_step(params: DenseLM, cfg: LMConfig, tokens1, cache):
+    """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
+    params = BF16.cast(params)
+    b = tokens1.shape[0]
+    x = params.embed.table[tokens1.long()]
+    length = cache["length"]
+    positions = length[:, None]                                  # (B, 1)
+    for i, lp in enumerate(params.layers):
+        h = rmsnorm(lp.ln1, x)
+        q = dense(lp.wq, h).reshape(b, 1, cfg.n_head, cfg.d_head)
+        k = dense(lp.wk, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
+        v = dense(lp.wv, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
+        q = apply_rope(q, positions, theta=cfg.rope_theta)
+        k = apply_rope(k, positions, theta=cfg.rope_theta)
+        kc = write_kv_cache(cache["k"][i], k, length, uniform=cfg.uniform_decode)
+        vc = write_kv_cache(cache["v"][i], v, length, uniform=cfg.uniform_decode)
+        o = decode_attention(q, kc, vc, lengths=length + 1)
+        att = dense(lp.wo, o.reshape(b, 1, cfg.n_head * cfg.d_head))
+        if cfg.parallel_block:
+            x = x + att + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
+        else:
+            x = x + att
+            x = x + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
+        x = x.to(o.dtype)
+    x = rmsnorm(params.ln_f, x)
+    logits = logits_fn(params, cfg, x)
+    return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}

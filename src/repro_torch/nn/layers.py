@@ -8,8 +8,10 @@ Counterpart of ``repro/nn/layers.py``.  Conventions:
 * The apply function takes the module as its ``p`` argument, as the JAX
   functions take a params dict: ``dense(p, x) = x @ p.w + p.b``.
 * Modules initialise themselves as the JAX ``*_init`` functions do, drawing
-  on the CPU from a ``torch.Generator`` (the same seed gives the same weights
-  on any device); ``.to(device)`` then places them.
+  from a ``torch.Generator``: on the CPU by default (the same seed gives the
+  same weights on any device; ``.to(device)`` then places them), or on the
+  ``device`` of a generator made there (full-width LM weights are drawn on
+  the card, where the host could not hold their fp32 copy).
 * Parameters are fp32 masters; :class:`Policy` casts them to the compute
   dtype once at the model's entry (paper §5.1 AMP recipe), and
   :func:`cast_params` does so through autograd for training.
@@ -58,11 +60,13 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 # Linear / dense
 # ---------------------------------------------------------------------------
 
-def lecun_normal(shape, generator: torch.Generator, scale: float = 1.0):
-    """Truncated (±2σ) normal with σ = scale / sqrt(fan_in), fan_in = shape[0]."""
-    w = torch.empty(shape, dtype=torch.float32)
+def lecun_normal(shape, generator: torch.Generator, scale: float = 1.0,
+                 device=None):
+    """Truncated (±2σ) normal with σ = scale / sqrt(fan_in), fan_in = shape[0],
+    drawn on ``device`` (that of ``generator``; the CPU by default)."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-    return w * (float(scale) / shape[0] ** 0.5)
+    return w.mul_(float(scale) / shape[0] ** 0.5)
 
 
 class Dense(nn.Module):
@@ -70,15 +74,16 @@ class Dense(nn.Module):
     (AF2 final layers); ``b`` zeros, or absent with ``use_bias=False``."""
 
     def __init__(self, in_dim: int, out_dim: int, *, generator: torch.Generator,
-                 use_bias: bool = True, scale: float | str = 1.0):
+                 use_bias: bool = True, scale: float | str = 1.0,
+                 device=None):
         super().__init__()
         if scale == "zeros":
-            w = torch.zeros((in_dim, out_dim))
+            w = torch.zeros((in_dim, out_dim), device=device)
         else:
-            w = lecun_normal((in_dim, out_dim), generator, scale)
+            w = lecun_normal((in_dim, out_dim), generator, scale, device)
         self.w = nn.Parameter(w)
         if use_bias:
-            self.b = nn.Parameter(torch.zeros((out_dim,)))
+            self.b = nn.Parameter(torch.zeros((out_dim,), device=device))
         else:
             self.register_parameter("b", None)
 
@@ -115,6 +120,47 @@ def layernorm(p: LayerNorm, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tens
     y = F.layer_norm(x.float(), x.shape[-1:], p.scale.float(), p.bias.float(),
                      eps)
     return y.to(x.dtype)
+
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, *, device=None):
+        super().__init__()
+        self.scale = nn.Parameter(torch.ones((dim,), device=device))
+
+
+def rmsnorm(p: RMSNorm, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm with fp32 statistics and scaling, output in x's dtype."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    return (y * p.scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding and MLPs
+# ---------------------------------------------------------------------------
+
+class Embedding(nn.Module):
+    """``table`` (vocab, dim): standard normal times dim^-1/2."""
+
+    def __init__(self, vocab: int, dim: int, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        t = torch.randn((vocab, dim), generator=generator, device=device)
+        self.table = nn.Parameter(t.mul_(dim ** -0.5))
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, dim: int, hidden: int, *, generator: torch.Generator,
+                 use_bias: bool = False, device=None):
+        super().__init__()
+        kw = dict(generator=generator, use_bias=use_bias, device=device)
+        self.w_gate = Dense(dim, hidden, **kw)
+        self.w_up = Dense(dim, hidden, **kw)
+        self.w_down = Dense(hidden, dim, **kw)
+
+
+def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    return dense(p.w_down, F.silu(dense(p.w_gate, x)) * dense(p.w_up, x))
 
 
 def count_params(module: nn.Module) -> int:

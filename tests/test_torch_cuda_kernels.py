@@ -9,6 +9,9 @@ atol 2e-4 (the reference's kernel tolerance, tests/test_kernels.py), rtol
 1e-5.  bf16: atol 3e-2 (the reference's bf16 tolerance), rtol 2^-7 — the
 kernel and its plain version do the same fp32 arithmetic in another order,
 so a bf16 output (or a staged bf16 projection) may round one ulp apart.
+K6 in bf16: atol 2e-3 — its outputs are means of up to 1000 N(0, 1) values
+(|out| ~0.05, where 3e-2 would pass a dropped key tile); rtol covers one ulp
+of the output, atol the rounding of p against a running max.
 
 Backward kernels (K2, K4, K5) and the residuals (K1's log-sum-exp, K3's s):
 |kernel - plain| <= 1e-4 * max(1, max|plain|) + rtol * |plain|, rtol 2^-7
@@ -31,6 +34,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import evo_attention as ka
+from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels import triangle as kt
@@ -38,10 +42,11 @@ from repro_torch.kernels import triangle as kt
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: (2e-4, 1e-5), torch.bfloat16: (3e-2, 2.0 ** -7)}
+K6_TOL = {**TOL, torch.bfloat16: (2e-3, 2.0 ** -7)}
 
 
-def _assert_close(got, want, dtype):
-    atol, rtol = TOL[dtype]
+def _assert_close(got, want, dtype, tol=TOL):
+    atol, rtol = tol[dtype]
     d = (got.float() - want.float()).abs()
     excess = (d - atol - rtol * want.float().abs()).max().item()
     assert excess <= 0.0, f"max |diff| {d.max().item()} over tolerance"
@@ -281,3 +286,82 @@ def test_masked_triangle_mult_stays_forward_only_on_the_card(cuda_dev):
         (16, 16), (16,))]
     with pytest.raises(RuntimeError, match="forward-only"):
         ops.triangle_mult_masked(x, x, x, torch.ones(4, device=cuda_dev), *w)
+
+
+# ---------------------------------------------------------------------------
+# K6: the LM's grouped-query flash attention forward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,D,causal", [
+    (1, 128, 128, 4, 2, 64, True),      # the reference's FA_CASES
+    (2, 256, 256, 4, 4, 32, True),
+    (1, 128, 128, 2, 1, 128, False),
+    (1, 100, 100, 4, 2, 64, True),      # ragged tiles
+    (2, 77, 77, 6, 3, 32, False),
+    (1, 64, 128, 4, 2, 64, False),      # T != S
+    (1, 130, 70, 4, 1, 128, True),      # T < S: rows past T see every key
+    (1, 1000, 1000, 32, 2, 128, True),  # glm4-9b width, ragged
+])
+def test_flash_attention_kernel_matches_plain(cuda_dev, dtype, B, S, T, H,
+                                              KV, D, causal):
+    rng = np.random.default_rng(B * S + T + H + D)
+    q = _t(rng, (B, S, H, D), dtype, cuda_dev)
+    k = _t(rng, (B, T, KV, D), dtype, cuda_dev)
+    v = _t(rng, (B, T, KV, D), dtype, cuda_dev)
+    got = kf.flash_attention_fwd(q, k, v, causal)
+    want = ref.flash_attention_ref(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert got.shape == (B, S, H, D) and got.dtype == dtype
+    _assert_close(got, want, dtype, K6_TOL)
+
+
+def test_flash_attention_kernel_reads_strided_views(cuda_dev):
+    """q/k/v as views of the fused projections (B, S, heads, D) with a
+    position stride larger than heads * D, as a packed QKV layout gives."""
+    rng = np.random.default_rng(5)
+    B, S, H, KV, D = 2, 96, 4, 2, 64
+    qkv = _t(rng, (B, S, H + 2 * KV, D), torch.bfloat16, cuda_dev)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + KV], qkv[:, :, H + KV:]
+    got = kf.flash_attention_fwd(q, k, v, True)
+    want = ref.flash_attention_ref(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), True)
+    _assert_close(got, want, torch.bfloat16, K6_TOL)
+
+
+def test_flash_attention_launch_counter_and_checks(cuda_dev):
+    q = torch.zeros((1, 16, 2, 32), device=cuda_dev)
+    before = kf.launches
+    ops.flash_attention(q, q, q, True)
+    assert kf.launches == before + 1
+    with pytest.raises(ValueError, match="head dim"):
+        kf.flash_attention_fwd(torch.zeros((1, 8, 2, 48), device=cuda_dev),
+                               torch.zeros((1, 8, 2, 48), device=cuda_dev),
+                               torch.zeros((1, 8, 2, 48), device=cuda_dev))
+    with pytest.raises(ValueError, match="kv heads"):
+        kf.flash_attention_fwd(torch.zeros((1, 8, 3, 32), device=cuda_dev),
+                               torch.zeros((1, 8, 2, 32), device=cuda_dev),
+                               torch.zeros((1, 8, 2, 32), device=cuda_dev))
+    assert kf.launches == before + 1
+
+
+def test_flash_attention_autograd_on_the_card(cuda_dev):
+    """ops.flash_attention with a gradient: K6 forward, the reference's
+    backward (autograd through the plain chunked attention)."""
+    from repro_torch.nn.attention import attention_reference
+    rng = np.random.default_rng(12)
+    base = [_t(rng, (1, 80, 4, 32), torch.float32, cuda_dev)] + [
+        _t(rng, (1, 80, 2, 32), torch.float32, cuda_dev) for _ in range(2)]
+    dout = _t(rng, (1, 80, 4, 32), torch.float32, cuda_dev)
+
+    def grads(fn):
+        ts = [t.clone().requires_grad_(True) for t in base]
+        (fn(*ts) * dout).sum().backward()
+        return [t.grad for t in ts]
+
+    before = kf.launches
+    got = grads(lambda q, k, v: ops.flash_attention(q, k, v, True))
+    assert kf.launches == before + 1
+    want = grads(lambda q, k, v: attention_reference(q, k, v, causal=True))
+    for a, b in zip(got, want):
+        _assert_grad_close(a, b)

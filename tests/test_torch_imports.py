@@ -33,10 +33,18 @@ TRAINING_MODULES = ("repro_torch.data.protein", "repro_torch.train.optim",
                     "repro_torch.launch.train")
 
 
+LM_MODULES = ("repro_torch.models", "repro_torch.models.lmconfig",
+              "repro_torch.models.dense", "repro_torch.configs",
+              "repro_torch.configs.glm4_9b", "repro_torch.nn.attention",
+              "repro_torch.nn.rope", "repro_torch.kernels.flash_attention",
+              "repro_torch.serve.engine", "repro_torch.serve.steps")
+
+
 def test_no_jax_or_reference_imports_in_source():
     files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert set(TRAINING_MODULES) <= {m for m, _ in _modules()}
+    assert set(LM_MODULES) <= {m for m, _ in _modules()}
     bad = []
     for path in files:
         for name in _imported_names(path):

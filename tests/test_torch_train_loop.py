@@ -234,5 +234,6 @@ def test_training_step_launch_counts_follow_the_draw(monkeypatch):
         "evo_attention_bwd": 2 * k1,
         "triangle_mult_fwd": sum(k3 * (nr + 1) for nr in n),
         "triangle_mult_bwd_epilogue": 2 * k3,
-        "triangle_mult_bwd_dx": 4 * k3}
+        "triangle_mult_bwd_dx": 4 * k3,
+        "flash_attention_fwd": 0}
     ops.reset_launch_counts()
