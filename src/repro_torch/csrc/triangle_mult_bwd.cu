@@ -25,12 +25,9 @@
 //
 // What bounds them on the H100: at r 256, c = c_z = 128 both are
 // contractions with far more operations than bytes (K4 ~17 GFLOP on ~130 MB,
-// K5 ~21 GFLOP on ~70 MB), so the operations bound them.  This first version
-// runs on the fp32 CUDA cores (67 TFLOP/s), not the tensor cores.
+// K5 ~21.5 GFLOP on ~70 MB), so the operations bound them.
 //
-// Design.  The Pallas kernels keep whole operand rows in VMEM and carry the
-// parameter-gradient sums across their grid in constant-index output blocks,
-// which relies on the TPU running its grid in sequence.  Here:
+// K4 (both types) and K5 in fp32 run on the fp32 CUDA cores (67 TFLOP/s):
 //  * Row kernels (tri_epi_bwd_rows_kernel, tri_dx_rows_kernel) take 32 pairs
 //    per block with every channel in shared memory, do the per-pair work and
 //    write the per-pair results the sums need (n, du, dzg; dh) to scratch.
@@ -39,19 +36,42 @@
 //    outer_acc_kernel splits the pairs into ~128 ranges, each block sums its
 //    range for a 64 x 64 output tile into a partial, and sum_chunks_kernel /
 //    col_sum_kernel add the partials in a fixed order.  No atomics: two runs
-//    give the same bits.  With 16x16 pair tiles and per-tile partials the
-//    partials would take 32 MiB per sum; split ranges take ~8 MiB.
-//  * K5's streamed projection is staged ONCE per call in fp32 device memory
-//    (tri_proj_f32_kernel), not recomputed per tile as the Pallas kernel
-//    does: per tile it would cost r_p / 8 times over.  The contraction
-//    (tri_dx_contract_kernel) is then, per channel, a product of r x r
-//    matrices: one block per 8 x 8 (p, k) tile, one thread per channel, so
-//    every load is coalesced over the contiguous channel axis, for ds read
-//    through its strides as well (no transpose copy for the second side).
+//    give the same bits.
+//  * K5's streamed projection is staged once per call in fp32
+//    (tri_proj_f32_kernel); the contraction (tri_dx_contract_kernel) is, per
+//    channel, a product of r x r matrices, one block per 8 x 8 (p, k) tile,
+//    one thread per channel, reading ds through its strides.
+//
+// K5 in bf16 (the training path) runs every product on the tensor cores as
+// a tiled GEMM (tile_mma.cuh: mma.sync m16n8k16 from ldmatrix fragments,
+// operands staged through a 3-stage cp.async ring, 128 x 64 block tiles),
+// six launches:
+//   1. tri_dx_split_kernel: ds (read by its strides, so the second side's
+//      transposed view needs no copy) -> hi/lo bf16, channel-major.
+//   2. tri_dx_proj_kernel: both gated projections in one launch, the
+//      streamed side's str as a hi/lo pair, the local side's fp32
+//      pre-activations h (the epilogue of step 3 needs both halves).
+//   3. tri_dx_contract_mma_kernel: per channel d_loc = ds . str, then dh
+//      from h in registers, written hi/lo channel-major; per-tile db sums.
+//   4. tri_dx_out_kernel: dx^T = W_loc . dh^T, rounded to bf16.
+//   5. tri_dx_dw_kernel: dW^T = dh^T . x_loc, split over the pairs into
+//      partials; tri_dx_sums_kernel adds the dW and db partials in a fixed
+//      order (no atomics: two runs give the same bits).
+// Precision: ds, str, d_loc and dh are fp32 in the reference, so none is
+// rounded to a single bf16.  Each is split v = hi + lo (hi = bf16(v), lo =
+// bf16(v - hi)); an fp32 x fp32 product is hi.hi' + hi.lo' + lo.hi', an fp32
+// x bf16 one hi.w + lo.w, all accumulated in fp32: ~16 mantissa bits per
+// operand, inside check_grad_close's fp32 tolerance where one bf16 rounding
+// of ds is not (tests/test_torch_triangle_split.py).  The split raises the
+// work from ~21.5 to ~39 GFLOP of bf16 products.  What bounds it now: the
+// mma.sync rate of 32 x 32 warp tiles fed from shared memory, and the
+// contraction's epilogue traffic (h read, dh written: ~130 MB at r 256).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -572,6 +592,340 @@ tri_dx_rows_kernel(const T* __restrict__ x, long long sp, long long sk,
 }
 
 // ---------------------------------------------------------------------------
+// K5, bf16 inputs: tiled tensor-core GEMMs (tile_mma.cuh), split precision
+// ---------------------------------------------------------------------------
+//
+// Scratch over padded extents (Rp, Rq, Rk: r_p, r_q, r_k rounded up to
+// 128; Pp = Rp * Rk padded pairs m = p * Rk + k), zero in the pads wherever
+// a product reads them; channel-major (ch, ., .) or tile-major
+// (tile::tm_index, as the projections write it):
+//   ds_hi, ds_lo (c, Rp, Rq) bf16        str_hi, str_lo tile-major (Rq, Rk, c) bf16
+//   h tile-major (Rp, Rk, 2c) fp32        dh_hi, dh_lo (2c, Pp) bf16
+//   db partials (tiles, 2c) fp32      dW partials (splits, cz, 2c) fp32
+
+using tile::bf16;
+using tile::i64;
+
+// ds (rp, rq, c) fp32 by strides -> its hi/lo bf16 pair, channel-major.
+// One block per (p, 64 q, 64 channels), through a shared-memory transpose:
+// reads coalesced over channels, writes over q.
+__global__ void __launch_bounds__(256)
+tri_dx_split_kernel(const float* __restrict__ ds, i64 sp, i64 sq, bf16* __restrict__ hi,
+                    bf16* __restrict__ lo, int rp, int rq, int Rp, int Rq, int c) {
+  __shared__ float t[64][65];
+  const int q0 = blockIdx.x * 64, p = blockIdx.y, ch0 = blockIdx.z * 64;
+  for (int e = threadIdx.x; e < 64 * 64; e += 256) {
+    const int q = e >> 6, ch = e & 63;
+    t[ch][q] = (p < rp && q0 + q < rq && ch0 + ch < c)
+                   ? ds[p * sp + (i64)(q0 + q) * sq + ch0 + ch]
+                   : 0.f;
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < 64 * 64; e += 256) {
+    const int ch = e >> 6, q = e & 63;
+    if (ch0 + ch >= c) continue;
+    const i64 o = ((i64)(ch0 + ch) * Rp + p) * Rq + q0 + q;
+    tile::split_bf16(t[ch][q], hi[o], lo[o]);
+  }
+}
+
+// Side 0: the streamed projection str (hi/lo); side 1: the local side's
+// pre-activations h.
+__global__ void __launch_bounds__(tile::PROJ_THREADS)
+tri_dx_proj_kernel(tile::ProjSide s0, tile::ProjSide s1, int rk, int Rk, int cz, int c) {
+  tile::proj_body(s0, s1, rk, Rk, cz, c);
+}
+
+constexpr int STG32 = 36;  // staging row of 32 floats (+4 against bank conflicts)
+
+// One warp's 32 x 32 fp32 tile v (tile::Frag's layout) as hi/lo bf16 rows:
+// row r at hi + r * ld, lo + r * ld.  Staged through the warp's `stg` (32 x
+// STG32 floats), so that four lanes write each row's 64 bytes.
+__device__ __forceinline__ void warp_store_split(float* stg, const tile::Acc& v, bf16* hi,
+                                                 bf16* lo, i64 ld) {
+  const tile::Frag f;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        stg[(f.row(mt, e) - f.wm * 32) * STG32 + f.col(nt, e) - f.wn * 32] = v[mt][nt][e];
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int r = q * 8 + (lane >> 2), col = (lane & 3) * 8;
+    const float* src = stg + r * STG32 + col;
+    uint4 h, l;
+    tile::split8(*reinterpret_cast<const float4*>(src), *reinterpret_cast<const float4*>(src + 4),
+                 h, l);
+    *reinterpret_cast<uint4*>(hi + r * ld + col) = h;
+    *reinterpret_cast<uint4*>(lo + r * ld + col) = l;
+  }
+}
+
+// Per channel ch = blockIdx.z, one 128 p x 64 k tile of
+//     d_loc[p, k] = sum_q ds[p, q] * str[q, k]       (3 split products)
+// then, in registers, dh = [d_loc * sg | d_loc * val * sg * (1 - sg)] from
+// h, written as hi/lo (zero past rp, rk), and this tile's sums of dh for db.
+__global__ void __launch_bounds__(tile::THREADS)
+tri_dx_contract_mma_kernel(const bf16* __restrict__ ds_hi, const bf16* __restrict__ ds_lo,
+                           const bf16* __restrict__ st_hi, const bf16* __restrict__ st_lo,
+                           const float* __restrict__ h, bf16* __restrict__ dh_hi,
+                           bf16* __restrict__ dh_lo, float* __restrict__ db_part, int rp,
+                           int rk, int Rp, int Rq, int Rk, int c) {
+  using namespace tile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int ch = blockIdx.z, p0 = blockIdx.y * BM, k0 = blockIdx.x * BN;
+  const i64 a_off = ((i64)ch * Rp + p0) * Rq;
+  Acc acc;
+  auto load = [&](const Stage& st, int ks) {
+    const int q0 = ks * BK;
+    load_a(st.a_hi, [&](int r, int kc, bool& ok) {
+      ok = true;
+      return ds_hi + a_off + (i64)r * Rq + q0 + kc;
+    });
+    load_a(st.a_lo, [&](int r, int kc, bool& ok) {
+      ok = true;
+      return ds_lo + a_off + (i64)r * Rq + q0 + kc;
+    });
+    load_b_kn(st.b_hi, [&](int kr, int nc, bool& ok) {
+      ok = true;
+      return st_hi + tm_index(q0 + kr, k0 + nc, ch, Rk, c);
+    });
+    load_b_kn(st.b_lo, [&](int kr, int nc, bool& ok) {
+      ok = true;
+      return st_lo + tm_index(q0 + kr, k0 + nc, ch, Rk, c);
+    });
+  };
+  mainloop<true, true, true>(smem, Rq / BK, load, acc);
+
+  const Frag f;
+  const i64 Pp = (i64)Rp * Rk;
+  // all of this thread's h first, so that the loads overlap
+  float2 hvs[2][2][4], hgs[2][2][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const i64 o = tm_index(p0 + f.row(mt, 2 * hf), k0 + f.col(nt, 0), ch, Rk, 2 * c);
+        hvs[mt][hf][nt] = *reinterpret_cast<const float2*>(h + o);
+        hgs[mt][hf][nt] = *reinterpret_cast<const float2*>(h + o + (i64)c * tile::PM);
+      }
+  // dh in registers: acc <- the value half, dg <- the gate half
+  float sv = 0.f, sg_sum = 0.f;
+  Acc dg;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int p = p0 + f.row(mt, 2 * hf);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int k = k0 + f.col(nt, 0);  // and k + 1
+        const float2 val = hvs[mt][hf][nt], gt = hgs[mt][hf][nt];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& d = acc[mt][nt][2 * hf + e];
+          const float sg = tile::sigmoid_f(e ? gt.y : gt.x);
+          const bool ok = p < rp && k + e < rk;
+          dg[mt][nt][2 * hf + e] = ok ? d * (e ? val.y : val.x) * sg * (1.f - sg) : 0.f;
+          d = ok ? d * sg : 0.f;
+          sv += d;
+          sg_sum += dg[mt][nt][2 * hf + e];
+        }
+      }
+    }
+  // written as rows of 32 values through shared memory (the ring is free)
+  float* stg = reinterpret_cast<float*>(smem_raw) + (threadIdx.x >> 5) * 32 * STG32;
+  const i64 o = (i64)(p0 + f.wm * 32) * Rk + k0 + f.wn * 32;
+  warp_store_split(stg, acc, dh_hi + (i64)ch * Pp + o, dh_lo + (i64)ch * Pp + o, Rk);
+  warp_store_split(stg, dg, dh_hi + (i64)(c + ch) * Pp + o, dh_lo + (i64)(c + ch) * Pp + o, Rk);
+  // this tile's sums, in a fixed order: lanes, then warps
+  sv = warp_sum(sv);
+  sg_sum = warp_sum(sg_sum);
+  __shared__ float red[2][tile::THREADS / 32];
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    red[0][warp] = sv;
+    red[1][warp] = sg_sum;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float a = 0.f, b = 0.f;
+    for (int w = 0; w < tile::THREADS / 32; ++w) {
+      a += red[0][w];
+      b += red[1][w];
+    }
+    float* part = db_part + (i64)(blockIdx.y * gridDim.x + blockIdx.x) * 2 * c;
+    part[ch] = a;
+    part[c + ch] = b;
+  }
+}
+
+// dx^T (cz, Pp) = W_loc (cz, 2c) . dh^T (2c, Pp)  (2 split products), one
+// 128 z x 64 pair tile; rounded to bf16 and written through shared memory
+// as rows of dx (rp, rk, cz).
+__global__ void __launch_bounds__(tile::THREADS)
+tri_dx_out_kernel(const bf16* __restrict__ w, const bf16* __restrict__ dh_hi,
+                  const bf16* __restrict__ dh_lo, bf16* __restrict__ dx, int rp, int rk,
+                  int Rk, i64 Pp, int cz, int c) {
+  using namespace tile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int z0 = blockIdx.x * BM;
+  const i64 m0 = (i64)blockIdx.y * BN;
+  const int c2 = 2 * c;
+  Acc acc;
+  auto load = [&](const Stage& st, int ks) {
+    const int n0 = ks * BK;
+    load_a(st.a_hi, [&](int r, int kc, bool& ok) {
+      ok = z0 + r < cz;
+      return ok ? w + (i64)(z0 + r) * c2 + n0 + kc : w;
+    });
+    load_b_kn(st.b_hi, [&](int kr, int nc, bool& ok) {
+      ok = true;
+      return dh_hi + (i64)(n0 + kr) * Pp + m0 + nc;
+    });
+    load_b_kn(st.b_lo, [&](int kr, int nc, bool& ok) {
+      ok = true;
+      return dh_lo + (i64)(n0 + kr) * Pp + m0 + nc;
+    });
+  };
+  mainloop<false, true, true>(smem, c2 / BK, load, acc);
+
+  constexpr int LDO = BM + 8;  // [pair][z] tile
+  const Frag f;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        smem[f.col(nt, e) * LDO + f.row(mt, e)] = __float2bfloat16(acc[mt][nt][e]);
+  __syncthreads();
+  for (int e = threadIdx.x; e < BN * (BM / 8); e += tile::THREADS) {
+    const int ml = e / (BM / 8), zc = (e % (BM / 8)) * 8;
+    const i64 p = m0 / Rk;  // a 64-pair tile lies in one p
+    const int k = (int)(m0 - p * Rk) + ml;
+    if (p < rp && k < rk && z0 + zc < cz)
+      *reinterpret_cast<uint4*>(dx + ((i64)p * rk + k) * cz + z0 + zc) =
+          *reinterpret_cast<const uint4*>(smem + ml * LDO + zc);
+  }
+}
+
+// dW^T partial (2c, cz) over one range of k-steps of the padded pairs:
+// dh^T (2c, Pp) . x_loc (Pp, cz)  (2 split products); x's rows past rp, rk
+// are zeros.  part[split][z][n].
+__global__ void __launch_bounds__(tile::THREADS)
+tri_dx_dw_kernel(const bf16* __restrict__ dh_hi, const bf16* __restrict__ dh_lo,
+                 const bf16* __restrict__ x, i64 sp, i64 sk, float* __restrict__ part, int rp,
+                 int rk, int Rk, i64 Pp, int cz, int c, int steps) {
+  using namespace tile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int z0 = blockIdx.x * BN, n0 = blockIdx.y * BM, c2 = 2 * c;
+  const int ks0 = blockIdx.z * steps;
+  const int nk = min(steps, (int)(Pp / BK) - ks0);
+  Acc acc;
+  auto load = [&](const Stage& st, int ks) {
+    const i64 mb = (i64)(ks0 + ks) * BK;
+    load_a(st.a_hi, [&](int r, int kc, bool& ok) {
+      ok = n0 + r < c2;
+      return ok ? dh_hi + (i64)(n0 + r) * Pp + mb + kc : dh_hi;
+    });
+    load_a(st.a_lo, [&](int r, int kc, bool& ok) {
+      ok = n0 + r < c2;
+      return ok ? dh_lo + (i64)(n0 + r) * Pp + mb + kc : dh_lo;
+    });
+    const i64 p = mb / Rk;  // a k-step of BK pairs lies in one p (Rk % 64 == 0)
+    const int kb = (int)(mb - p * Rk);
+    load_b_kn(st.b_hi, [&](int kr, int nc, bool& ok) {
+      const int k = kb + kr, z = z0 + nc;
+      ok = p < rp && k < rk && z < cz;
+      return ok ? x + p * sp + k * sk + z : x;
+    });
+  };
+  mainloop<true, false, true>(smem, nk, load, acc);
+
+  const Frag f;
+  float* out = part + (i64)blockIdx.z * cz * c2;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = n0 + f.row(mt, e), z = z0 + f.col(nt, e);
+        if (n < c2 && z < cz) out[(i64)z * c2 + n] = acc[mt][nt][e];
+      }
+}
+
+// dw[e] = sum of the split partials, db[n] = sum of the tile partials, each
+// in a fixed order (no atomics: two runs give the same bits).
+__global__ void __launch_bounds__(256)
+tri_dx_sums_kernel(const float* __restrict__ dw_part, const float* __restrict__ db_part,
+                   float* __restrict__ dw, float* __restrict__ db, int nsplit, int ntiles,
+                   int E, int c2) {
+  const int e = blockIdx.x * 256 + threadIdx.x;
+  if (e < E) {
+    float s = 0.f;
+    for (int i = 0; i < nsplit; ++i) s += dw_part[(i64)i * E + e];
+    dw[e] = s;
+  } else if (e < E + c2) {
+    const int n = e - E;
+    float s = 0.f;
+    for (int i = 0; i < ntiles; ++i) s += db_part[(i64)i * c2 + n];
+    db[n] = s;
+  }
+}
+
+struct DxPlan {
+  int Rp, Rq, Rk, ntiles, nsplit, steps;
+  i64 Pp;
+  // byte offsets into the scratch
+  i64 ds_hi, ds_lo, st_hi, st_lo, h, dh_hi, dh_lo, db_part, dw_part, bytes;
+};
+
+DxPlan dx_plan(int rp, int rq, int rk, int cz, int c) {
+  DxPlan d;
+  d.Rp = tile::round_up(rp, tile::PAD);
+  d.Rq = tile::round_up(rq, tile::PAD);
+  d.Rk = tile::round_up(rk, tile::PAD);
+  d.Pp = (i64)d.Rp * d.Rk;
+  d.ntiles = (d.Rp / tile::BM) * (d.Rk / tile::BN);
+  const int ksteps = (int)(d.Pp / tile::BK);
+  const int wtiles = ((cz + tile::BN - 1) / tile::BN) * ((2 * c + tile::BM - 1) / tile::BM);
+  int nsplit = OUTER_BLOCKS / wtiles;
+  nsplit = nsplit < 1 ? 1 : (nsplit > ksteps ? ksteps : nsplit);
+  d.steps = (ksteps + nsplit - 1) / nsplit;
+  d.nsplit = (ksteps + d.steps - 1) / d.steps;
+  i64 off = 0;
+  auto take = [&](i64 bytes) {
+    const i64 o = off;
+    off += (bytes + 255) / 256 * 256;
+    return o;
+  };
+  const i64 ds_n = (i64)c * d.Rp * d.Rq, st_n = (i64)c * d.Rq * d.Rk, h_n = 2 * c * d.Pp;
+  d.ds_hi = take(2 * ds_n);
+  d.ds_lo = take(2 * ds_n);
+  d.st_hi = take(2 * st_n);
+  d.st_lo = take(2 * st_n);
+  d.h = take(4 * h_n);
+  d.dh_hi = take(2 * h_n);
+  d.dh_lo = take(2 * h_n);
+  d.db_part = take(4 * (i64)d.ntiles * 2 * c);
+  d.dw_part = take(4 * (i64)d.nsplit * cz * 2 * c);
+  d.bytes = off;
+  return d;
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -659,6 +1013,69 @@ cudaError_t run_dx(const float* ds, long long ds_sp, long long ds_sq, const T* x
   return outer_sum<T>(xl, rk, xl_sp, xl_sk, dh, outer, dw, P, cz, 2 * c, st);
 }
 
+cudaError_t run_dx_mma(const float* ds, i64 ds_sp, i64 ds_sq, const bf16* xl, i64 xl_sp,
+                       i64 xl_sk, const bf16* xs, i64 xs_sq, i64 xs_sk, const bf16* w_loc,
+                       const bf16* b_loc, const bf16* w_str, const bf16* b_str, bf16* dx,
+                       float* dw, float* db, void* scratch, int rp, int rq, int rk, int cz,
+                       int c, cudaStream_t st) {
+  if (cz % 16 != 0 || c % 16 != 0) return cudaErrorInvalidValue;
+  const DxPlan d = dx_plan(rp, rq, rk, cz, c);
+  char* base = static_cast<char*>(scratch);
+  bf16* ds_hi = reinterpret_cast<bf16*>(base + d.ds_hi);
+  bf16* ds_lo = reinterpret_cast<bf16*>(base + d.ds_lo);
+  bf16* st_hi = reinterpret_cast<bf16*>(base + d.st_hi);
+  bf16* st_lo = reinterpret_cast<bf16*>(base + d.st_lo);
+  float* h = reinterpret_cast<float*>(base + d.h);
+  bf16* dh_hi = reinterpret_cast<bf16*>(base + d.dh_hi);
+  bf16* dh_lo = reinterpret_cast<bf16*>(base + d.dh_lo);
+  float* db_part = reinterpret_cast<float*>(base + d.db_part);
+  float* dw_part = reinterpret_cast<float*>(base + d.dw_part);
+  const int proj_smem = tile::proj_smem(cz, c), contract_smem = tile::smem_bytes<true, true>(),
+            out_smem = tile::smem_bytes<false, true>(), dw_smem = tile::smem_bytes<true, false>();
+  cudaError_t err;
+  if ((err = tile::configure((const void*)tri_dx_proj_kernel, proj_smem)) != cudaSuccess ||
+      (err = tile::configure((const void*)tri_dx_contract_mma_kernel, contract_smem)) !=
+          cudaSuccess ||
+      (err = tile::configure((const void*)tri_dx_out_kernel, out_smem)) != cudaSuccess ||
+      (err = tile::configure((const void*)tri_dx_dw_kernel, dw_smem)) != cudaSuccess)
+    return err;
+  int dev = 0, nsm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+
+  tri_dx_split_kernel<<<dim3(d.Rq / 64, d.Rp, (c + 63) / 64), 256, 0, st>>>(
+      ds, ds_sp, ds_sq, ds_hi, ds_lo, rp, rq, d.Rp, d.Rq, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const tile::ProjSide strm{xs, xs_sq, xs_sk, rq, d.Rq, w_str, b_str, nullptr,
+                            tile::PROJ_SPLIT, st_hi, st_lo};
+  const tile::ProjSide loc{xl, xl_sp, xl_sk, rp, d.Rp, w_loc, b_loc, nullptr,
+                           tile::PROJ_PREACT, h, nullptr};
+  tri_dx_proj_kernel<<<dim3(nsm, 2), tile::PROJ_THREADS, proj_smem, st>>>(strm, loc, rk, d.Rk,
+                                                                         cz, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  tri_dx_contract_mma_kernel<<<dim3(d.Rk / tile::BN, d.Rp / tile::BM, c), tile::THREADS,
+                               contract_smem,
+                               st>>>(
+      ds_hi, ds_lo, st_hi, st_lo, h, dh_hi, dh_lo, db_part, rp, rk, d.Rp, d.Rq, d.Rk, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  tri_dx_out_kernel<<<dim3((cz + tile::BM - 1) / tile::BM, (unsigned)(d.Pp / tile::BN)),
+                      tile::THREADS, out_smem,
+                      st>>>(
+      w_loc, dh_hi, dh_lo, dx, rp, rk, d.Rk, d.Pp, cz, c);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  tri_dx_dw_kernel<<<dim3((cz + tile::BN - 1) / tile::BN, (2 * c + tile::BM - 1) / tile::BM,
+                          d.nsplit),
+                     tile::THREADS, dw_smem,
+                     st>>>(dh_hi, dh_lo, xl, xl_sp, xl_sk, dw_part, rp, rk, d.Rk, d.Pp, cz, c,
+                           d.steps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int E = cz * 2 * c;
+  tri_dx_sums_kernel<<<(E + 2 * c + 255) / 256, 256, 0, st>>>(dw_part, db_part, dw, db,
+                                                               d.nsplit, d.ntiles, E, 2 * c);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // Scratch sizes in floats for the two entry points below.
@@ -666,7 +1083,9 @@ extern "C" long long triangle_mult_bwd_epilogue_scratch(long long P, int cz, int
   return epi_scratch(P, cz, c);
 }
 
-extern "C" long long triangle_mult_bwd_dx_scratch(int rp, int rq, int rk, int cz, int c) {
+extern "C" long long triangle_mult_bwd_dx_scratch(int rp, int rq, int rk, int cz, int c,
+                                                  int dtype) {
+  if (dtype == 1) return (dx_plan(rp, rq, rk, cz, c).bytes + 3) / 4;
   return dx_scratch(rp, rq, rk, cz, c);
 }
 
@@ -718,7 +1137,14 @@ extern "C" int triangle_mult_bwd_dx(const void* ds, long long ds_sp, long long d
       static_cast<const T*>(w_loc_t), static_cast<T*>(dx), static_cast<float*>(dw),            \
       static_cast<float*>(db), static_cast<float*>(scratch), rp, rq, rk, cz, c, st
   if (dtype == 0) return (int)run_dx<float>(DX_ARGS(float));
-  if (dtype == 1) return (int)run_dx<__nv_bfloat16>(DX_ARGS(__nv_bfloat16));
 #undef DX_ARGS
+  if (dtype == 1)
+    return (int)run_dx_mma(static_cast<const float*>(ds), ds_sp, ds_sq,
+                           static_cast<const bf16*>(x_loc), xl_sp, xl_sk,
+                           static_cast<const bf16*>(x_str), xs_sq, xs_sk,
+                           static_cast<const bf16*>(w_loc), static_cast<const bf16*>(b_loc),
+                           static_cast<const bf16*>(w_str), static_cast<const bf16*>(b_str),
+                           static_cast<bf16*>(dx), static_cast<float*>(dw),
+                           static_cast<float*>(db), scratch, rp, rq, rk, cz, c, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -20,32 +20,36 @@
 // VMEM and recomputes the projections in every (i, j) program.  A Hopper
 // block has 227 KB of shared memory, not megabytes, and recomputing the
 // projections per j-tile would multiply their cost by r / tile.  So the
-// work is split in two kernels, the gated projections written ONCE per side
-// into a scratch buffer in the input type (k_mask applied in fp32 before the
-// rounding), then one kernel for the contraction, the LayerNorm, the
-// out-projection and the gate, so s and the pre-gate output never reach
-// device memory.
-//  * bf16 inputs (serving): tensor cores, mma.sync m16n8k16 with fp32
-//    accumulation.  tri_proj_mma_kernel is a 64-row x (32 value + 32 gate)
-//    tile GEMM from shared memory; it writes a and b channel-major
-//    (c, r, r_k rounded up to 16, zero-filled), so that in
-//    tri_contract_mma_kernel every channel's (16 i x 16 j) tile is an NT
-//    product whose fragments are single 32-bit loads.  That kernel parks
-//    the tile's fp32 s for all c channels in shared memory, takes the
-//    LayerNorm statistics, and feeds LN(s) rounded to bf16 and x_g as the
-//    A operands of the out-projection and gate products.
+// gated projections are written ONCE per side into scratch in the input
+// type (k_mask applied in fp32 before the rounding).
+//  * bf16 inputs (serving and training): three tensor-core kernels built on
+//    tile_mma.cuh (mma.sync m16n8k16, ldmatrix fragments, fp32 accumulation):
+//    tri_fwd_proj_kernel, both sides' projections in one persistent launch
+//    with W in shared memory and the gate as a register epilogue;
+//    tri_fwd_contract_kernel, per channel a 128 i x 64 j tile of s = a.b^T
+//    with k streamed through a 3-stage cp.async ring, s written fp32;
+//    tri_fwd_out_kernel, per tile of 64 pairs the LayerNorm statistics of s
+//    over c in fp32, LN(s) rounded to bf16 and x_g as the A operands of the
+//    out-projection and gate products (W_o, W_g resident in shared memory),
+//    y = sigmoid(g) * u in bf16, and s_out (r_i, r_j, c) when given; the
+//    next tile's s and x_g are copied in while one computes.  a, b and s
+//    are tile-major (tile::tm_index): a tile's channels are one block.
+//    What bounds it now: the mma.sync rate of 32 x 32 warp tiles and the
+//    projection's per-output epilogue, not the bytes.
 //  * fp32 inputs: the exact path on the fp32 CUDA cores (tri_proj_kernel,
-//    tri_contract_kernel: one block per 8x8 tile, one thread per channel).
+//    tri_contract_kernel: one block per 8x8 tile, one thread per channel),
+//    s kept in shared memory.
 // Ragged r_i / r_j are masked (rows past the edge are zeros and not
 // written); k is looped exactly or zero-padded, so any r_k works.
-// When `s_out` is not null (autograd needs the backward), the contraction
-// kernels also write the fp32 pre-LayerNorm s (r_i, r_j, c) from shared
-// memory: the residual that K4 (csrc/triangle_mult_bwd.cu) starts from.
-// Without a gradient the pointer is null and s stays on chip.
+// When `s_out` is not null (autograd needs the backward), the kernels also
+// write the fp32 pre-LayerNorm s (r_i, r_j, c): the residual that K4
+// (csrc/triangle_mult_bwd.cu) starts from.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace {
 
@@ -61,9 +65,6 @@ __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 __device__ __forceinline__ float sigmoid_f(float x) { return 1.f / (1.f + expf(-x)); }
 
@@ -278,295 +279,298 @@ tri_contract_kernel(const T* __restrict__ a, const T* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: tensor cores (mma.sync m16n8k16, fp32 accumulation)
+// bf16 inputs: tiled tensor-core GEMMs (tile_mma.cuh)
 // ---------------------------------------------------------------------------
+//
+// Scratch, tile-major (tile::tm_index) over padded extents (Ri, Rj, Rk:
+// r_i, r_j, r_k rounded up to 128): a (Ri, Rk, c) and b (Rj, Rk, c) bf16,
+// zero in the pads; s (Ri, Rj, c) fp32.
 
-using bf16 = __nv_bfloat16;
-constexpr int MP_ROWS = 64;      // projection rows per block (4 warps x 16)
-constexpr int MP_COLS = 32;      // value channels per block (+ as many gate)
-constexpr int MT = 16;           // contraction tile: 16 i x 16 j pairs
-constexpr int MT_WARPS = 8;
+using tile::bf16;
+using tile::i64;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+constexpr int OP = tile::PM;  // pairs per epilogue tile: one i, 64 j, one tile of s
+constexpr int OUT_WARPS = 8;  // 4 x 16 pairs by 2 x 64 output channels
+
+// The gated projections a (side 0, k_mask applied) and b (side 1).
+__global__ void __launch_bounds__(tile::PROJ_THREADS)
+tri_fwd_proj_kernel(tile::ProjSide s0, tile::ProjSide s1, int rk, int Rk, int cz, int c) {
+  tile::proj_body(s0, s1, rk, Rk, cz, c);
 }
 
-__device__ __forceinline__ uint32_t pack_raw(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row-major) * b (16x8, col-major), bf16 in, fp32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// out[n][i * rkp + k] = sigmoid(x[i,k].w[:, c+n] + b[c+n]) * (x[i,k].w[:, n] + b[n])
-//                       * kmask[k], 0 for k >= rk.  Rows enumerate (i, k < rkp).
-// Dynamic shared memory: 2 * MP_ROWS * (cz + 8) bf16.
-__global__ void __launch_bounds__(128)
-tri_proj_mma_kernel(const bf16* __restrict__ x, long long si, long long sk,
-                    const bf16* __restrict__ w, const bf16* __restrict__ bias,
-                    const float* __restrict__ kmask, bf16* __restrict__ out,
-                    int ri, int rk, int rkp, int cz, int c) {
+// Per channel ch = blockIdx.z, one 128 i x 64 j tile of s = a . b^T
+// (k-contraction, fp32 accumulation), written channel-major.
+__global__ void __launch_bounds__(tile::THREADS)
+tri_fwd_contract_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                        float* __restrict__ s, int Rj, int Rk, int c) {
+  using tile::Acc;
+  using tile::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int xs_ld = cz + 8;  // padded row: fragment loads hit distinct banks
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);   // [MP_ROWS][xs_ld]
-  bf16* ws = xs + MP_ROWS * xs_ld;                // [2 * MP_COLS][xs_ld], n-major
-  const long long n_rows = (long long)ri * rkp;
-  const long long r0 = (long long)blockIdx.x * MP_ROWS;
-  const int n0 = blockIdx.y * MP_COLS;
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < MP_ROWS * cz / 2; e += 128) {
-    const int r = e / (cz / 2);
-    const int cc = (e - r * (cz / 2)) * 2;
-    const long long row = r0 + r;
-    uint32_t val = 0u;
-    if (row < n_rows) {
-      const long long i = row / rkp;
-      const long long kk = row - i * rkp;
-      if (kk < rk) val = ld32(x + i * si + kk * sk + cc);
-    }
-    *reinterpret_cast<uint32_t*>(&xs[r * xs_ld + cc]) = val;
-  }
-  for (int e = tid; e < 2 * MP_COLS * cz; e += 128) {
-    const int kk = e / (2 * MP_COLS);
-    const int n = e - kk * 2 * MP_COLS;
-    const int ch = n0 + (n % MP_COLS);
-    const int col = n < MP_COLS ? ch : c + ch;
-    ws[n * xs_ld + kk] = ch < c ? w[(size_t)kk * 2 * c + col] : __float2bfloat16(0.f);
-  }
-  __syncthreads();
-
-  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int rw = warp * 16;
-  float acc[2 * MP_COLS / 8][4];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int ch = blockIdx.z, i0 = blockIdx.y * tile::BM, j0 = blockIdx.x * tile::BN;
+  Acc acc;
+  auto load = [&](const tile::Stage& st, int ks) {
+    const int k0 = ks * BK;
+    tile::load_a(st.a_hi, [&](int r, int kc, bool& ok) {
+      ok = true;
+      return a + tile::tm_index(i0 + r, k0 + kc, ch, Rk, c);
+    });
+    tile::load_b_nk(st.b_hi, [&](int n, int kc, bool& ok) {
+      ok = true;
+      return b + tile::tm_index(j0 + n, k0 + kc, ch, Rk, c);
+    });
+  };
+  tile::mainloop<false, false, false>(smem, Rk / BK, load, acc);
+  const tile::Frag f;
 #pragma unroll
-  for (int nt = 0; nt < 2 * MP_COLS / 8; ++nt) acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-  for (int k0 = 0; k0 < cz; k0 += 16) {
-    const int kk = k0 + 2 * t;
-    const uint32_t a[4] = {ld32(&xs[(rw + g) * xs_ld + kk]), ld32(&xs[(rw + g + 8) * xs_ld + kk]),
-                           ld32(&xs[(rw + g) * xs_ld + kk + 8]),
-                           ld32(&xs[(rw + g + 8) * xs_ld + kk + 8])};
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 2 * MP_COLS / 8; ++nt) {
-      const bf16* wr = &ws[(nt * 8 + g) * xs_ld + kk];
-      mma16816(acc[nt], a, ld32(wr), ld32(wr + 8));
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < MP_COLS / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long row = r0 + rw + g + (e >= 2 ? 8 : 0);
-      const int n = n0 + nt * 8 + 2 * t + (e & 1);
-      if (row >= n_rows || n >= c) continue;
-      const long long kk = row % rkp;
-      const float m = kk < rk ? (kmask != nullptr ? kmask[kk] : 1.f) : 0.f;
-      const float val = sigmoid_f(acc[nt + MP_COLS / 8][e] + to_f(bias[c + n])) *
-                        (acc[nt][e] + to_f(bias[n])) * m;
-      out[(size_t)n * n_rows + row] = __float2bfloat16(val);
-    }
-  }
-}
-
-// One block of MT_WARPS warps per (16 i x 16 j) tile.  a_t (c, ri, rkp) and
-// b_t (c, rj, rkp) channel-major, zero past rk.  Dynamic shared memory:
-// 256 * (c + 4) floats (s) + 512 floats (LN statistics).
-__global__ void __launch_bounds__(MT_WARPS * 32)
-tri_contract_mma_kernel(const bf16* __restrict__ a_t, const bf16* __restrict__ b_t,
-                        const bf16* __restrict__ xg, const bf16* __restrict__ ln_s,
-                        const bf16* __restrict__ ln_b, const bf16* __restrict__ w_o,
-                        const bf16* __restrict__ b_o, const bf16* __restrict__ w_g,
-                        const bf16* __restrict__ b_g, bf16* __restrict__ out,
-                        float* __restrict__ s_out, int ri, int rj, int rkp, int cz, int c) {
-  extern __shared__ __align__(16) float smem_f[];
-  const int cs = c + 4;                        // s row stride (floats)
-  float* st = smem_f;                          // [MT * MT][cs], pair = il * MT + jl
-  float* mu = st + MT * MT * cs;               // [MT * MT]
-  float* rstd = mu + MT * MT;                  // [MT * MT]
-  const int j0 = blockIdx.x * MT;
-  const int i0 = blockIdx.y * MT;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-
-  // s[i, j, ch] = sum_k a[ch, i, k] * b[ch, j, k]: one channel at a time per warp
-  const size_t plane_a = (size_t)ri * rkp, plane_b = (size_t)rj * rkp;
-  const int ia = i0 + g, ib = i0 + g + 8, ja = j0 + g, jb = j0 + g + 8;
-  for (int ch = warp; ch < c; ch += MT_WARPS) {
-    const bf16* ap = a_t + ch * plane_a;
-    const bf16* bp = b_t + ch * plane_b;
-    float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
-    for (int k0 = 0; k0 < rkp; k0 += 16) {
-      const int kk = k0 + 2 * t;
-      const uint32_t a[4] = {ia < ri ? ld32(ap + (size_t)ia * rkp + kk) : 0u,
-                             ib < ri ? ld32(ap + (size_t)ib * rkp + kk) : 0u,
-                             ia < ri ? ld32(ap + (size_t)ia * rkp + kk + 8) : 0u,
-                             ib < ri ? ld32(ap + (size_t)ib * rkp + kk + 8) : 0u};
-      mma16816(acc[0], a, ja < rj ? ld32(bp + (size_t)ja * rkp + kk) : 0u,
-               ja < rj ? ld32(bp + (size_t)ja * rkp + kk + 8) : 0u);
-      mma16816(acc[1], a, jb < rj ? ld32(bp + (size_t)jb * rkp + kk) : 0u,
-               jb < rj ? ld32(bp + (size_t)jb * rkp + kk + 8) : 0u);
-    }
-#pragma unroll
-    for (int jt = 0; jt < 2; ++jt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int il = g + (e >= 2 ? 8 : 0);
-        const int jl = jt * 8 + 2 * t + (e & 1);
-        st[(il * MT + jl) * cs + ch] = acc[jt][e];
-      }
-  }
-  __syncthreads();
-  if (s_out != nullptr)
-    for (int e = threadIdx.x; e < MT * MT * c; e += MT_WARPS * 32) {
-      const int p = e / c, ch = e - p * c;
-      const int i = i0 + p / MT, j = j0 + p % MT;
-      if (i < ri && j < rj) s_out[((size_t)i * rj + j) * c + ch] = st[p * cs + ch];
-    }
-
-  // LayerNorm statistics over channels, one warp per pair
-  const float inv_c = 1.f / (float)c;
-  for (int p = warp; p < MT * MT; p += MT_WARPS) {
-    const float* row = st + p * cs;
-    float sum = 0.f;
-    for (int ch = lane; ch < c; ch += 32) sum += row[ch];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-    const float m = sum * inv_c;
-    float sq = 0.f;
-    for (int ch = lane; ch < c; ch += 32) {
-      const float d = row[ch] - m;
-      sq += d * d;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-    if (lane == 0) {
-      mu[p] = m;
-      rstd[p] = rsqrtf(sq * inv_c + LN_EPS);
-    }
-  }
-  __syncthreads();
-
-  // y = sigmoid(x_g.W_g + b_g) * (bf16(LN(s)).W_o + b_o).  An m-tile of 16
-  // pairs is one i row (il = mt) and its 16 j; a warp takes 32 output
-  // channels at a time.
-  for (int mt = warp; mt < MT; mt += MT_WARPS) {
-    const int pa = mt * MT + g, pb = pa + 8;
-    const int i = i0 + mt;
-    const bool va = i < ri && ja < rj, vb = i < ri && jb < rj;
-    const bf16* xa = xg + ((size_t)i * rj + ja) * cz;
-    const bf16* xb = xg + ((size_t)i * rj + jb) * cz;
-    const float mua = mu[pa], ra = rstd[pa], mub = mu[pb], rb = rstd[pb];
-    for (int n0 = 0; n0 < cz; n0 += 32) {
-      float u[4][4], gt[4][4];
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
       for (int nt = 0; nt < 4; ++nt)
+        *reinterpret_cast<float2*>(
+            s + tile::tm_index(i0 + f.row(mt, 2 * h), j0 + f.col(nt, 0), ch, Rj, c)) =
+            make_float2(acc[mt][nt][2 * h], acc[mt][nt][2 * h + 1]);
+}
+
+// Epilogue over tiles of OP pairs (one i, 64 j), a persistent block per SM
+// with W_o and W_g resident in shared memory.  Per tile: the fp32 s (to
+// s_out when given), its LayerNorm statistics over c, LN(s) rounded to bf16
+// as the A operand of the out-projection and x_g as that of the gate
+// projection (mma.sync from shared memory), y = sigmoid(g) * u in bf16.  The
+// next tile's s and x_g are copied in (cp.async) while this one computes.
+// Dynamic shared memory: tri_out_smem(cz, c).
+constexpr int SP = OP + 4;  // s tile row: 64 j of one channel
+
+__global__ void __launch_bounds__(OUT_WARPS * 32)
+tri_fwd_out_kernel(const float* __restrict__ s, const bf16* __restrict__ xg,
+                   const bf16* __restrict__ ln_s, const bf16* __restrict__ ln_b,
+                   const bf16* __restrict__ w_o, const bf16* __restrict__ b_o,
+                   const bf16* __restrict__ w_g, const bf16* __restrict__ b_g,
+                   bf16* __restrict__ out, float* __restrict__ s_out, int ri, int rj, int Rj,
+                   int cz, int c) {
+  constexpr int NT = OUT_WARPS * 32, PARTS = NT / OP;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldc = c + 8, ldz = cz + 8;
+  float* sbuf = reinterpret_cast<float*>(smem_raw);  // [2][c][SP]
+  float* gam = sbuf + 2 * c * SP;
+  float* bet = gam + c;
+  float* bo = bet + c;
+  float* bg = bo + cz;
+  float* red = bg + cz;      // [PARTS][OP]
+  float* mu = red + PARTS * OP;  // [OP]
+  float* rstd = mu + OP;         // [OP]
+  bf16* wo = reinterpret_cast<bf16*>(rstd + OP);  // [c][ldz]
+  bf16* wg = wo + c * ldz;                        // [cz][ldz]
+  bf16* ln = wg + cz * ldz;                       // [OP][ldc]
+  bf16* xbuf = ln + OP * ldc;                     // [2][OP][ldz]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ntj = (rj + OP - 1) / OP, tiles = ri * ntj;
+
+  auto issue = [&](int tl, int buf) {  // cp.async of tile tl's s and x_g
+    const int i = tl / ntj, j0 = (tl - i * ntj) * OP;
+    const float* src = s + tile::tm_index(i, j0, 0, Rj, c);  // c x OP, contiguous
+    float* sd = sbuf + buf * c * SP;
+    for (int e = tid; e < c * (OP / 4); e += NT) {
+      const int ch = e / (OP / 4), q = (e % (OP / 4)) * 4;
+      tile::cp16(sd + ch * SP + q, src + ch * OP + q, true);
+    }
+    bf16* xd = xbuf + buf * OP * ldz;
+    for (int e = tid; e < OP * (cz / 8); e += NT) {
+      const int r = e / (cz / 8), col = (e % (cz / 8)) * 8;
+      const bool ok = j0 + r < rj;
+      tile::cp16(xd + r * ldz + col, ok ? xg + ((i64)i * rj + j0 + r) * cz + col : xg, ok);
+    }
+  };
+  for (int e = tid; e < c * (cz / 8); e += NT) {
+    const int r = e / (cz / 8), col = (e % (cz / 8)) * 8;
+    tile::cp16(wo + r * ldz + col, w_o + (i64)r * cz + col, true);
+  }
+  for (int e = tid; e < cz * (cz / 8); e += NT) {
+    const int r = e / (cz / 8), col = (e % (cz / 8)) * 8;
+    tile::cp16(wg + r * ldz + col, w_g + (i64)r * cz + col, true);
+  }
+  if ((int)blockIdx.x < tiles) issue(blockIdx.x, 0);
+  tile::cp_commit();
+  for (int ch = tid; ch < c; ch += NT) {
+    gam[ch] = to_f(ln_s[ch]);
+    bet[ch] = to_f(ln_b[ch]);
+  }
+  for (int z = tid; z < cz; z += NT) {
+    bo[z] = to_f(b_o[z]);
+    bg[z] = to_f(b_g[z]);
+  }
+  const float inv_c = 1.f / (float)c;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int pp = tid % OP, part = tid / OP, cpart = c / PARTS;  // LayerNorm layout
+  int buf = 0;
+  for (int tl = blockIdx.x; tl < tiles; tl += gridDim.x, buf ^= 1) {
+    const int i = tl / ntj, j0 = (tl - i * ntj) * OP;
+    if (tl + (int)gridDim.x < tiles) issue(tl + gridDim.x, buf ^ 1);
+    tile::cp_commit();
+    tile::cp_wait<1>();
+    __syncthreads();  // this tile's s and x_g (and the weights) landed
+    const float* st = sbuf + buf * c * SP;
+    const bf16* xs = xbuf + buf * OP * ldz;
+    if (s_out != nullptr)
+      for (int e = tid; e < OP * c; e += NT) {
+        const int jj = e / c, ch = e % c;
+        if (j0 + jj < rj) s_out[((i64)i * rj + j0 + jj) * c + ch] = st[ch * SP + jj];
+      }
+    // LayerNorm statistics over channels: PARTS threads per pair, each a
+    // c / PARTS slice, the slices added in a fixed order
+    float sum = 0.f;
+    for (int ch = part * cpart; ch < (part + 1) * cpart; ++ch) sum += st[ch * SP + pp];
+    red[part * OP + pp] = sum;
+    __syncthreads();
+    if (part == 0) {
+      float tot = 0.f;
+      for (int q = 0; q < PARTS; ++q) tot += red[q * OP + pp];
+      mu[pp] = tot * inv_c;
+    }
+    __syncthreads();
+    const float m = mu[pp];
+    float sq = 0.f;
+    for (int ch = part * cpart; ch < (part + 1) * cpart; ++ch) {
+      const float d = st[ch * SP + pp] - m;
+      sq += d * d;
+    }
+    red[part * OP + pp] = sq;
+    __syncthreads();
+    if (part == 0) {
+      float tot = 0.f;
+      for (int q = 0; q < PARTS; ++q) tot += red[q * OP + pp];
+      rstd[pp] = rsqrtf(tot * inv_c + LN_EPS);
+    }
+    __syncthreads();
+    const float rs = rstd[pp];
+    for (int ch = part * cpart; ch < (part + 1) * cpart; ++ch)
+      ln[pp * ldc + ch] = __float2bfloat16((st[ch * SP + pp] - m) * rs * gam[ch] + bet[ch]);
+    __syncthreads();
+    if (wn * 64 < cz) {
+      float u[8][4], gt[8][4];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) u[nt][e] = gt[nt][e] = 0.f;
-      for (int k0 = 0; k0 < c; k0 += 16) {
-        const int kk = k0 + 2 * t;
-        const float g0 = to_f(ln_s[kk]), g1 = to_f(ln_s[kk + 1]);
-        const float g8 = to_f(ln_s[kk + 8]), g9 = to_f(ln_s[kk + 9]);
-        const float b0 = to_f(ln_b[kk]), b1 = to_f(ln_b[kk + 1]);
-        const float b8 = to_f(ln_b[kk + 8]), b9 = to_f(ln_b[kk + 9]);
-        const float2 sa0 = *reinterpret_cast<const float2*>(&st[pa * cs + kk]);
-        const float2 sb0 = *reinterpret_cast<const float2*>(&st[pb * cs + kk]);
-        const float2 sa8 = *reinterpret_cast<const float2*>(&st[pa * cs + kk + 8]);
-        const float2 sb8 = *reinterpret_cast<const float2*>(&st[pb * cs + kk + 8]);
-        const uint32_t a[4] = {
-            pack_bf16((sa0.x - mua) * ra * g0 + b0, (sa0.y - mua) * ra * g1 + b1),
-            pack_bf16((sb0.x - mub) * rb * g0 + b0, (sb0.y - mub) * rb * g1 + b1),
-            pack_bf16((sa8.x - mua) * ra * g8 + b8, (sa8.y - mua) * ra * g9 + b9),
-            pack_bf16((sb8.x - mub) * rb * g8 + b8, (sb8.y - mub) * rb * g9 + b9)};
+      for (int kk = 0; kk < c; kk += 16) {
+        uint32_t a[4];
+        tile::frag_a(a, ln, ldc, wm * 16, kk);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int n = n0 + nt * 8 + g;
-          if (n0 + nt * 8 >= cz) break;
-          mma16816(u[nt], a, pack_raw(w_o[(size_t)kk * cz + n], w_o[(size_t)(kk + 1) * cz + n]),
-                   pack_raw(w_o[(size_t)(kk + 8) * cz + n], w_o[(size_t)(kk + 9) * cz + n]));
+        for (int np = 0; np < 4; ++np) {
+          if (wn * 64 + np * 16 >= cz) break;
+          uint32_t b[2][2];
+          tile::frag_b2<true>(b, wo, ldz, wn * 64 + np * 16, kk);
+          tile::mma16816(u[2 * np], a, b[0][0], b[0][1]);
+          tile::mma16816(u[2 * np + 1], a, b[1][0], b[1][1]);
         }
       }
-      for (int k0 = 0; k0 < cz; k0 += 16) {
-        const int kk = k0 + 2 * t;
-        const uint32_t a[4] = {va ? ld32(xa + kk) : 0u, vb ? ld32(xb + kk) : 0u,
-                               va ? ld32(xa + kk + 8) : 0u, vb ? ld32(xb + kk + 8) : 0u};
+      for (int kk = 0; kk < cz; kk += 16) {
+        uint32_t a[4];
+        tile::frag_a(a, xs, ldz, wm * 16, kk);
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const int n = n0 + nt * 8 + g;
-          if (n0 + nt * 8 >= cz) break;
-          mma16816(gt[nt], a, pack_raw(w_g[(size_t)kk * cz + n], w_g[(size_t)(kk + 1) * cz + n]),
-                   pack_raw(w_g[(size_t)(kk + 8) * cz + n], w_g[(size_t)(kk + 9) * cz + n]));
+        for (int np = 0; np < 4; ++np) {
+          if (wn * 64 + np * 16 >= cz) break;
+          uint32_t b[2][2];
+          tile::frag_b2<true>(b, wg, ldz, wn * 64 + np * 16, kk);
+          tile::mma16816(gt[2 * np], a, b[0][0], b[0][1]);
+          tile::mma16816(gt[2 * np + 1], a, b[1][0], b[1][1]);
         }
       }
 #pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int z = n0 + nt * 8 + 2 * t;
+      for (int nt = 0; nt < 8; ++nt) {
+        const int z = wn * 64 + nt * 8 + 2 * t;
         if (z >= cz) break;
-        const float bo0 = to_f(b_o[z]), bo1 = to_f(b_o[z + 1]);
-        const float bg0 = to_f(b_g[z]), bg1 = to_f(b_g[z + 1]);
-        if (va)
-          *reinterpret_cast<uint32_t*>(out + ((size_t)i * rj + ja) * cz + z) =
-              pack_bf16(sigmoid_f(gt[nt][0] + bg0) * (u[nt][0] + bo0),
-                        sigmoid_f(gt[nt][1] + bg1) * (u[nt][1] + bo1));
-        if (vb)
-          *reinterpret_cast<uint32_t*>(out + ((size_t)i * rj + jb) * cz + z) =
-              pack_bf16(sigmoid_f(gt[nt][2] + bg0) * (u[nt][2] + bo0),
-                        sigmoid_f(gt[nt][3] + bg1) * (u[nt][3] + bo1));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int j = j0 + wm * 16 + g + 8 * h;
+          if (j < rj)
+            *reinterpret_cast<uint32_t*>(out + ((i64)i * rj + j) * cz + z) = tile::pack_bf16(
+                sigmoid_f(gt[nt][2 * h] + bg[z]) * (u[nt][2 * h] + bo[z]),
+                sigmoid_f(gt[nt][2 * h + 1] + bg[z + 1]) * (u[nt][2 * h + 1] + bo[z + 1]));
+        }
       }
     }
+    __syncthreads();  // the next iteration copies into this tile's buffers
   }
+  tile::cp_wait<0>();
+}
+
+size_t tri_out_smem(int cz, int c) {
+  const int parts = OUT_WARPS * 32 / OP;
+  return ((size_t)2 * c * SP + 2 * c + 2 * cz + (size_t)(parts + 2) * OP) * 4 +
+         ((size_t)c * (cz + 8) + (size_t)cz * (cz + 8) + (size_t)OP * (c + 8) +
+          (size_t)2 * OP * (cz + 8)) * 2;
+}
+
+struct FwdPlan {
+  int Ri, Rj, Rk;
+  i64 a, b, s, bytes;  // byte offsets into the scratch
+};
+
+FwdPlan fwd_plan(int ri, int rj, int rk, int c) {
+  FwdPlan d;
+  d.Ri = tile::round_up(ri, tile::PAD);
+  d.Rj = tile::round_up(rj, tile::PAD);
+  d.Rk = tile::round_up(rk, tile::PAD);
+  i64 off = 0;
+  auto take = [&](i64 bytes) {
+    const i64 o = off;
+    off += (bytes + 255) / 256 * 256;
+    return o;
+  };
+  d.a = take((i64)2 * c * d.Ri * d.Rk);
+  d.b = take((i64)2 * c * d.Rj * d.Rk);
+  d.s = take((i64)4 * c * d.Ri * d.Rj);
+  d.bytes = off;
+  return d;
 }
 
 cudaError_t run_mma(const void* xa, long long xa_si, long long xa_sk, const void* xb,
                     long long xb_sj, long long xb_sk, const void* xg, const float* kmask,
                     const void* w_a, const void* b_a, const void* w_b, const void* b_b,
                     const void* ln_s, const void* ln_b, const void* w_o, const void* b_o,
-                    const void* w_g, const void* b_g, void* a_buf, void* b_buf, void* out,
-                    float* s_out, int ri, int rj, int rk, int cz, int c, cudaStream_t stream) {
+                    const void* w_g, const void* b_g, void* scratch, void* out, float* s_out,
+                    int ri, int rj, int rk, int cz, int c, cudaStream_t stream) {
   if (cz % 16 != 0 || c % 16 != 0) return cudaErrorInvalidValue;
-  const int rkp = (rk + 15) / 16 * 16;
-  const size_t proj_smem = (size_t)2 * MP_ROWS * (cz + 8) * sizeof(bf16);
-  const size_t tile_smem = ((size_t)MT * MT * (c + 4) + 2 * MT * MT) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(tri_proj_mma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)proj_smem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(tri_contract_mma_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)tile_smem);
-  if (err != cudaSuccess) return err;
-  const dim3 pgrid_a((unsigned)(((long long)ri * rkp + MP_ROWS - 1) / MP_ROWS),
-                     (unsigned)((c + MP_COLS - 1) / MP_COLS));
-  tri_proj_mma_kernel<<<pgrid_a, 128, proj_smem, stream>>>(
-      static_cast<const bf16*>(xa), xa_si, xa_sk, static_cast<const bf16*>(w_a),
-      static_cast<const bf16*>(b_a), kmask, static_cast<bf16*>(a_buf), ri, rk, rkp, cz, c);
+  const FwdPlan d = fwd_plan(ri, rj, rk, c);
+  char* base = static_cast<char*>(scratch);
+  bf16* a_buf = reinterpret_cast<bf16*>(base + d.a);
+  bf16* b_buf = reinterpret_cast<bf16*>(base + d.b);
+  float* s_buf = reinterpret_cast<float*>(base + d.s);
+  const int proj_smem = tile::proj_smem(cz, c), contract_smem = tile::smem_bytes<false, false>();
+  const int out_smem = (int)tri_out_smem(cz, c);
+  cudaError_t err;
+  if ((err = tile::configure((const void*)tri_fwd_proj_kernel, proj_smem)) != cudaSuccess ||
+      (err = tile::configure((const void*)tri_fwd_contract_kernel, contract_smem)) !=
+          cudaSuccess ||
+      (err = tile::configure((const void*)tri_fwd_out_kernel, out_smem)) != cudaSuccess)
+    return err;
+  int dev = 0, nsm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+
+  const tile::ProjSide sa{static_cast<const bf16*>(xa), xa_si, xa_sk, ri, d.Ri,
+                          static_cast<const bf16*>(w_a), static_cast<const bf16*>(b_a), kmask,
+                          tile::PROJ_BF16, a_buf, nullptr};
+  const tile::ProjSide sb{static_cast<const bf16*>(xb), xb_sj, xb_sk, rj, d.Rj,
+                          static_cast<const bf16*>(w_b), static_cast<const bf16*>(b_b), nullptr,
+                          tile::PROJ_BF16, b_buf, nullptr};
+  tri_fwd_proj_kernel<<<dim3(nsm, 2), tile::PROJ_THREADS, proj_smem, stream>>>(sa, sb, rk,
+                                                                              d.Rk, cz, c);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 pgrid_b((unsigned)(((long long)rj * rkp + MP_ROWS - 1) / MP_ROWS),
-                     (unsigned)((c + MP_COLS - 1) / MP_COLS));
-  tri_proj_mma_kernel<<<pgrid_b, 128, proj_smem, stream>>>(
-      static_cast<const bf16*>(xb), xb_sj, xb_sk, static_cast<const bf16*>(w_b),
-      static_cast<const bf16*>(b_b), nullptr, static_cast<bf16*>(b_buf), rj, rk, rkp, cz, c);
+  tri_fwd_contract_kernel<<<dim3(d.Rj / tile::BN, d.Ri / tile::BM, c), tile::THREADS,
+                            contract_smem,
+                            stream>>>(
+      a_buf, b_buf, s_buf, d.Rj, d.Rk, c);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 grid((unsigned)((rj + MT - 1) / MT), (unsigned)((ri + MT - 1) / MT));
-  tri_contract_mma_kernel<<<grid, MT_WARPS * 32, tile_smem, stream>>>(
-      static_cast<const bf16*>(a_buf), static_cast<const bf16*>(b_buf),
-      static_cast<const bf16*>(xg), static_cast<const bf16*>(ln_s),
+  const int tiles = ri * ((rj + OP - 1) / OP);
+  tri_fwd_out_kernel<<<tiles < nsm ? tiles : nsm, OUT_WARPS * 32, out_smem, stream>>>(
+      s_buf, static_cast<const bf16*>(xg), static_cast<const bf16*>(ln_s),
       static_cast<const bf16*>(ln_b), static_cast<const bf16*>(w_o),
       static_cast<const bf16*>(b_o), static_cast<const bf16*>(w_g),
-      static_cast<const bf16*>(b_g), static_cast<bf16*>(out), s_out, ri, rj, rkp, cz, c);
+      static_cast<const bf16*>(b_g), static_cast<bf16*>(out), s_out, ri, rj, d.Rj, cz, c);
   return cudaGetLastError();
 }
 
@@ -614,31 +618,41 @@ cudaError_t run(const void* xa, long long xa_si, long long xa_sk, const void* xb
 
 }  // namespace
 
+// Scratch bytes of triangle_mult_fwd: a and b, (ri + rj) * rk * c floats
+// (float32); channel-major padded a, b and s (bfloat16, see run_mma).
+extern "C" long long triangle_mult_fwd_scratch(int ri, int rj, int rk, int c, int dtype) {
+  if (dtype == 1) return fwd_plan(ri, rj, rk, c).bytes;
+  return (long long)(ri + rj) * rk * c * (long long)sizeof(float);
+}
+
 // dtype codes: 0 = float32, 1 = bfloat16 (every tensor argument but kmask,
-// which is float32 or null).  a_buf / b_buf are scratch of c * ri * rkp and
-// c * rj * rkp elements, rkp = rk rounded up to a multiple of 16.  cz and c
-// must be multiples of 4 (float32) or 16 (bfloat16).  `s_out` may be null;
-// when given it receives the fp32 pre-LayerNorm contraction (ri, rj, c).
-// Returns the first cudaError_t met (0 = success).
+// which is float32 or null).  `scratch` holds triangle_mult_fwd_scratch
+// bytes.  cz and c must be multiples of 4 (float32) or 16 (bfloat16; xa and
+// xb then with 16-byte aligned rows).  `s_out` may be null; when given it
+// receives the fp32 pre-LayerNorm contraction (ri, rj, c).  Returns the
+// first cudaError_t met (0 = success).
 extern "C" int triangle_mult_fwd(const void* xa, long long xa_si, long long xa_sk,
                                  const void* xb, long long xb_sj, long long xb_sk,
                                  const void* xg, const void* kmask, const void* w_a,
                                  const void* b_a, const void* w_b, const void* b_b,
                                  const void* ln_s, const void* ln_b, const void* w_o,
                                  const void* b_o, const void* w_g, const void* b_g,
-                                 void* a_buf, void* b_buf, void* out, void* s_out, int ri,
-                                 int rj, int rk, int cz, int c, int dtype, void* stream) {
+                                 void* scratch, void* out, void* s_out, int ri, int rj, int rk,
+                                 int cz, int c, int dtype, void* stream) {
   if (ri <= 0 || rj <= 0 || rk <= 0 || cz % 4 != 0 || c % 4 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* km = static_cast<const float*>(kmask);
-  if (dtype == 0)
+  if (dtype == 0) {
+    float* a_buf = static_cast<float*>(scratch);
+    float* b_buf = a_buf + (long long)ri * rk * c;
     return (int)run<float>(xa, xa_si, xa_sk, xb, xb_sj, xb_sk, xg, km, w_a, b_a, w_b, b_b,
                            ln_s, ln_b, w_o, b_o, w_g, b_g, a_buf, b_buf, out,
                            static_cast<float*>(s_out), ri, rj, rk, cz, c, st);
+  }
   if (dtype == 1)
     return (int)run_mma(xa, xa_si, xa_sk, xb, xb_sj, xb_sk, xg, km, w_a, b_a, w_b, b_b, ln_s,
-                        ln_b, w_o, b_o, w_g, b_g, a_buf, b_buf, out,
-                        static_cast<float*>(s_out), ri, rj, rk, cz, c, st);
+                        ln_b, w_o, b_o, w_g, b_g, scratch, out, static_cast<float*>(s_out),
+                        ri, rj, rk, cz, c, st);
   return (int)cudaErrorInvalidValue;
 }

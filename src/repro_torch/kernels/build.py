@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled for
 ``sm_90a`` into ``build/repro_torch_kernels/<name>-<hash>.so`` (the hash is
-of the source and the flags, so an edited source rebuilds) and loaded with
+of the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds) and loaded with
 ``ctypes``.  Nothing is built when the module is imported: :func:`load`
 builds on first call, and :func:`build_all` builds every source at once,
 one ``nvcc`` process per source, all started together.
@@ -13,6 +14,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -47,6 +49,7 @@ def nvcc_path() -> str:
 
 def _target(name: str) -> pathlib.Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"{name}-{digest[:12]}.so"
 
@@ -86,13 +89,41 @@ def build_all(names=SOURCES) -> float:
     return time.perf_counter() - t0
 
 
+def _kernel_name(mangled: str) -> str:
+    """The first length-prefixed identifier of a mangled name that ends in
+    ``kernel``, else the mangled name."""
+    i = 0
+    while i < len(mangled):
+        m = re.match(r"\d+", mangled[i:])
+        if m is None:
+            i += 1
+            continue
+        start = i + m.end()
+        ident = mangled[start:start + int(m.group())]
+        if ident.endswith("kernel"):
+            return ident
+        i = start + len(ident)
+    return mangled
+
+
 def ptxas_report(name: str) -> str:
-    """The register / shared-memory lines ``nvcc -Xptxas -v`` printed."""
+    """What ``nvcc -Xptxas -v`` printed for each kernel of ``csrc/<name>.cu``:
+    one line per kernel, its name, then its registers, shared memory and
+    spills."""
     log = _target(name).with_suffix(".log")
     if not log.exists():
         return ""
-    return "\n".join(line for line in log.read_text().splitlines()
-                     if "registers" in line or "spill" in line)
+    out, kernel, spill = [], None, ""
+    for line in log.read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            kernel = _kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and kernel is not None:
+            out.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spill}")
+            kernel = None
+    return "\n".join(out)
 
 
 def load(name: str) -> ctypes.CDLL:

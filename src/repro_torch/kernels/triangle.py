@@ -32,9 +32,11 @@ def _lib():
     fn = lib.triangle_mult_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p, ll, ll, p, ll, ll] + [p] * 16
+        fn.argtypes = ([p, ll, ll, p, ll, ll] + [p] * 15
                        + [i, i, i, i, i, i, p])
         fn.restype = ctypes.c_int
+        lib.triangle_mult_fwd_scratch.argtypes = [i] * 5
+        lib.triangle_mult_fwd_scratch.restype = ll
     return lib
 
 
@@ -44,7 +46,7 @@ def _bwd_lib():
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.triangle_mult_bwd_epilogue_scratch.argtypes = [ll, i, i]
         lib.triangle_mult_bwd_epilogue_scratch.restype = ll
-        lib.triangle_mult_bwd_dx_scratch.argtypes = [i, i, i, i, i]
+        lib.triangle_mult_bwd_dx_scratch.argtypes = [i] * 6
         lib.triangle_mult_bwd_dx_scratch.restype = ll
         fn = lib.triangle_mult_bwd_epilogue
         fn.argtypes = [p] * 17 + [ll, i, i, i, p]
@@ -108,27 +110,39 @@ def triangle_mult_fwd(xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o,
             raise ValueError("k_mask must be float32 of shape (r_k,)")
         k_mask = k_mask.contiguous()
     _same_device([xa, xg, k_mask] + [t for t, _ in shapes.values()])
+    if dt == torch.bfloat16:
+        _check_aligned({"xa": xa, "xb": xb, "xg": xg, "w_a": w_a, "w_b": w_b,
+                        "w_o": w_o, "w_g": w_g})
     out = torch.empty((r_i, r_j, c_z), dtype=dt, device=xa.device)
     s = (torch.empty((r_i, r_j, c), dtype=torch.float32, device=xa.device)
          if return_s else None)
-    # gated projections a, b: (r, r_k, c) on the fp32 path, channel-major
-    # (c, r, r_k rounded up to 16) on the bf16 tensor-core path
-    r_kp = -(-r_k // 16) * 16
-    a_buf = torch.empty((c * r_i * r_kp,), dtype=dt, device=xa.device)
-    b_buf = torch.empty((c * r_j * r_kp,), dtype=dt, device=xa.device)
+    lib = _lib()
+    # the gated projections a, b (and on the bf16 path the contraction s)
+    scratch = torch.empty(
+        (lib.triangle_mult_fwd_scratch(r_i, r_j, r_k, c, DTYPE_CODES[dt]),),
+        dtype=torch.uint8, device=xa.device)
     with torch.cuda.device(xa.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().triangle_mult_fwd(
+        err = lib.triangle_mult_fwd(
             _ptr(xa), xa.stride(0), xa.stride(1),
             _ptr(xb), xb.stride(0), xb.stride(1),
             _ptr(xg), _ptr(k_mask), _ptr(w_a), _ptr(b_a), _ptr(w_b), _ptr(b_b),
             _ptr(ln_s), _ptr(ln_b), _ptr(w_o), _ptr(b_o), _ptr(w_g), _ptr(b_g),
-            _ptr(a_buf), _ptr(b_buf), _ptr(out), _ptr(s),
+            _ptr(scratch), _ptr(out), _ptr(s),
             r_i, r_j, r_k, c_z, c, DTYPE_CODES[dt], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {err}")
     launches += 1
     return (out, s) if return_s else out
+
+
+def _check_aligned(named):
+    """The bf16 tensor-core paths copy 16-byte chunks of these tensors' rows:
+    base and row strides must be 16-byte aligned."""
+    for name, t in named.items():
+        if t.data_ptr() % 16 or any(st % 8 for st in t.stride()[:-1]):
+            raise ValueError(f"{name} needs 16-byte aligned rows (base and "
+                             f"strides), got strides {t.stride()}")
 
 
 def _check_params(named, dt):
@@ -201,8 +215,10 @@ def triangle_mult_bwd_dx(ds, x_loc, x_str, w_loc, b_loc, w_str, b_str):
     if dt not in DTYPE_CODES or ds.dtype != torch.float32:
         raise ValueError(f"K5 takes fp32 ds and {tuple(DTYPE_CODES)} "
                          f"activations, got {ds.dtype} / {dt}")
-    if c_z % 4:
-        raise ValueError(f"c_z={c_z} must be a multiple of 4")
+    align = 16 if dt == torch.bfloat16 else 4
+    if c_z % align or (dt == torch.bfloat16 and c % align):
+        raise ValueError(f"c_z={c_z} (and c={c} in bf16) must be multiples "
+                         f"of {align} for {dt}")
     if tuple(x_loc.shape) != (r_p, r_k, c_z) or tuple(x_str.shape) != (
             r_q, r_k, c_z) or x_str.dtype != dt:
         raise ValueError(f"x_loc {tuple(x_loc.shape)} / x_str "
@@ -214,14 +230,18 @@ def triangle_mult_bwd_dx(ds, x_loc, x_str, w_loc, b_loc, w_str, b_str):
                    "w_str": (w_str, (c_z, 2 * c)), "b_str": (b_str, (2 * c,))},
                   dt)
     _same_device([ds, x_loc, x_str, w_loc, b_loc, w_str, b_str])
+    if dt == torch.bfloat16:
+        _check_aligned({"x_loc": x_loc, "x_str": x_str, "w_loc": w_loc})
     dev = ds.device
-    w_loc_t = w_loc.t().contiguous()
+    # W_loc^T for the fp32 path; the bf16 path reads W_loc itself
+    w_loc_t = w_loc.t().contiguous() if dt == torch.float32 else w_loc
     dx = torch.empty((r_p, r_k, c_z), dtype=dt, device=dev)
     dw = torch.empty((c_z, 2 * c), dtype=torch.float32, device=dev)
     db = torch.empty((2 * c,), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     scratch = torch.empty(
-        (lib.triangle_mult_bwd_dx_scratch(r_p, r_q, r_k, c_z, c),),
+        (lib.triangle_mult_bwd_dx_scratch(r_p, r_q, r_k, c_z, c,
+                                          DTYPE_CODES[dt]),),
         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -125,6 +125,7 @@ def _tri_args(rng, r, c_z, c, dtype, dev):
     (16, 16, 16, True, False),     # af2_tiny widths
     (37, 16, 16, False, True),     # ragged r, incoming, masked
     (100, 128, 128, True, True),   # ragged r at af2_initial width
+    (130, 128, 128, False, True),  # r past two 64-row tiles, masked
 ])
 def test_triangle_kernel_matches_plain(cuda_dev, dtype, r, c_z, c, outgoing,
                                        masked):
@@ -204,6 +205,7 @@ def test_evo_attention_bwd_kernel_matches_plain(cuda_dev, dtype, L, S, H, C,
     (16, 16, 16),       # af2_tiny widths
     (37, 16, 16),       # ragged r
     (100, 128, 128),    # ragged r at af2_initial width
+    (130, 128, 128),    # r past two 64-row tiles
 ])
 def test_triangle_bwd_kernels_match_plain(cuda_dev, dtype, r, c_z, c):
     rng = np.random.default_rng(r + 3 * c)
@@ -238,6 +240,9 @@ def test_triangle_bwd_kernels_match_plain(cuda_dev, dtype, r, c_z, c):
         torch.cuda.synchronize()
         for name, a, b in zip(("dx", "dw", "db"), got, want):
             _assert_grad_close(a, b, f"side {side} {name}")
+        again = kt.triangle_mult_bwd_dx(dsv, xl, xs_, wl, bl, ws, bs)
+        for a, b in zip(got, again):   # no atomics: the same bits twice
+            assert torch.equal(a, b)
 
 
 def test_autograd_functions_on_the_card(cuda_dev):
