@@ -22,9 +22,11 @@ Phases, each raising on failure (exit code != 0, no result line):
      kernel family).
   7. training kernels: K1 with its log-sum-exp, K2, K3 with its fp32 s, K4
      and K5 against their plain versions at every shape the af2_initial
-     training step gives them, plus ragged shapes (S 100, r 100), in bf16
+     training step gives them, plus ragged shapes (S 100, r 100) and K2 at
+     S 1000 with a bias, in bf16
      and at one fp32 shape each; max |diff|, kernel / plain / library
-     times and the bound.
+     times and the bound (K2's library time: SDPA's autograd backward with
+     its backend pinned, printed with each K2 row beside K2's GB/s).
   8. small train step: af2_tiny loss and every parameter gradient on the
      card (kernels K1-K5) against the CPU (their plain versions), fp32 and
      bf16.
@@ -66,6 +68,7 @@ import time
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.nn.attention import SDPBackend, sdpa_kernel
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -84,6 +87,9 @@ ATOL, RTOL = 3e-2, 2.0 ** -7
 # rounding of p to bf16 against a running max instead of the row's max
 # (each K6 row prints the least atol it passes with).
 K6_ATOL = 2e-3
+# K2's yardstick: SDPA's autograd backward on this backend only (unpinned,
+# the dispatcher's choice moved its time 93.7-111.0 ms between runs)
+K2_LIBRARY_BACKEND = SDPBackend.EFFICIENT_ATTENTION
 
 
 def device_line() -> str:
@@ -118,9 +124,13 @@ def cuda_median(fn, iters: int, repeats: int = REPEATS):
 
 
 def add_timed(tot: dict, key: str, per: float, stats) -> None:
-    """Add ``per`` times the median of a (median, min, max) to ``tot[key]``
-    (the spreads are printed per shape: no run timed their sum)."""
+    """Add ``per`` times the median of a (median, min, max) to ``tot[key]``,
+    and ``per`` times its min and max to ``tot[key + "_spread"]`` (sums of
+    the shapes' spreads: no run timed the total itself)."""
     tot[key] = tot.get(key, 0.0) + per * stats[0]
+    spread = tot.setdefault(key + "_spread", [0.0, 0.0])
+    spread[0] += per * stats[1]
+    spread[1] += per * stats[2]
 
 
 def timed_fields(key: str, stats) -> dict:
@@ -402,15 +412,22 @@ def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
 # ---------------------------------------------------------------------------
 
 def kernel_family(name: str) -> str:
-    """Profile family of a device kernel, by its name: K3 and K5 by stage,
-    their fp32 CUDA-core kernels mapped to the same stages."""
+    """Profile family of a device kernel, by its name: K2, K3 and K5 by
+    stage, their fp32 CUDA-core kernels mapped to the same stages (K6 is one
+    kernel)."""
     n = name.lower()
     if "flash_attention_fwd" in n:
         return "K6 flash_attention_fwd"
     if "evo_attention_fwd" in n:
         return "K1 evo_attention_fwd"
-    if "evo_bwd" in n:
-        return "K2 evo_attention_bwd"
+    if "evo_bwd_prep" in n or "evo_bwd_bias_pack" in n:
+        return "K2 prep (delta, do_raw, dgate; bias copy)"
+    if "evo_bwd_dbias_sum" in n or "evo_bwd_dq_sum" in n:
+        return "K2 partial sums (dbias; dq past one key window)"
+    if "evo_bwd_dq" in n:
+        return "K2 dq + dbias"
+    if "evo_bwd_dkv" in n:
+        return "K2 dk / dv"
     if "tri_proj_f32" in n or "tri_dx_split" in n or "tri_dx_proj" in n:
         return "K5 ds split + gated projections"
     if "tri_dx_contract" in n:
@@ -421,7 +438,7 @@ def kernel_family(name: str) -> str:
     if "tri_epi" in n:
         return "K4 triangle_mult_bwd_epilogue (per-pair pass)"
     if "outer_acc" in n or "col_sum" in n or "sum_chunks" in n:
-        return "K2/K4 gradient sums over rows and chunks (and K5's in fp32)"
+        return "K4 gradient sums over rows and chunks (and K5's in fp32)"
     if "tri_fwd_proj" in n or "tri_proj" in n:
         return "K3 gated projections"
     if "tri_fwd_contract" in n:
@@ -541,7 +558,8 @@ def train_shapes(cfg):
     """Shapes the af2_initial training step gives the kernels (full bucket
     r 256, s 128, se 1024; no key masks), with launches per sample-cycle of
     the backward (each forward kernel runs twice as often with its residual:
-    forward and remat recompute), plus ragged shapes (0 per cycle).  K1/K2:
+    forward and remat recompute), plus ragged shapes and a long S with a
+    bias (0 per cycle).  K1/K2:
     (name, (L, S, H, C), per cycle, biased); K3/K4/K5: (name, r, outgoing,
     per cycle of K4 (K5 twice that))."""
     ev, ex = cfg.evoformer, cfg.extra
@@ -553,7 +571,8 @@ def train_shapes(cfg):
            ("extra_row", (se, r, ex.n_head_msa, ex.c_hidden_att),
             cfg.n_extra_msa_blocks, True),
            ("ragged", (64, 100, 4, 32), 0, True),
-           ("ragged_nobias", (64, 100, 4, 32), 0, False)]
+           ("ragged_nobias", (64, 100, 4, 32), 0, False),
+           ("long_S1000", (2, 1000, 1, 32), 0, True)]
     assert ev.c_hidden_pair_att == ex.c_hidden_pair_att
     assert ev.n_head_pair == ex.n_head_pair
     per = cfg.n_evoformer + cfg.n_extra_msa_blocks
@@ -611,12 +630,13 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
         # so a few terms may round one ulp apart: one bf16 ulp of the
         # output's largest value on top
         lowp = lambda b: b is not None and b.dtype == torch.bfloat16
-        err_b = max(check_grad_close(
-            a, b, f"K2 {name} {n}",
-            2.0 ** -7 * max(1.0, b.abs().max().item()) if lowp(b) else 0.0)
-                    for n, a, b in zip(("dq", "dk", "dv", "dbias", "dgate"),
-                                       got, want))
-        del got, want
+        ulp = lambda b: 2.0 ** -7 * max(1.0, b.abs().max().item()) if lowp(b) else 0.0
+        outs = list(zip(("dq", "dk", "dv", "dbias", "dgate"), got, want))
+        err_b = max(check_grad_close(a, b, f"K2 {name} {n}", ulp(b))
+                    for n, a, b in outs)
+        need_b = {n: grad_margin(a, b, ulp(b)) for n, a, b in outs
+                  if b is not None}
+        del got, want, outs
         big = L * S * S * H >= 2 ** 27
         iters = 5 if big else 20
         ms_f = cuda_median(lambda: ka.evo_attention_fwd(
@@ -628,16 +648,19 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
         plain_b = cuda_time(lambda: ref.evo_attention_bwd_ref(
             q, k, v, bias, gate, out, lse, do), 2)
         # library: scaled_dot_product_attention with the same float bias
-        # (no gate); backward = autograd's dq, dk, dv (no dbias asked)
+        # (no gate); backward = autograd's dq, dk, dv (no dbias, dgate or
+        # sigmoid asked), its backend pinned so that every call and every
+        # run times the same kernels
         qt, kt_, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                        for t in (q, k, v))
         mask = None if bias is None else bias.to(dt)
         lib_f = cuda_median(lambda: F.scaled_dot_product_attention(
             qt, kt_, vt, attn_mask=mask), iters)
-        o_lib = F.scaled_dot_product_attention(qt, kt_, vt, attn_mask=mask)
-        do_t = do.transpose(1, 2)
-        lib_b = cuda_median(lambda: torch.autograd.grad(
-            o_lib, (qt, kt_, vt), do_t, retain_graph=True), iters)
+        with sdpa_kernel(K2_LIBRARY_BACKEND):
+            o_lib = F.scaled_dot_product_attention(qt, kt_, vt, attn_mask=mask)
+            do_t = do.transpose(1, 2)
+            lib_b = cuda_median(lambda: torch.autograd.grad(
+                o_lib, (qt, kt_, vt), do_t, retain_graph=True), iters)
         del o_lib, qt, kt_, vt
         act = L * S * H * C * el
         f_flops = 4.0 * L * H * S * S * C
@@ -654,9 +677,12 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
                          bound_ms=bf_ms, bound_by=bf_by))
         rows.append(dict(kernel="K2", shape=name, dtype=str(dt)[6:], L=L,
                          S=S, H=H, C=C, biased=biased, per_cycle=per,
-                         max_abs_err=err_b, **timed_fields("ms", ms_b),
+                         max_abs_err=err_b, atol_needed=need_b,
+                         **timed_fields("ms", ms_b),
                          plain_ms=plain_b, **timed_fields("library_ms", lib_b),
-                         bound_ms=bb_ms, bound_by=bb_by))
+                         library_backend=K2_LIBRARY_BACKEND.name,
+                         bound_ms=bb_ms, bound_by=bb_by,
+                         gbps=b_bytes / ms_b[0] / 1e6))
         if dt == torch.bfloat16:
             _add(tots["k1_lse"], 2 * per, ms_f, plain_f, lib_f, bf_ms, f_flops,
                  f_bytes, err_f)

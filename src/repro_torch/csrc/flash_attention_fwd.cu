@@ -19,22 +19,44 @@
 // operations on (2*S*H + 2*T*KV)*D*2 bytes; at the glm4-9b shapes (H 32,
 // KV 2, D 128, S 512..3000) that is ~1000-6000 operations per byte, far
 // above the card's ~295 bf16 operations per byte: the tensor cores bound
-// it.
+// it, and only wgmma reaches their full rate.
 //
-// Design (bf16, the serving path): a block of 4 warps owns 64 query rows of
-// one (b, h); each warp 16 rows, held as mma.sync m16n8k16 A fragments in
-// registers for the whole key loop.  K and V stream through shared memory in
-// 64-key tiles (16-byte loads, rows padded by 16 bytes so the ldmatrix row
-// reads are conflict-free); Q.K^T and P.V are bf16 mma.sync with fp32
-// accumulation and an fp32 online softmax (running max, sum, accumulator).
-// K's fragments come from ldmatrix, V's from ldmatrix.trans, so V needs no
-// transposed copy.  The KV head is h / G, read in place: the Pallas wrapper
-// repeats K/V G-fold in HBM, here the G heads of a group read the same
-// rows.  Causal tiles past the diagonal are not visited (the Pallas grid
-// skips them too), and query blocks run heaviest first.  Any S and T: rows
-// past S are not written, keys past T are zero-filled and get p = 0.
-// q/k/v are read through their (batch, position, head) strides; the last
-// dim is contiguous.
+// Design, bf16 at D 128 (the serving path; wgmma.cuh has the pieces):
+//  * A block of 3 warpgroups owns 128 query rows of one (b, h).  Warpgroup
+//    0 is the producer: one thread issues TMA loads.  Warpgroups 1 and 2
+//    are consumers, 64 query rows each.
+//  * Q (128 x 128) arrives once by TMA.  K and V stream in 128-key tiles
+//    through a ring of 3 stages in shared memory, each filled by TMA (4-d
+//    tensor maps over (D, heads, positions, batch), so the KV head h / G and
+//    any (batch, position, head) strides are read in place) and completing
+//    on its `full` mbarrier; the consumers' 8 warps release a stage on its
+//    `empty` mbarrier.  So the producer keeps up to 3 tiles in flight while
+//    the tensor cores work.
+//  * S = Q.K^T is wgmma m64n128k16 with both operands in shared memory
+//    (K-major, 128-byte swizzle).  O += P.V is wgmma m64n128k16 with P in
+//    registers: the fp32 score accumulator is packed to bf16 pairs in place,
+//    since wgmma's accumulator layout is its A-register layout, and V is
+//    read as stored (channel-contiguous, MN-major) with the transpose bit.
+//  * Softmax in base 2: the running max is taken over the raw scores, and
+//    p = 2^(s * c - m * c) with c = scale * log2(e) is one FFMA and one MUFU
+//    ex2 an element.  The causal and T masks are applied only on tiles that
+//    cross the diagonal or T.  O is rescaled only when some row of the warp
+//    moved its max.
+//  * Each consumer issues tile n's S = Q.K^T and tile n-1's P.V together,
+//    waits for the scores and runs tile n's softmax while P.V runs on the
+//    tensor cores (one score buffer: P is packed to bf16 registers first).
+//    The two consumers take turns issuing their products (named
+//    barriers), so that one's softmax runs during the other's products.
+//    The producer warpgroup gives up registers (setmaxnreg 24), the
+//    consumers take them (240).
+//  * Causal tiles past the diagonal are not loaded.  Taking turns, both
+//    consumers walk the block's tiles: the first one's part of the last
+//    tile is masked whole.  Query blocks run heaviest first.  Rows past S
+//    are zero-filled by TMA and not written; keys past T are zero-filled
+//    and masked.
+// D 32 and 64 (bf16) keep the mma.sync kernel below: a block of 4 warps
+// owns 64 query rows, K/V in 64-key tiles through shared memory, ldmatrix
+// fragments (ldmatrix.trans for V).
 //
 // fp32 inputs: the exact path on the fp32 CUDA cores, one warp per 4 query
 // rows, each lane holding D/32 channels; a score is a warp-shuffle sum and
@@ -43,6 +65,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#include <string.h>
+
+#include <mutex>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -258,6 +285,328 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 inputs, D 128: wgmma with a TMA-filled K/V ring
+// ---------------------------------------------------------------------------
+
+namespace w {
+constexpr int D = 128;
+constexpr int BM = 128;                    // query rows per block
+constexpr int BN = 128;                    // keys per K/V tile
+constexpr int STAGES = 3;
+// the two consumers take turns issuing their products (named barriers 1
+// and 2), so that one's softmax runs during the other's products
+constexpr bool PINGPONG = true;
+constexpr int PANEL_Q = BM * 64 * 2;       // one 64-column panel of Q: 16 KB
+constexpr int PANEL_KV = BN * 64 * 2;      // one 64-column panel of K or V: 16 KB
+constexpr int Q_BYTES = 2 * PANEL_Q;
+constexpr int STAGE_BYTES = 4 * PANEL_KV;  // K's two panels, then V's
+constexpr int SMEM = 1024 + Q_BYTES + STAGES * STAGE_BYTES + 8 * (1 + 2 * STAGES);
+}  // namespace w
+
+// S = Q.K^T of one key tile (Q's 64 rows at qslab, K at kb, both two
+// 64-column panels), one wgmma group, not waited for
+__device__ __forceinline__ void issue_scores(float (&sc)[w::BN / 2], uint32_t qslab, uint32_t kb) {
+  wg::fence_regs(sc);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < w::D / 16; ++kk) {
+    const uint32_t off = (kk & 3) * 32;  // k-step within the 128-byte row
+    const uint64_t da = wg::desc_sw128(qslab + (kk >> 2) * w::PANEL_Q + off, 16, 1024);
+    const uint64_t db = wg::desc_sw128(kb + (kk >> 2) * w::PANEL_KV + off, 16, 1024);
+    wg::wgmma_ss<w::BN>(sc, da, db, kk > 0);
+  }
+  wg::wgmma_commit();
+}
+
+// O += P.V of one tile, one wgmma group: P's bf16 pairs are the A
+// registers, 16 keys a k-step; V at vb (two 64-column panels)
+__device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&pa)[w::BN / 16][4],
+                                         uint32_t vb) {
+  wg::fence_regs(o);
+  wg::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < w::BN / 16; ++kk)
+    wg::wgmma_m64n128k16_rs_tb(o, pa[kk], wg::desc_sw128(vb + kk * 16 * 128, w::PANEL_KV, 1024));
+  wg::wgmma_commit();
+}
+
+// Online softmax of one tile, in place in sc: masks keys past T and
+// (causal) past each row when `edge`; updates the running max m (of the raw
+// scores) and sum l of the thread's two rows and returns their corrections
+// in corr.  p = 2^(s * c - m * c) with c = scale * log2(e): one FFMA and one
+// MUFU an element.
+__device__ __forceinline__ void tile_softmax(float (&sc)[w::BN / 2], float (&m)[2], float (&l)[2],
+                                             float (&corr)[2], int k0, bool edge, int r0, int r1,
+                                             int t, int T, int causal, float scale_log2) {
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < w::BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        if (col >= T || (causal && col > (e < 2 ? r0 : r1))) sc[4 * j + e] = -INFINITY;
+      }
+  }
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < w::BN / 8; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j + 0], sc[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+  }
+  float ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    corr[r] = wg::ex2((m[r] - mx[r]) * scale_log2);
+    m[r] = mx[r];
+    ms[r] = mx[r] * scale_log2;
+  }
+  float ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < w::BN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      sc[4 * j + e] = wg::ex2(fmaf(sc[4 * j + e], scale_log2, -ms[e >> 1]));
+      ps[e >> 1] += sc[4 * j + e];
+    }
+  }
+  l[0] = l[0] * corr[0] + ps[0];
+  l[1] = l[1] * corr[1] + ps[1];
+}
+
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[w::BN / 16][4], const float (&sc)[w::BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < w::BN / 16; ++kk) {
+    pa[kk][0] = pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]);
+    pa[kk][1] = pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]);
+    pa[kk][2] = pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]);
+    pa[kk][3] = pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7]);
+  }
+}
+
+__global__ void __launch_bounds__(384, 1)
+flash_attention_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                                 const __grid_constant__ CUtensorMap tk,
+                                 const __grid_constant__ CUtensorMap tv,
+                                 __nv_bfloat16* __restrict__ out, int S, int T, int H, int G,
+                                 int causal, float scale_log2) {
+  using namespace w;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = wg::smem_addr(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;  // swizzled tiles need 1024-byte alignment
+  const uint32_t skv = sq + Q_BYTES;
+  const uint32_t qbar = skv + STAGES * STAGE_BYTES;
+  const uint32_t full0 = qbar + 8, empty0 = full0 + 8 * STAGES;
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int kvh = h / G;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // heaviest query blocks first
+  const int kend = causal ? min(T, q0 + BM) : T;
+  const int ntiles = (kend + BN - 1) / BN;
+  const int wgi = threadIdx.x >> 7;
+
+  if (threadIdx.x == 0) {
+    wg::mbar_init(qbar, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      wg::mbar_init(full0 + 8 * s, 1);
+      wg::mbar_init(empty0 + 8 * s, 8);  // one arrival per consumer warp
+    }
+    wg::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 0) {  // producer: one thread issues every load
+    wg::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      wg::mbar_expect_tx(qbar, Q_BYTES);
+      wg::tma_load_4d(sq, &tq, qbar, 0, h, q0, b);
+      wg::tma_load_4d(sq + PANEL_Q, &tq, qbar, 64, h, q0, b);
+      for (int n = 0; n < ntiles; ++n) {
+        const int s = n % STAGES;
+        wg::mbar_wait(empty0 + 8 * s, ((n / STAGES) & 1) ^ 1);
+        const uint32_t full = full0 + 8 * s, st = skv + s * STAGE_BYTES;
+        wg::mbar_expect_tx(full, STAGE_BYTES);
+        wg::tma_load_4d(st, &tk, full, 0, kvh, n * BN, b);
+        wg::tma_load_4d(st + PANEL_KV, &tk, full, 64, kvh, n * BN, b);
+        wg::tma_load_4d(st + 2 * PANEL_KV, &tv, full, 0, kvh, n * BN, b);
+        wg::tma_load_4d(st + 3 * PANEL_KV, &tv, full, 64, kvh, n * BN, b);
+      }
+    }
+    return;
+  }
+  wg::setmaxnreg_inc<240>();
+
+  // consumers: warpgroup cw owns rows q0 + 64 cw .. + 63
+  const int cw = wgi - 1;
+  const int tid = threadIdx.x & 127;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + cw * 64;
+  const int r0 = row_lo + warp * 16 + g, r1 = r0 + 8;
+  const uint32_t qslab = sq + cw * 64 * 128;  // this warpgroup's rows in each Q panel
+  // tiles this warpgroup computes: under a causal mask none past its last
+  // row; taking turns, both consumers walk the block's tiles (the first
+  // consumer's last tile is then masked whole)
+  const int nw = PINGPONG ? ntiles : causal ? min(ntiles, (row_lo + 63) / BN + 1) : ntiles;
+
+  float o[64], sc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+  uint32_t pa[BN / 16][4];  // P of the tile in flight, bf16 A fragments
+  float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f}, corr[2];
+  auto stage = [&](int n) { return skv + (n % STAGES) * STAGE_BYTES; };
+  auto wait_full = [&](int n) { wg::mbar_wait(full0 + 8 * (n % STAGES), (n / STAGES) & 1); };
+  auto release = [&](int n) {
+    __syncwarp();
+    if (lane == 0) wg::mbar_arrive(empty0 + 8 * (n % STAGES));
+  };
+  // masks only on tiles that cross the diagonal or T
+  auto edge = [&](int n) { return (causal && n * BN + BN - 1 > row_lo) || n * BN + BN > T; };
+
+  // turns: consumer cw issues after named barrier 1 + cw, then lets the
+  // other one go; the first turn is consumer 0's
+  auto my_turn = [&]() {
+    if (PINGPONG) wg::named_sync(1 + cw, 256);
+  };
+  auto your_turn = [&](bool last) {
+    if (PINGPONG && !(last && cw == 1)) wg::named_arrive(2 - cw, 256);
+  };
+  if (PINGPONG && cw == 1) wg::named_arrive(1, 256);
+
+  wg::mbar_wait(qbar, 0);
+  if (nw > 0) {
+    wait_full(0);
+    my_turn();
+    issue_scores(sc, qslab, stage(0));
+    your_turn(false);
+    wg::wgmma_wait<0>();
+    wg::fence_regs(sc);
+    tile_softmax(sc, m, l, corr, 0, edge(0), r0, r1, t, T, causal, scale_log2);
+    pack_p(pa, sc);
+  }
+  for (int n = 1; n < nw; ++n) {
+    // tile n's scores and tile n - 1's P.V go to the tensor cores together;
+    // tile n's softmax runs while P.V does
+    wait_full(n);
+    my_turn();
+    issue_scores(sc, qslab, stage(n));
+    issue_pv(o, pa, stage(n - 1) + 2 * PANEL_KV);
+    your_turn(false);
+    wg::wgmma_wait<1>();
+    wg::fence_regs(sc);
+    tile_softmax(sc, m, l, corr, n * BN, edge(n), r0, r1, t, T, causal, scale_log2);
+    wg::wgmma_wait<0>();
+    wg::fence_regs(o);
+    release(n - 1);
+    if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 0] *= corr[0];
+        o[4 * j + 1] *= corr[0];
+        o[4 * j + 2] *= corr[1];
+        o[4 * j + 3] *= corr[1];
+      }
+    }
+    pack_p(pa, sc);
+  }
+  if (nw > 0) {
+    my_turn();
+    issue_pv(o, pa, stage(nw - 1) + 2 * PANEL_KV);
+    your_turn(true);
+    wg::wgmma_wait<0>();
+    wg::fence_regs(o);
+    release(nw - 1);
+  }
+  for (int n = nw; n < ntiles; ++n) {  // tiles past this warpgroup's rows
+    wait_full(n);
+    release(n);
+  }
+
+  float l0 = l[0], l1 = l[1];
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f), inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    if (r0 < S)
+      *reinterpret_cast<uint32_t*>(out + ((i64)(b * S + r0) * H + h) * D + c) =
+          pack_bf16(o[4 * j + 0] * inv0, o[4 * j + 1] * inv0);
+    if (r1 < S)
+      *reinterpret_cast<uint32_t*>(out + ((i64)(b * S + r1) * H + h) * D + c) =
+          pack_bf16(o[4 * j + 2] * inv1, o[4 * j + 3] * inv1);
+  }
+}
+
+// Encoded tensor maps of recent calls.  A map depends only on the address,
+// extents, strides and box it was encoded from, so an entry that matches
+// them is exact; encoding costs microseconds of host time a call, where a
+// prefill's layers and a benchmark's repeats reuse their buffers.
+struct MapCache {
+  struct Entry {
+    uint64_t key[9];
+    CUtensorMap map;
+  };
+  static constexpr int N = 64;
+  Entry e[N];
+  int used = 0, next = 0;
+  std::mutex mu;
+
+  bool get(CUtensorMap* map, const void* base, const uint64_t dims[4], const uint64_t st[3],
+           uint32_t rows) {
+    const uint64_t key[9] = {(uint64_t)(uintptr_t)base, dims[1], dims[2], dims[3],
+                             st[0], st[1], st[2], rows, dims[0]};
+    std::lock_guard<std::mutex> lock(mu);
+    for (int i = 0; i < used; ++i)
+      if (memcmp(e[i].key, key, sizeof(key)) == 0) {
+        *map = e[i].map;
+        return true;
+      }
+    if (!wg::bf16_map_4d(map, base, dims, st, rows)) return false;
+    Entry& slot = e[next];
+    memcpy(slot.key, key, sizeof(key));
+    slot.map = *map;
+    next = (next + 1) % N;
+    used = used < N ? used + 1 : N;
+    return true;
+  }
+};
+
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
+                         int T, int H, int KV, Strides qs, Strides ks_, Strides vs_, int causal,
+                         float scale, cudaStream_t stream) {
+  static MapCache maps;
+  CUtensorMap tq, tk, tv;
+  const uint64_t qd[4] = {128, (uint64_t)H, (uint64_t)S, (uint64_t)B};
+  const uint64_t kd[4] = {128, (uint64_t)KV, (uint64_t)T, (uint64_t)B};
+  const uint64_t qst[3] = {(uint64_t)qs.h * 2, (uint64_t)qs.s * 2, (uint64_t)qs.b * 2};
+  const uint64_t kst[3] = {(uint64_t)ks_.h * 2, (uint64_t)ks_.s * 2, (uint64_t)ks_.b * 2};
+  const uint64_t vst[3] = {(uint64_t)vs_.h * 2, (uint64_t)vs_.s * 2, (uint64_t)vs_.b * 2};
+  if (!maps.get(&tq, q, qd, qst, w::BM) || !maps.get(&tk, k, kd, kst, w::BN) ||
+      !maps.get(&tv, v, kd, vst, w::BN))
+    return cudaErrorInvalidValue;
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_attention_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, w::SMEM);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
+  const dim3 grid((unsigned)(B * H), (unsigned)((S + w::BM - 1) / w::BM));
+  flash_attention_fwd_wgmma_kernel<<<grid, 384, w::SMEM, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), S, T, H, H / KV, causal,
+      scale * 1.4426950408889634f);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32 inputs: the CUDA cores
 // ---------------------------------------------------------------------------
 
@@ -349,11 +698,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
                    int T, int H, int G, Strides qs, Strides ks_, Strides vs_, int causal,
                    int dtype, float scale, cudaStream_t stream) {
   if (dtype == 1) {
-    const dim3 grid((unsigned)(B * H), (unsigned)((S + MQ - 1) / MQ));
-    flash_attention_fwd_mma_kernel<D><<<grid, 128, 0, stream>>>(
-        static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, T, H, G,
-        qs, ks_, vs_, causal, scale);
+    if constexpr (D == 128) {
+      return launch_wgmma(q, k, v, out, B, S, T, H, H / G, qs, ks_, vs_, causal, scale, stream);
+    } else {
+      const dim3 grid((unsigned)(B * H), (unsigned)((S + MQ - 1) / MQ));
+      flash_attention_fwd_mma_kernel<D><<<grid, 128, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), S, T, H, G,
+          qs, ks_, vs_, causal, scale);
+    }
   } else {
     const dim3 grid((unsigned)(B * H), (unsigned)((S + FQ - 1) / FQ));
     flash_attention_fwd_f32_kernel<D><<<grid, FW * 32, 0, stream>>>(
@@ -366,19 +719,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  q (B, S, H, D) and k/v (B, T, KV, D)
-// are given by their base pointers and (batch, position, head) strides in
-// elements, the last dim contiguous; out is a contiguous (B, S, H, D) tensor.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* out,
-                                   int B, int S, int T, int H, int KV, int D,
-                                   i64 qsb, i64 qss, i64 qsh, i64 ksb, i64 kss, i64 ksh,
-                                   i64 vsb, i64 vss, i64 vsh, int causal, int dtype,
-                                   float scale, void* stream) {
+// dtype codes: 0 = float32, 1 = bfloat16.  `a` holds 21 int64 values: the
+// base pointers of q, k, v and out, then B, S, T, H, KV, D, the (batch,
+// position, head) strides of q, k and v in elements (the last dim
+// contiguous; out is a contiguous (B, S, H, D) tensor), causal and dtype.
+// One array rather than 21 arguments: a prefill launches this once a layer,
+// and each argument costs the caller host time.  Returns the cudaError_t of
+// the launch (0 = success).
+extern "C" int flash_attention_fwd(const i64* a, float scale, void* stream) {
+  const void *q = (const void*)a[0], *k = (const void*)a[1], *v = (const void*)a[2];
+  void* out = (void*)a[3];
+  const int B = (int)a[4], S = (int)a[5], T = (int)a[6], H = (int)a[7], KV = (int)a[8],
+            D = (int)a[9], causal = (int)a[19], dtype = (int)a[20];
   if (B <= 0 || S <= 0 || T <= 0 || KV <= 0 || H % KV != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides qs{qsb, qss, qsh}, ks_{ksb, kss, ksh}, vs_{vsb, vss, vsh};
+  const Strides qs{a[10], a[11], a[12]}, ks_{a[13], a[14], a[15]}, vs_{a[16], a[17], a[18]};
   const int G = H / KV;
   switch (D) {
     case 32: return (int)launch<32>(q, k, v, out, B, S, T, H, G, qs, ks_, vs_, causal, dtype, scale, st);

@@ -106,15 +106,11 @@ def _kernel_name(mangled: str) -> str:
     return mangled
 
 
-def ptxas_report(name: str) -> str:
-    """What ``nvcc -Xptxas -v`` printed for each kernel of ``csrc/<name>.cu``:
-    one line per kernel, its name, then its registers, shared memory and
-    spills."""
-    log = _target(name).with_suffix(".log")
-    if not log.exists():
-        return ""
+def ptxas_summary(log: str) -> str:
+    """One line per kernel of an ``nvcc -Xptxas -v`` log: its name, then its
+    registers, shared memory and spills (and any performance remark)."""
     out, kernel, spill = [], None, ""
-    for line in log.read_text().splitlines():
+    for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             kernel = _kernel_name(m.group(1))
@@ -123,7 +119,15 @@ def ptxas_report(name: str) -> str:
         elif "registers" in line and kernel is not None:
             out.append(f"{kernel}: {line.split(':', 1)[1].strip()}; {spill}")
             kernel = None
+        elif "Performance Loss" in line:
+            out.append(line.strip())
     return "\n".join(out)
+
+
+def ptxas_report(name: str) -> str:
+    """:func:`ptxas_summary` of the build of ``csrc/<name>.cu``."""
+    log = _target(name).with_suffix(".log")
+    return ptxas_summary(log.read_text()) if log.exists() else ""
 
 
 def load(name: str) -> ctypes.CDLL:

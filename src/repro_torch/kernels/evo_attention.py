@@ -39,10 +39,10 @@ def _bwd_lib():
     fn = lib.evo_attention_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 15 + [i] * 7 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 14 + [i] * 6 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
-        lib.evo_attention_bwd_chunks.argtypes = [i] * 4
-        lib.evo_attention_bwd_chunks.restype = ctypes.c_int
+        lib.evo_attention_bwd_workspace.argtypes = [i] * 9
+        lib.evo_attention_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -124,25 +124,26 @@ def evo_attention_bwd(q, k, v, bias, gate, out, lse, do,
     dev = q.device
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dgate = torch.empty_like(gate) if gate is not None else None
-    dbias = part = None
-    n_chunks = L
-    lib = _bwd_lib()
+    dbias = None
     if bias is not None:
-        n_chunks = lib.evo_attention_bwd_chunks(L, S, H, DTYPE_CODES[q.dtype])
         dbias = torch.empty((H, S, S), dtype=torch.float32, device=dev)
-        if n_chunks > 1:
-            part = torch.empty((n_chunks, H, S, S), dtype=torch.float32,
-                               device=dev)
-    delta = torch.empty((L * H, S), dtype=torch.float32, device=dev)
+    bias_code = DTYPE_CODES[bias.dtype] if bias is not None else 0
+    lib = _bwd_lib()
+    # scratch: delta, do_raw, a padded bias copy and the dbias partials, as
+    # the kernel's layout needs them
+    nbytes = lib.evo_attention_bwd_workspace(
+        L, S, H, C, DTYPE_CODES[q.dtype], bias_code, int(bias is not None),
+        int(gate is not None),
+        int(bias is not None and bias.data_ptr() % 16 != 0))
+    ws = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     scale = C ** -0.5 if scale is None else float(scale)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.evo_attention_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(gate), _ptr(out),
-            _ptr(do), _ptr(lse), _ptr(delta), _ptr(dq), _ptr(dk), _ptr(dv),
-            _ptr(dgate), _ptr(dbias), _ptr(part), L, S, H, C, n_chunks,
-            DTYPE_CODES[q.dtype],
-            DTYPE_CODES[bias.dtype] if bias is not None else 0, scale, stream)
+            _ptr(do), _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dgate),
+            _ptr(dbias), _ptr(ws), L, S, H, C, DTYPE_CODES[q.dtype],
+            bias_code, scale, stream)
     if err != 0:
         raise RuntimeError(f"{BWD_NAME} launch failed: cudaError {err}")
     bwd_launches += 1

@@ -176,6 +176,10 @@ def test_kernel_rejects_bad_input(cuda_dev):
     (2, 130, 3, 16, False, True),  # two query tiles, no bias
     (4, 256, 4, 32, True, True),   # triangle attention width, 4 dbias chunks
     (64, 64, 2, 32, True, True),   # one lead row per dbias chunk
+    (3, 130, 2, 16, True, True),   # S past two 64-row tiles, ragged
+    (2, 1, 2, 8, True, True),      # S 1: one valid row of one tile
+    (2, 1000, 1, 32, True, True),  # long S with a bias (no buffer grows with S)
+    (200, 256, 4, 32, True, True),  # lead rows walked in several groups a block
 ])
 def test_evo_attention_bwd_kernel_matches_plain(cuda_dev, dtype, L, S, H, C,
                                                 biased, gated):
@@ -245,6 +249,25 @@ def test_triangle_bwd_kernels_match_plain(cuda_dev, dtype, r, c_z, c):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("L,S,H,C", [
+    (256, 256, 4, 32),   # triangle attention shape: dbias from 17 partials
+    (48, 100, 8, 8),     # ragged S, bias rows copied to 16-byte pitch
+])
+def test_evo_attention_bwd_kernel_reruns_bit_identical(cuda_dev, L, S, H, C):
+    """No atomics in K2: dq, dk, dv, dbias and dgate are the same bits on a
+    second run."""
+    rng = np.random.default_rng(S + C)
+    q, k, v, g, do = (_t(rng, (L, S, H, C), torch.bfloat16, cuda_dev)
+                      for _ in range(5))
+    bias = _t(rng, (H, S, S), torch.bfloat16, cuda_dev)
+    out, lse = ka.evo_attention_fwd(q, k, v, bias, g, return_lse=True)
+    first = ka.evo_attention_bwd(q, k, v, bias, g, out, lse, do)
+    second = ka.evo_attention_bwd(q, k, v, bias, g, out, lse, do)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "dk", "dv", "dbias", "dgate"), first, second):
+        assert torch.equal(a, b), name
+
+
 def test_autograd_functions_on_the_card(cuda_dev):
     """ops' autograd Functions on CUDA tensors (K1+K2, K3+K4+K5) against
     autograd through the plain forwards on the same tensors."""
@@ -307,6 +330,10 @@ def test_masked_triangle_mult_stays_forward_only_on_the_card(cuda_dev):
     (1, 64, 128, 4, 2, 64, False),      # T != S
     (1, 130, 70, 4, 1, 128, True),      # T < S: rows past T see every key
     (1, 1000, 1000, 32, 2, 128, True),  # glm4-9b width, ragged
+    (2, 200, 150, 4, 2, 128, True),     # D 128 tiles (128 queries, 64 keys):
+    (2, 129, 129, 4, 1, 128, True),     # ragged S and T, T != S, batch 2
+    (2, 70, 333, 4, 2, 128, False),
+    (1, 1, 1, 2, 1, 128, True),
 ])
 def test_flash_attention_kernel_matches_plain(cuda_dev, dtype, B, S, T, H,
                                               KV, D, causal):
