@@ -9,8 +9,9 @@ Phases, each raising on failure (exit code != 0, no result line):
      parallel, into build/repro_torch_kernels.
   3. kernels: each hand-written kernel against its plain PyTorch version at
      every shape the serving path gives it, in every bucket of the engine's
-     af2_initial table, plus ragged shapes; max |diff|, kernel / plain /
-     library times (CUDA events) and the bound.
+     af2_initial table, plus ragged shapes; max |diff| and the least atol
+     the check passes with, kernel / plain / library times (CUDA events)
+     and the bound.
   4. small fold: an af2_tiny fold through the kernels on the card against
      the same fold on the CPU through the plain versions, fp32 and bf16.
   5. main path: FoldEngine at af2_initial width and depth (48 + 4 blocks,
@@ -24,9 +25,12 @@ Phases, each raising on failure (exit code != 0, no result line):
      and K5 against their plain versions at every shape the af2_initial
      training step gives them, plus ragged shapes (S 100, r 100) and K2 at
      S 1000 with a bias, in bf16
-     and at one fp32 shape each; max |diff|, kernel / plain / library
-     times and the bound (K2's library time: SDPA's autograd backward with
-     its backend pinned, printed with each K2 row beside K2's GB/s).
+     and at one fp32 shape each; max |diff| and the least atol each check
+     passes with, kernel / plain / library times and the bound (K2's
+     library time: SDPA's autograd backward with its backend pinned,
+     printed with each K2 row beside K2's GB/s; K4, which no single call
+     computes, prints beside its null library time the time of the six
+     bf16 torch.matmul products it contains, as a products-only yardstick).
   8. small train step: af2_tiny loss and every parameter gradient on the
      card (kernels K1-K5) against the CPU (their plain versions), fp32 and
      bf16.
@@ -230,6 +234,7 @@ def check_evo_attention(dev, shapes):
         want = ref.evo_attention_ref(q, k, v, bias, gate)
         torch.cuda.synchronize()
         err = check_close(got, want, f"evo_attention {name}")
+        needed = atol_needed(got, want, RTOL)
         errs.append(err)
         iters = 20 if L * S * S * H < 2 ** 27 else 5
         ms = cuda_median(lambda: ka.evo_attention_fwd(q, k, v, bias, gate), iters)
@@ -243,7 +248,8 @@ def check_evo_attention(dev, shapes):
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(shape=name, bucket_r=bucket_r, L=L, S=S, H=H, C=C,
                          masked=masked, per_cycle=per_cycle,
-                         max_abs_err=err, **timed_fields("ms", ms),
+                         max_abs_err=err, atol=ATOL, atol_needed=needed,
+                         **timed_fields("ms", ms),
                          plain_ms=plain_ms, **timed_fields("library_ms", lib_ms),
                          bound_ms=b_ms, bound_by=b_by))
         add_timed(tot, "ms", per_cycle, ms)
@@ -412,9 +418,9 @@ def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
 # ---------------------------------------------------------------------------
 
 def kernel_family(name: str) -> str:
-    """Profile family of a device kernel, by its name: K2, K3 and K5 by
-    stage, their fp32 CUDA-core kernels mapped to the same stages (K6 is one
-    kernel)."""
+    """Profile family of a device kernel, by its name: K2, K3, K4 and K5 by
+    stage, their fp32 CUDA-core kernels mapped to the same stages (K1 and K6
+    are one kernel each)."""
     n = name.lower()
     if "flash_attention_fwd" in n:
         return "K6 flash_attention_fwd"
@@ -435,10 +441,12 @@ def kernel_family(name: str) -> str:
     if ("tri_dx_rows" in n or "tri_dx_out" in n or "tri_dx_dw" in n
             or "tri_dx_sums" in n):
         return "K5 dx / dW / db"
+    if "tri_epi_dw" in n or "tri_epi_sums" in n:
+        return "K4 dW_o / dW_g split-K products and partial sums"
     if "tri_epi" in n:
         return "K4 triangle_mult_bwd_epilogue (per-pair pass)"
     if "outer_acc" in n or "col_sum" in n or "sum_chunks" in n:
-        return "K4 gradient sums over rows and chunks (and K5's in fp32)"
+        return "K4 / K5 fp32 gradient sums over rows and chunks"
     if "tri_fwd_proj" in n or "tri_proj" in n:
         return "K3 gated projections"
     if "tri_fwd_contract" in n:
@@ -622,6 +630,8 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
         torch.cuda.synchronize()
         err_f = max(check_close(out, out_r, f"K1 {name}"),
                     check_grad_close(lse, lse_r, f"K1 lse {name}"))
+        need_f = {"out": [atol_needed(out, out_r, RTOL), ATOL],
+                  "lse": grad_margin(lse, lse_r)}
         got = ka.evo_attention_bwd(q, k, v, bias, gate, out_r, lse_r, do)
         want = ref.evo_attention_bwd_ref(q, k, v, bias, gate, out_r, lse_r, do)
         torch.cuda.synchronize()
@@ -672,7 +682,8 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
         bb_ms, bb_by = bound(b_flops, b_bytes, peak)
         rows.append(dict(kernel="K1+lse", shape=name, dtype=str(dt)[6:], L=L,
                          S=S, H=H, C=C, biased=biased, per_cycle=2 * per,
-                         max_abs_err=err_f, **timed_fields("ms", ms_f),
+                         max_abs_err=err_f, atol_needed=need_f,
+                         **timed_fields("ms", ms_f),
                          plain_ms=plain_f, **timed_fields("library_ms", lib_f),
                          bound_ms=bf_ms, bound_by=bf_by))
         rows.append(dict(kernel="K2", shape=name, dtype=str(dt)[6:], L=L,
@@ -741,6 +752,9 @@ def check_triangle_train(dev, shapes, c_z, c, dtype, fp32_shape):
         torch.cuda.synchronize()
         err4 = max(check_grad_close(a, b, f"K4 {name} {i}")
                    for i, (a, b) in enumerate(zip(epi, epi_r)))
+        need4 = {out: grad_margin(a, b) for out, a, b in zip(
+            ("ds", "dxg", "dln_s", "dln_b", "dw_o", "db_o", "dw_g", "db_g"),
+            epi, epi_r)}
         ds = epi_r[0]
         sides = ((ds, w_a, b_a, w_b, b_b), (ds.transpose(0, 1), w_b, b_b, w_a, b_a))
         err5, need5 = 0.0, {}
@@ -777,7 +791,16 @@ def check_triangle_train(dev, shapes, c_z, c, dtype, fp32_shape):
         ds_lib = ds.transpose(0, 1).to(dt)
         lib5 = cuda_median(lambda: torch.einsum("pqc,qkc->pkc", ds_lib, a), 10)
         del ds_lib, a, bb
+        # K4's products-only yardstick: the six products it contains, each
+        # one bf16 torch.matmul (no split operands, no LayerNorm, gate or
+        # sums), timed together; no single call computes K4
         P = r * r
+        n_b, du_b, dz_b = (_rand(g, (P, n), dt) for n in (c, c_z, c_z))
+        x2 = x.reshape(P, c_z)
+        prods4 = cuda_median(lambda: (n_b @ w_o, x2 @ w_g, du_b @ w_o.t(),
+                                      dz_b @ w_g.t(), n_b.t() @ du_b,
+                                      x2.t() @ dz_b), 10)
+        del n_b, du_b, dz_b, x2
         f3 = (2 * 2.0 * P * c_z * 2 * c + 2.0 * r ** 3 * c + 2.0 * P * c * c_z
               + 2.0 * P * c_z * c_z)
         by3 = 2 * P * c_z * el + sum(t.numel() * el for t in w) + P * c * 4
@@ -794,8 +817,10 @@ def check_triangle_train(dev, shapes, c_z, c, dtype, fp32_shape):
                       **timed_fields("library_ms", lib3), bound_ms=b3,
                       bound_by=b3_by, **common),
                  dict(kernel="K4", per_cycle=per, max_abs_err=err4,
-                      **timed_fields("ms", ms4), plain_ms=plain4,
-                      library_ms=None, bound_ms=b4, bound_by=b4_by, **common),
+                      atol_needed=need4, **timed_fields("ms", ms4),
+                      plain_ms=plain4, library_ms=None,
+                      **timed_fields("products_ms", prods4),
+                      bound_ms=b4, bound_by=b4_by, **common),
                  dict(kernel="K5", per_cycle=2 * per, max_abs_err=err5,
                       atol_needed=need5, **timed_fields("ms", ms5), plain_ms=plain5,
                       **timed_fields("library_ms", lib5), bound_ms=b5,
@@ -803,6 +828,7 @@ def check_triangle_train(dev, shapes, c_z, c, dtype, fp32_shape):
         if dt == torch.bfloat16:
             _add(tots["k3_s"], 2 * per, ms3, plain3, lib3, b3, f3, by3, err3)
             _add(tots["k4"], per, ms4, plain4, None, b4, f4, by4, err4)
+            add_timed(tots["k4"], "products_ms", per, prods4)
             _add(tots["k5"], 2 * per, ms5, plain5, lib5, b5, f5, by5, err5)
         del x, w, dy, y, s_k, y_r, s_r, ds
         torch.cuda.empty_cache()
@@ -1359,11 +1385,12 @@ def main() -> int:
         entry("evo_attention_bwd", "src/repro_torch/csrc/evo_attention_bwd.cu",
               "src/repro/kernels/flash_attention.py:347", att_tot["k2"],
               att_tot["k2"]["err"], t_counts["evo_attention_bwd"], train_per),
-        entry("triangle_mult_bwd_epilogue",
-              "src/repro_torch/csrc/triangle_mult_bwd.cu",
-              "src/repro/kernels/triangle.py:239", tri_tot["k4"],
-              tri_tot["k4"]["err"], t_counts["triangle_mult_bwd_epilogue"],
-              train_per),
+        {**entry("triangle_mult_bwd_epilogue",
+                 "src/repro_torch/csrc/triangle_mult_bwd.cu",
+                 "src/repro/kernels/triangle.py:239", tri_tot["k4"],
+                 tri_tot["k4"]["err"], t_counts["triangle_mult_bwd_epilogue"],
+                 train_per),
+         "products_ms": tri_tot["k4"]["products_ms"]},
         entry("triangle_mult_bwd_dx",
               "src/repro_torch/csrc/triangle_mult_bwd.cu",
               "src/repro/kernels/triangle.py:319", tri_tot["k5"],

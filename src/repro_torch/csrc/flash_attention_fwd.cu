@@ -67,6 +67,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <atomic>
 #include <mutex>
 
 #include "wgmma.cuh"
@@ -579,6 +580,8 @@ struct MapCache {
   }
 };
 
+constexpr int kMaxDevices = 64;
+
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int S,
                          int T, int H, int KV, Strides qs, Strides ks_, Strides vs_, int causal,
                          float scale, cudaStream_t stream) {
@@ -592,12 +595,20 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (!maps.get(&tq, q, qd, qst, w::BM) || !maps.get(&tk, k, kd, kst, w::BN) ||
       !maps.get(&tv, v, kd, vst, w::BN))
     return cudaErrorInvalidValue;
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_fwd_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, w::SMEM);
+  // A function attribute belongs to the current device's context: it is set
+  // once for each device the kernel is launched on.  (The tensor maps need
+  // no such key: a map is a function of the address, extents, strides and
+  // box alone, and device addresses are unique within a process.)
+  static std::atomic<bool> configured[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!configured[dev].load(std::memory_order_acquire)) {
+    err = cudaFuncSetAttribute(flash_attention_fwd_wgmma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, w::SMEM);
     if (err != cudaSuccess) return err;
-    configured = true;
+    configured[dev].store(true, std::memory_order_release);
   }
   const dim3 grid((unsigned)(B * H), (unsigned)((S + w::BM - 1) / w::BM));
   flash_attention_fwd_wgmma_kernel<<<grid, 384, w::SMEM, stream>>>(

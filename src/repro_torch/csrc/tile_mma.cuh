@@ -9,8 +9,9 @@
 // ring filled by cp.async (16 bytes a copy, zero-filled where the source
 // lies outside the operand), so two k-steps' copies are in flight while the
 // tensor cores work on a third.  Fragments come from ldmatrix: A is staged
-// [m][k] (k contiguous); B either [k][n] (n contiguous, ldmatrix.trans) or
-// [n][k] (k contiguous, ldmatrix).  Rows are padded by 16 bytes, so the 8
+// [m][k] (k contiguous, ldmatrix) or [k][m] (m contiguous, ldmatrix.trans);
+// B either [k][n] (n contiguous, ldmatrix.trans) or [n][k] (k contiguous,
+// ldmatrix).  Rows are padded by 16 bytes, so the 8
 // row reads of each ldmatrix phase hit distinct banks.
 //
 // Split precision.  An fp32 operand v is staged as two bf16 tiles, hi =
@@ -34,9 +35,11 @@ typedef long long i64;
 constexpr int BM = 128, BN = 64, BK = 32, STAGES = 3, THREADS = 256;
 constexpr int PAD = 128;  // padded extents are multiples of BM and BN
 constexpr int LDA = BK + 8;     // A stage tile [BM][LDA]
+constexpr int LDA_KM = BM + 8;  // or [BK][LDA_KM]
 constexpr int LDB_KN = BN + 8;  // B stage tile [BK][LDB_KN]
 constexpr int LDB_NK = BK + 8;  // B stage tile [BN][LDB_NK]
 constexpr int A_ELEMS = BM * LDA;
+static_assert(BK * LDA_KM <= A_ELEMS, "a [k][m] A tile fits an A stage");
 constexpr int B_ELEMS = BK * LDB_KN > BN * LDB_NK ? BK * LDB_KN : BN * LDB_NK;
 // A stage holds A's hi tile, its lo tile if A is split, then B's likewise.
 template <bool A_LO, bool B_LO>
@@ -137,6 +140,14 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* t, int ld, 
   ldsm_x4(a, t + (m0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + k0 + (lane >> 4) * 8);
 }
 
+// The same fragment of a [k][m] tile (m contiguous), through ldmatrix.trans:
+// matrix j of the four is (k0 + 8 (j >> 1), m0 + 8 (j & 1)).
+__device__ __forceinline__ void frag_a_km(uint32_t (&a)[4], const bf16* t, int ld, int m0,
+                                          int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(a, t + (k0 + (lane & 7) + ((lane >> 4) & 1) * 8) * ld + m0 + ((lane >> 3) & 1) * 8);
+}
+
 // B fragments of two 8-wide n-tiles (n0, n0 + 8) x 16 k: b[0] for n0, b[1]
 // for n0 + 8.  KN: the tile is [k][n]; otherwise [n][k].
 template <bool KN>
@@ -177,6 +188,15 @@ __device__ __forceinline__ void load_a(bf16* dst, Src src) {
   }
 }
 template <class Src>
+__device__ __forceinline__ void load_a_km(bf16* dst, Src src) {
+  for (int e = threadIdx.x; e < BK * (BM / 8); e += THREADS) {
+    const int kr = e / (BM / 8), mc = (e % (BM / 8)) * 8;
+    bool ok;
+    const bf16* p = src(kr, mc, ok);
+    cp16(dst + kr * LDA_KM + mc, p, ok);
+  }
+}
+template <class Src>
 __device__ __forceinline__ void load_b_kn(bf16* dst, Src src) {
   for (int e = threadIdx.x; e < BK * (BN / 8); e += THREADS) {
     const int kr = e / (BN / 8), nc = (e % (BN / 8)) * 8;
@@ -214,7 +234,8 @@ struct Frag {  // this thread's place in the block tile
   __device__ __forceinline__ int col(int nt, int e) const { return wn * 32 + nt * 8 + 2 * t + (e & 1); }
 };
 
-template <bool A_LO, bool B_LO, bool B_KN>
+// A_KM: A's stage tile is [k][m] (load_a_km), else [m][k] (load_a).
+template <bool A_LO, bool B_LO, bool B_KN, bool A_KM = false>
 __device__ __forceinline__ void mma_stage(const Stage& st, Acc& acc) {
   const int warp = threadIdx.x >> 5;
   const int m0 = (warp & 3) * 32, n0 = (warp >> 2) * 32;
@@ -227,8 +248,13 @@ __device__ __forceinline__ void mma_stage(const Stage& st, Acc& acc) {
   for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
     for (int mt = 0; mt < 2; ++mt) {
-      frag_a(ah[ks][mt], st.a_hi, LDA, m0 + mt * 16, ks * 16);
-      if (A_LO) frag_a(al[ks][mt], st.a_lo, LDA, m0 + mt * 16, ks * 16);
+      if (A_KM) {
+        frag_a_km(ah[ks][mt], st.a_hi, LDA_KM, m0 + mt * 16, ks * 16);
+        if (A_LO) frag_a_km(al[ks][mt], st.a_lo, LDA_KM, m0 + mt * 16, ks * 16);
+      } else {
+        frag_a(ah[ks][mt], st.a_hi, LDA, m0 + mt * 16, ks * 16);
+        if (A_LO) frag_a(al[ks][mt], st.a_lo, LDA, m0 + mt * 16, ks * 16);
+      }
     }
 #pragma unroll
     for (int np = 0; np < 2; ++np) {
@@ -265,7 +291,7 @@ __device__ __forceinline__ void mma_stage(const Stage& st, Acc& acc) {
 // The k loop: nk k-steps of BK through the STAGES-deep ring.  load(stage,
 // ks) issues the cp.async copies of k-step ks into `stage`.  Ends with every
 // copy landed and the block synchronised, so the epilogue may reuse smem.
-template <bool A_LO, bool B_LO, bool B_KN, class Load>
+template <bool A_LO, bool B_LO, bool B_KN, bool A_KM = false, class Load>
 __device__ __forceinline__ void mainloop(bf16* smem, int nk, Load&& load, Acc& acc) {
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -282,7 +308,7 @@ __device__ __forceinline__ void mainloop(bf16* smem, int nk, Load&& load, Acc& a
     const int nx = it + STAGES - 1;
     if (nx < nk) load(stage_at<A_LO, B_LO>(smem, nx % STAGES), nx);
     cp_commit();
-    mma_stage<A_LO, B_LO, B_KN>(stage_at<A_LO, B_LO>(smem, it % STAGES), acc);
+    mma_stage<A_LO, B_LO, B_KN, A_KM>(stage_at<A_LO, B_LO>(smem, it % STAGES), acc);
   }
   cp_wait<0>();
   __syncthreads();

@@ -27,7 +27,7 @@
 // contractions with far more operations than bytes (K4 ~17 GFLOP on ~130 MB,
 // K5 ~21.5 GFLOP on ~70 MB), so the operations bound them.
 //
-// K4 (both types) and K5 in fp32 run on the fp32 CUDA cores (67 TFLOP/s):
+// In fp32 both run on the fp32 CUDA cores (67 TFLOP/s):
 //  * Row kernels (tri_epi_bwd_rows_kernel, tri_dx_rows_kernel) take 32 pairs
 //    per block with every channel in shared memory, do the per-pair work and
 //    write the per-pair results the sums need (n, du, dzg; dh) to scratch.
@@ -41,6 +41,28 @@
 //    (tri_proj_f32_kernel); the contraction (tri_dx_contract_kernel) is, per
 //    channel, a product of r x r matrices, one block per 8 x 8 (p, k) tile,
 //    one thread per channel, reading ds through its strides.
+//
+// K4 in bf16 (the training path) runs every product on the tensor cores,
+// four launches:
+//   1. tri_epi_bwd_mma_kernel, the per-pair pass: one block of 8 warps per
+//      SM with W_o and W_g resident in shared memory (read [k][n] through
+//      ldmatrix.trans for u and zg, [n][k] through ldmatrix for dn and dx_g:
+//      no transposed copies); each warp walks 16-pair tiles, keeping s, the
+//      LayerNorm statistics, g, du and dzg in registers.  It writes ds, dx_g,
+//      n, du and dzg (hi/lo) and one partial row of the four vector sums per
+//      block.
+//   2. tri_epi_dw_kernel, twice: dW_o = n^T du and dW_g = x_g^T dzg as
+//      split-K tile GEMMs over the pairs (both operands pair-major, A read
+//      [k][m] through ldmatrix.trans), into partials;
+//   3. tri_epi_sums_kernel adds the dW and vector partials in a fixed order.
+// Precision: n, du and dzg are fp32 in the reference and stay hi/lo pairs
+// (below): u = n.W_o and dn, dx_g take 2 products each, zg 1, dW_o 3, dW_g
+// 2, ~26 GFLOP of bf16 products at r 256 (tests/test_torch_triangle_split.py
+// checks the arithmetic against check_grad_close).  What bounds it: the
+// per-pair pass is one block of 8 warps an SM (W_o and W_g fill shared
+// memory), so each warp's 16-pair tile is a long dependent chain (loads of
+// s, LayerNorm, four products, sigmoid, column sums) that few other warps
+// can cover; the hi/lo scratch the sums read adds ~200 MB at r 256.
 //
 // K5 in bf16 (the training path) runs every product on the tensor cores as
 // a tiled GEMM (tile_mma.cuh: mma.sync m16n8k16 from ldmatrix fragments,
@@ -926,6 +948,548 @@ DxPlan dx_plan(int rp, int rq, int rk, int cz, int c) {
 }
 
 // ---------------------------------------------------------------------------
+// K4, bf16 inputs: the per-pair pass and the parameter sums on the tensor
+// cores (tile_mma.cuh), split precision
+// ---------------------------------------------------------------------------
+//
+// Scratch (bytes, epi_plan): n_hi, n_lo (P, c), du_hi, du_lo, dz_hi, dz_lo
+// (P, cz) bf16, pair-major; the pair pass's per-block vector partials
+// (blocks, 2c + 2cz) fp32; the dW_o and dW_g split partials fp32.
+
+constexpr int EPI_WARPS = 8;          // warps of a block of the pair pass
+constexpr int EPI_ROWS = 16;          // pairs of one warp tile
+constexpr int EPI_MAX_BLOCKS = 1024;  // the pair pass's grid is at most this
+
+// Shared memory of the pair pass for a channel width W (c, cz <= W): W_o and
+// W_g, four [16][W + 8] bf16 tiles per warp, each warp's four vector sums
+// and the four parameter vectors, fp32.
+__host__ __device__ constexpr int epi_smem(int W) {
+  return 2 * W * (W + 8) * 2 + EPI_WARPS * 4 * EPI_ROWS * (W + 8) * 2 +
+         EPI_WARPS * 4 * W * 4 + 4 * W * 4;
+}
+static_assert(epi_smem(128) <= 232448, "the pair pass fits one SM at c = cz = 128");
+
+// One block of 8 warps per SM; each warp walks 16-pair tiles on its own (a
+// warp's tile rows are its own rows of every A operand, so __syncwarp
+// orders them).  Per tile, in the warp's four tiles ta0, ta1, tb0, tb1:
+//   1. x_g -> tb0, dy -> tb1 by cp.async; s straight into registers, the
+//      LayerNorm statistics by quad shuffles, n as hi/lo -> ta0, ta1 (and
+//      to global memory for dW_o);
+//   2. u = n.W_o (2 products), zg = x_g.W_g (1), W read [k][n] through
+//      ldmatrix.trans;
+//   3. g, du, dzg in registers, their column sums; du hi/lo -> ta0, ta1,
+//      dzg hi/lo -> tb0, tb1 (and to global memory for the dW sums);
+//   4. dn = du.W_o^T (2 products), W read [n][k] through ldmatrix; ds, and
+//      the dln_s, dln_b column sums, from s read again;
+//   5. dx_g = dzg.W_g^T (2 products).
+// Each warp adds its column sums to its own shared-memory row in tile
+// order; the block adds its warps' rows in order into one partial row.
+template <int NW>  // W = 16 NW: c, cz <= W, multiples of 16
+__global__ void __launch_bounds__(EPI_WARPS * 32, 1)
+tri_epi_bwd_mma_kernel(const float* __restrict__ s, const bf16* __restrict__ xg,
+                       const bf16* __restrict__ dy, const bf16* __restrict__ ln_s,
+                       const bf16* __restrict__ ln_b, const bf16* __restrict__ w_o,
+                       const bf16* __restrict__ b_o, const bf16* __restrict__ w_g,
+                       const bf16* __restrict__ b_g, float* __restrict__ ds,
+                       bf16* __restrict__ dxg, bf16* __restrict__ n_hi,
+                       bf16* __restrict__ n_lo, bf16* __restrict__ du_hi,
+                       bf16* __restrict__ du_lo, bf16* __restrict__ dz_hi,
+                       bf16* __restrict__ dz_lo, float* __restrict__ part_vec, i64 P, int cz,
+                       int c) {
+  using namespace tile;
+  constexpr int W = 16 * NW, LD = W + 8, NT = 2 * NW, TILE = EPI_ROWS * LD;
+  constexpr unsigned FULL = 0xffffffffu;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* wo = reinterpret_cast<bf16*>(smem_raw);  // [W][LD]: W_o[ch][z]
+  bf16* wg = wo + W * LD;                         // [W][LD]: W_g[z'][z]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  bf16* ta0 = wg + W * LD + warp * 4 * TILE;
+  bf16* ta1 = ta0 + TILE;
+  bf16* tb0 = ta1 + TILE;
+  bf16* tb1 = tb0 + TILE;
+  float* vsum_all = reinterpret_cast<float*>(wg + W * LD + EPI_WARPS * 4 * TILE);
+  float* vsum = vsum_all + warp * 4 * W;      // [dln_s | dln_b | db_o | db_g]
+  float* prm = vsum_all + EPI_WARPS * 4 * W;  // [ln_s | ln_b | b_o | b_g]
+
+  for (int e = tid; e < W * (W / 8); e += EPI_WARPS * 32) {
+    const int r = e / (W / 8), z = (e % (W / 8)) * 8;
+    const bool ok_o = r < c && z < cz, ok_g = r < cz && z < cz;
+    cp16(wo + r * LD + z, ok_o ? w_o + (i64)r * cz + z : w_o, ok_o);
+    cp16(wg + r * LD + z, ok_g ? w_g + (i64)r * cz + z : w_g, ok_g);
+  }
+  cp_commit();
+  for (int i = tid; i < W; i += EPI_WARPS * 32) {
+    prm[i] = i < c ? __bfloat162float(ln_s[i]) : 0.f;
+    prm[W + i] = i < c ? __bfloat162float(ln_b[i]) : 0.f;
+    prm[2 * W + i] = i < cz ? __bfloat162float(b_o[i]) : 0.f;
+    prm[3 * W + i] = i < cz ? __bfloat162float(b_g[i]) : 0.f;
+  }
+  for (int i = tid; i < EPI_WARPS * 4 * W; i += EPI_WARPS * 32) vsum_all[i] = 0.f;
+  cp_wait<0>();
+  __syncthreads();
+
+  const float inv_c = 1.f / (float)c;
+  const i64 ntiles = (P + EPI_ROWS - 1) / EPI_ROWS;
+  for (i64 tl = (i64)blockIdx.x * EPI_WARPS + warp; tl < ntiles;
+       tl += (i64)gridDim.x * EPI_WARPS) {
+    const i64 p0 = tl * EPI_ROWS;
+    const i64 pr[2] = {p0 + g, p0 + g + 8};  // this thread's rows g, g + 8
+    __syncwarp();                            // the last tile's reads are done
+    for (int e = lane; e < EPI_ROWS * (W / 8); e += 32) {
+      const int r = e / (W / 8), z = (e % (W / 8)) * 8;
+      const bool ok = p0 + r < P && z < cz;
+      const i64 o = (p0 + r) * cz + z;
+      cp16(tb0 + r * LD + z, ok ? xg + o : xg, ok);
+      cp16(tb1 + r * LD + z, ok ? dy + o : dy, ok);
+    }
+    cp_commit();
+
+    // 1. LayerNorm: rows g and g + 8, columns nt * 8 + 2t (+1)
+    float mu[2], rstd[2];
+    {
+      float sv[2][NT][2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = nt * 8 + 2 * t;
+          float2 v = make_float2(0.f, 0.f);
+          if (pr[h] < P && col < c) v = *reinterpret_cast<const float2*>(s + pr[h] * c + col);
+          sv[h][nt][0] = v.x;
+          sv[h][nt][1] = v.y;
+          sum += v.x + v.y;
+        }
+        sum += __shfl_xor_sync(FULL, sum, 1);
+        sum += __shfl_xor_sync(FULL, sum, 2);
+        mu[h] = sum * inv_c;
+        float sq = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          if (nt * 8 + 2 * t < c) {
+            const float d0 = sv[h][nt][0] - mu[h], d1 = sv[h][nt][1] - mu[h];
+            sq += d0 * d0 + d1 * d1;
+          }
+        sq += __shfl_xor_sync(FULL, sq, 1);
+        sq += __shfl_xor_sync(FULL, sq, 2);
+        rstd[h] = rsqrtf(sq * inv_c + LN_EPS);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const int col = nt * 8 + 2 * t, row = g + 8 * h;
+          float n0 = 0.f, n1 = 0.f;
+          if (pr[h] < P && col < c) {
+            n0 = (sv[h][nt][0] - mu[h]) * rstd[h] * prm[col] + prm[W + col];
+            n1 = (sv[h][nt][1] - mu[h]) * rstd[h] * prm[col + 1] + prm[W + col + 1];
+          }
+          bf16 h0, l0, h1, l1;
+          split_bf16(n0, h0, l0);
+          split_bf16(n1, h1, l1);
+          *reinterpret_cast<__nv_bfloat162*>(ta0 + row * LD + col) = __halves2bfloat162(h0, h1);
+          *reinterpret_cast<__nv_bfloat162*>(ta1 + row * LD + col) = __halves2bfloat162(l0, l1);
+        }
+    }
+    __syncwarp();
+    for (int e = lane; e < EPI_ROWS * (c / 8); e += 32) {  // n, for dW_o
+      const int r = e / (c / 8), col = (e % (c / 8)) * 8;
+      if (p0 + r < P) {
+        const i64 o = (p0 + r) * c + col;
+        *reinterpret_cast<uint4*>(n_hi + o) = *reinterpret_cast<const uint4*>(ta0 + r * LD + col);
+        *reinterpret_cast<uint4*>(n_lo + o) = *reinterpret_cast<const uint4*>(ta1 + r * LD + col);
+      }
+    }
+    cp_wait<0>();
+    __syncwarp();  // x_g and dy landed
+
+    // 2. u = n.W_o (hi and lo), zg = x_g.W_g
+    float au[NT][4], ag[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) au[nt][e] = ag[nt][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NW; ++kc) {
+      uint32_t ah[4], al[4], ax[4];
+      frag_a(ah, ta0, LD, 0, kc * 16);
+      frag_a(al, ta1, LD, 0, kc * 16);
+      frag_a(ax, tb0, LD, 0, kc * 16);
+#pragma unroll
+      for (int np = 0; np < NW; ++np) {
+        uint32_t b[2][2], bw[2][2];
+        frag_b2<true>(b, wo, LD, np * 16, kc * 16);
+        frag_b2<true>(bw, wg, LD, np * 16, kc * 16);
+        mma16816(au[2 * np], al, b[0][0], b[0][1]);
+        mma16816(au[2 * np + 1], al, b[1][0], b[1][1]);
+        mma16816(ag[2 * np], ax, bw[0][0], bw[0][1]);
+        mma16816(ag[2 * np + 1], ax, bw[1][0], bw[1][1]);
+        mma16816(au[2 * np], ah, b[0][0], b[0][1]);
+        mma16816(au[2 * np + 1], ah, b[1][0], b[1][1]);
+      }
+    }
+
+    // 3. g, du, dzg (au <- du, ag <- dzg) and their column sums
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = nt * 8 + 2 * t;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float2 d2 = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(tb1 + (g + 8 * h) * LD + col));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float dyv = e ? d2.y : d2.x;
+          const float u = au[nt][2 * h + e] + prm[2 * W + col + e];
+          const float gg = tile::sigmoid_f(ag[nt][2 * h + e] + prm[3 * W + col + e]);
+          au[nt][2 * h + e] = dyv * gg;
+          ag[nt][2 * h + e] = dyv * u * gg * (1.f - gg);
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float a = au[nt][e] + au[nt][2 + e], b = ag[nt][e] + ag[nt][2 + e];
+#pragma unroll
+        for (int o = 4; o < 32; o <<= 1) {
+          a += __shfl_xor_sync(FULL, a, o);
+          b += __shfl_xor_sync(FULL, b, o);
+        }
+        if (g == 0) {
+          vsum[2 * W + col + e] += a;
+          vsum[3 * W + col + e] += b;
+        }
+      }
+    }
+    __syncwarp();  // every lane read n, x_g and dy
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int o = (g + 8 * h) * LD + nt * 8 + 2 * t;
+        bf16 h0, l0, h1, l1;
+        split_bf16(au[nt][2 * h], h0, l0);
+        split_bf16(au[nt][2 * h + 1], h1, l1);
+        *reinterpret_cast<__nv_bfloat162*>(ta0 + o) = __halves2bfloat162(h0, h1);
+        *reinterpret_cast<__nv_bfloat162*>(ta1 + o) = __halves2bfloat162(l0, l1);
+        split_bf16(ag[nt][2 * h], h0, l0);
+        split_bf16(ag[nt][2 * h + 1], h1, l1);
+        *reinterpret_cast<__nv_bfloat162*>(tb0 + o) = __halves2bfloat162(h0, h1);
+        *reinterpret_cast<__nv_bfloat162*>(tb1 + o) = __halves2bfloat162(l0, l1);
+      }
+    __syncwarp();
+    for (int e = lane; e < EPI_ROWS * (cz / 8); e += 32) {  // du, dzg, for the dW sums
+      const int r = e / (cz / 8), z = (e % (cz / 8)) * 8;
+      if (p0 + r < P) {
+        const i64 o = (p0 + r) * cz + z;
+        const int so = r * LD + z;
+        *reinterpret_cast<uint4*>(du_hi + o) = *reinterpret_cast<const uint4*>(ta0 + so);
+        *reinterpret_cast<uint4*>(du_lo + o) = *reinterpret_cast<const uint4*>(ta1 + so);
+        *reinterpret_cast<uint4*>(dz_hi + o) = *reinterpret_cast<const uint4*>(tb0 + so);
+        *reinterpret_cast<uint4*>(dz_lo + o) = *reinterpret_cast<const uint4*>(tb1 + so);
+      }
+    }
+
+    // 4. dn = du.W_o^T, then ds and the LayerNorm parameters' column sums
+    {
+      float dn[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) dn[nt][0] = dn[nt][1] = dn[nt][2] = dn[nt][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < NW; ++kc) {
+        uint32_t ah[4], al[4];
+        frag_a(ah, ta0, LD, 0, kc * 16);
+        frag_a(al, ta1, LD, 0, kc * 16);
+#pragma unroll
+        for (int np = 0; np < NW; ++np) {
+          uint32_t b[2][2];
+          frag_b2<false>(b, wo, LD, np * 16, kc * 16);
+          mma16816(dn[2 * np], al, b[0][0], b[0][1]);
+          mma16816(dn[2 * np + 1], al, b[1][0], b[1][1]);
+          mma16816(dn[2 * np], ah, b[0][0], b[0][1]);
+          mma16816(dn[2 * np + 1], ah, b[1][0], b[1][1]);
+        }
+      }
+      float nh[NT][4], m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const bool ok = pr[h] < P && col < c;
+          float2 v = make_float2(0.f, 0.f);
+          if (ok) v = *reinterpret_cast<const float2*>(s + pr[h] * c + col);
+          nh[nt][2 * h] = ok ? (v.x - mu[h]) * rstd[h] : 0.f;
+          nh[nt][2 * h + 1] = ok ? (v.y - mu[h]) * rstd[h] : 0.f;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float dnh = dn[nt][2 * h + e] * prm[col + e];
+            m1[h] += dnh;
+            m2[h] += dnh * nh[nt][2 * h + e];
+          }
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        m1[h] += __shfl_xor_sync(FULL, m1[h], 1);
+        m1[h] += __shfl_xor_sync(FULL, m1[h], 2);
+        m2[h] += __shfl_xor_sync(FULL, m2[h], 1);
+        m2[h] += __shfl_xor_sync(FULL, m2[h], 2);
+        m1[h] *= inv_c;
+        m2[h] *= inv_c;
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (pr[h] < P && col < c) {
+            float2 o;
+            o.x = rstd[h] * (dn[nt][2 * h] * prm[col] - m1[h] - nh[nt][2 * h] * m2[h]);
+            o.y = rstd[h] * (dn[nt][2 * h + 1] * prm[col + 1] - m1[h] - nh[nt][2 * h + 1] * m2[h]);
+            *reinterpret_cast<float2*>(ds + pr[h] * c + col) = o;
+          }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float a = dn[nt][e] * nh[nt][e] + dn[nt][2 + e] * nh[nt][2 + e];
+          float b = dn[nt][e] + dn[nt][2 + e];
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1) {
+            a += __shfl_xor_sync(FULL, a, o);
+            b += __shfl_xor_sync(FULL, b, o);
+          }
+          if (g == 0) {
+            vsum[col + e] += a;
+            vsum[W + col + e] += b;
+          }
+        }
+      }
+    }
+
+    // 5. dx_g = dzg.W_g^T
+    {
+      float dx[NT][4];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) dx[nt][0] = dx[nt][1] = dx[nt][2] = dx[nt][3] = 0.f;
+#pragma unroll
+      for (int kc = 0; kc < NW; ++kc) {
+        uint32_t ah[4], al[4];
+        frag_a(ah, tb0, LD, 0, kc * 16);
+        frag_a(al, tb1, LD, 0, kc * 16);
+#pragma unroll
+        for (int np = 0; np < NW; ++np) {
+          uint32_t b[2][2];
+          frag_b2<false>(b, wg, LD, np * 16, kc * 16);
+          mma16816(dx[2 * np], al, b[0][0], b[0][1]);
+          mma16816(dx[2 * np + 1], al, b[1][0], b[1][1]);
+          mma16816(dx[2 * np], ah, b[0][0], b[0][1]);
+          mma16816(dx[2 * np + 1], ah, b[1][0], b[1][1]);
+        }
+      }
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int col = nt * 8 + 2 * t;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          if (pr[h] < P && col < cz)
+            *reinterpret_cast<uint32_t*>(dxg + pr[h] * cz + col) =
+                pack_bf16(dx[nt][2 * h], dx[nt][2 * h + 1]);
+      }
+    }
+  }
+  __syncthreads();
+  // this block's partial row, its warps added in order
+  float* pv = part_vec + (i64)blockIdx.x * (2 * c + 2 * cz);
+  for (int i = tid; i < 4 * W; i += EPI_WARPS * 32) {
+    const int q = i / W, j = i - q * W;
+    if (j >= (q < 2 ? c : cz)) continue;
+    float a = 0.f;
+    for (int w = 0; w < EPI_WARPS; ++w) a += vsum_all[w * 4 * W + i];
+    pv[(q == 0 ? 0 : q == 1 ? c : q == 2 ? 2 * c : 2 * c + cz) + j] = a;
+  }
+}
+
+// dW partial over one range of k-steps of the pairs: part[split][m][n] =
+// sum_p A[p][m] B[p][n], A (P, M) and B (P, N) bf16, pair-major; A's lo
+// tile if A_LO, B's always (3 split products with A_LO, else 2).  Rows past
+// P read as zeros.
+template <bool A_LO>
+__global__ void __launch_bounds__(tile::THREADS)
+tri_epi_dw_kernel(const bf16* __restrict__ a_hi, const bf16* __restrict__ a_lo,
+                  const bf16* __restrict__ b_hi, const bf16* __restrict__ b_lo,
+                  float* __restrict__ part, i64 P, int M, int N, int steps) {
+  using namespace tile;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const i64 ks0 = (i64)blockIdx.z * steps;
+  const i64 total = (P + BK - 1) / BK;
+  const int nk = (int)(total - ks0 < steps ? total - ks0 : steps);
+  Acc acc;
+  auto load = [&](const Stage& st, int ks) {
+    const i64 pb = (ks0 + ks) * BK;
+    load_a_km(st.a_hi, [&](int kr, int mc, bool& ok) {
+      ok = pb + kr < P && m0 + mc < M;
+      return ok ? a_hi + (pb + kr) * M + m0 + mc : a_hi;
+    });
+    if constexpr (A_LO)
+      load_a_km(st.a_lo, [&](int kr, int mc, bool& ok) {
+        ok = pb + kr < P && m0 + mc < M;
+        return ok ? a_lo + (pb + kr) * M + m0 + mc : a_lo;
+      });
+    load_b_kn(st.b_hi, [&](int kr, int nc, bool& ok) {
+      ok = pb + kr < P && n0 + nc < N;
+      return ok ? b_hi + (pb + kr) * N + n0 + nc : b_hi;
+    });
+    load_b_kn(st.b_lo, [&](int kr, int nc, bool& ok) {
+      ok = pb + kr < P && n0 + nc < N;
+      return ok ? b_lo + (pb + kr) * N + n0 + nc : b_lo;
+    });
+  };
+  mainloop<A_LO, true, true, true>(smem, nk, load, acc);
+  const Frag f;
+  float* out = part + (i64)blockIdx.z * M * N;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + f.row(mt, e), n = n0 + f.col(nt, e);
+        if (m < M && n < N) out[(i64)m * N + n] = acc[mt][nt][e];
+      }
+}
+
+// dW_o and dW_g from their split partials, and the vector sums from the pair
+// pass's block rows, each in a fixed order (no atomics: two runs give the
+// same bits).
+__global__ void __launch_bounds__(256)
+tri_epi_sums_kernel(const float* __restrict__ dwo_part, const float* __restrict__ dwg_part,
+                    const float* __restrict__ vec_part, float* __restrict__ dw_o,
+                    float* __restrict__ dw_g, float* __restrict__ vec, int nsplit, int nblk,
+                    int Eo, int Eg, int Ev) {
+  int j = blockIdx.x * 256 + threadIdx.x;
+  const float* src;
+  float* dst;
+  int n, E;
+  if (j < Eo) {
+    src = dwo_part, dst = dw_o, n = nsplit, E = Eo;
+  } else if ((j -= Eo) < Eg) {
+    src = dwg_part, dst = dw_g, n = nsplit, E = Eg;
+  } else if ((j -= Eg) < Ev) {
+    src = vec_part, dst = vec, n = nblk, E = Ev;
+  } else {
+    return;
+  }
+  float a = 0.f;
+  for (int i = 0; i < n; ++i) a += src[(i64)i * E + j];
+  dst[j] = a;
+}
+
+struct EpiPlan {
+  int nblk_max, nsplit, steps;
+  // byte offsets into the scratch
+  i64 n_hi, n_lo, du_hi, du_lo, dz_hi, dz_lo, vec_part, dwo_part, dwg_part, bytes;
+};
+
+EpiPlan epi_plan(i64 P, int cz, int c) {
+  EpiPlan d;
+  const i64 nb = ((P + EPI_ROWS - 1) / EPI_ROWS + EPI_WARPS - 1) / EPI_WARPS;
+  d.nblk_max = (int)(nb < EPI_MAX_BLOCKS ? nb : EPI_MAX_BLOCKS);
+  const i64 ksteps = (P + tile::BK - 1) / tile::BK;
+  const int t_o = ((c + tile::BM - 1) / tile::BM) * ((cz + tile::BN - 1) / tile::BN);
+  const int t_g = ((cz + tile::BM - 1) / tile::BM) * ((cz + tile::BN - 1) / tile::BN);
+  i64 nsplit = OUTER_BLOCKS / 2 / (t_o > t_g ? t_o : t_g);
+  nsplit = nsplit < 1 ? 1 : (nsplit > ksteps ? ksteps : nsplit);
+  d.steps = (int)((ksteps + nsplit - 1) / nsplit);
+  d.nsplit = (int)((ksteps + d.steps - 1) / d.steps);
+  i64 off = 0;
+  auto take = [&](i64 bytes) {
+    const i64 o = off;
+    off += (bytes + 255) / 256 * 256;
+    return o;
+  };
+  d.n_hi = take(2 * P * c);
+  d.n_lo = take(2 * P * c);
+  d.du_hi = take(2 * P * cz);
+  d.du_lo = take(2 * P * cz);
+  d.dz_hi = take(2 * P * cz);
+  d.dz_lo = take(2 * P * cz);
+  d.vec_part = take(4 * (i64)d.nblk_max * (2 * c + 2 * cz));
+  d.dwo_part = take(4 * (i64)d.nsplit * c * cz);
+  d.dwg_part = take(4 * (i64)d.nsplit * cz * cz);
+  d.bytes = off;
+  return d;
+}
+
+struct EpiArgs {
+  const float* s;
+  const bf16 *xg, *dy, *ln_s, *ln_b, *w_o, *b_o, *w_g, *b_g;
+  float* ds;
+  bf16 *dxg, *n_hi, *n_lo, *du_hi, *du_lo, *dz_hi, *dz_lo;
+  float* vec_part;
+  i64 P;
+  int cz, c;
+};
+
+template <int NW>
+cudaError_t launch_epi_pass(const EpiArgs& a, int nblk, cudaStream_t st) {
+  constexpr int smem = epi_smem(16 * NW);
+  const cudaError_t err = tile::configure((const void*)tri_epi_bwd_mma_kernel<NW>, smem);
+  if (err != cudaSuccess) return err;
+  tri_epi_bwd_mma_kernel<NW><<<nblk, EPI_WARPS * 32, smem, st>>>(
+      a.s, a.xg, a.dy, a.ln_s, a.ln_b, a.w_o, a.b_o, a.w_g, a.b_g, a.ds, a.dxg, a.n_hi, a.n_lo,
+      a.du_hi, a.du_lo, a.dz_hi, a.dz_lo, a.vec_part, a.P, a.cz, a.c);
+  return cudaGetLastError();
+}
+
+cudaError_t run_epilogue_mma(const float* s, const bf16* xg, const bf16* dy, const bf16* ln_s,
+                             const bf16* ln_b, const bf16* w_o, const bf16* b_o,
+                             const bf16* w_g, const bf16* b_g, float* ds, bf16* dxg,
+                             float* vec, float* dw_o, float* dw_g, void* scratch, i64 P, int cz,
+                             int c, cudaStream_t st) {
+  if (c % 16 != 0 || cz % 16 != 0 || c > 128 || cz > 128) return cudaErrorInvalidValue;
+  const EpiPlan d = epi_plan(P, cz, c);
+  char* base = static_cast<char*>(scratch);
+  auto bp = [&](i64 off) { return reinterpret_cast<bf16*>(base + off); };
+  float* dwo_part = reinterpret_cast<float*>(base + d.dwo_part);
+  float* dwg_part = reinterpret_cast<float*>(base + d.dwg_part);
+  const EpiArgs a{s,        xg,         dy,         ln_s,       ln_b,       w_o,
+                  b_o,      w_g,        b_g,        ds,         dxg,        bp(d.n_hi),
+                  bp(d.n_lo), bp(d.du_hi), bp(d.du_lo), bp(d.dz_hi), bp(d.dz_lo),
+                  reinterpret_cast<float*>(base + d.vec_part), P, cz, c};
+  int dev = 0, nsm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  const int nblk = nsm < d.nblk_max ? nsm : d.nblk_max;
+  const int mx = c > cz ? c : cz;
+  err = mx <= 16   ? launch_epi_pass<1>(a, nblk, st)
+        : mx <= 32 ? launch_epi_pass<2>(a, nblk, st)
+        : mx <= 64 ? launch_epi_pass<4>(a, nblk, st)
+                   : launch_epi_pass<8>(a, nblk, st);
+  if (err != cudaSuccess) return err;
+  const int dw3 = tile::smem_bytes<true, true>(), dw2 = tile::smem_bytes<false, true>();
+  if ((err = tile::configure((const void*)tri_epi_dw_kernel<true>, dw3)) != cudaSuccess ||
+      (err = tile::configure((const void*)tri_epi_dw_kernel<false>, dw2)) != cudaSuccess)
+    return err;
+  // dW_o (c, cz) = n^T du (3 products); dW_g (cz, cz) = x_g^T dzg (2)
+  const unsigned zt = (cz + tile::BN - 1) / tile::BN;
+  tri_epi_dw_kernel<true><<<dim3(zt, (c + tile::BM - 1) / tile::BM, d.nsplit), tile::THREADS,
+                            dw3, st>>>(a.n_hi, a.n_lo, a.du_hi, a.du_lo, dwo_part, P, c, cz,
+                                       d.steps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  tri_epi_dw_kernel<false><<<dim3(zt, (cz + tile::BM - 1) / tile::BM, d.nsplit), tile::THREADS,
+                             dw2, st>>>(xg, nullptr, a.dz_hi, a.dz_lo, dwg_part, P, cz, cz,
+                                        d.steps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  const int Eo = c * cz, Eg = cz * cz, Ev = 2 * c + 2 * cz;
+  tri_epi_sums_kernel<<<(Eo + Eg + Ev + 255) / 256, 256, 0, st>>>(
+      dwo_part, dwg_part, a.vec_part, dw_o, dw_g, vec, d.nsplit, nblk, Eo, Eg, Ev);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -1079,7 +1643,8 @@ cudaError_t run_dx_mma(const float* ds, i64 ds_sp, i64 ds_sq, const bf16* xl, i6
 }  // namespace
 
 // Scratch sizes in floats for the two entry points below.
-extern "C" long long triangle_mult_bwd_epilogue_scratch(long long P, int cz, int c) {
+extern "C" long long triangle_mult_bwd_epilogue_scratch(long long P, int cz, int c, int dtype) {
+  if (dtype == 1) return (epi_plan(P, cz, c).bytes + 3) / 4;
   return epi_scratch(P, cz, c);
 }
 
@@ -1090,10 +1655,12 @@ extern "C" long long triangle_mult_bwd_dx_scratch(int rp, int rq, int rk, int cz
 }
 
 // K4.  dtype codes: 0 = float32, 1 = bfloat16 (xg, dy, dxg and every
-// parameter, w_o_t = W_o^T (cz, c) and w_g_t = W_g^T contiguous copies).
-// s and ds are (P, c) fp32; vec receives [dln_s (c) | dln_b (c) | db_o (cz) |
-// db_g (cz)], dw_o (c, cz) and dw_g (cz, cz) fp32.  Every tensor contiguous.
-// Returns the first cudaError_t met (0 = success).
+// parameter).  w_o_t = W_o^T (cz, c) and w_g_t = W_g^T contiguous copies
+// for float32; bfloat16 reads W_o and W_g in place and ignores them (it
+// takes c, cz multiples of 16, at most 128).  s and ds are (P, c) fp32; vec
+// receives [dln_s (c) | dln_b (c) | db_o (cz) | db_g (cz)], dw_o (c, cz) and
+// dw_g (cz, cz) fp32.  Every tensor contiguous.  Returns the first
+// cudaError_t met (0 = success).
 extern "C" int triangle_mult_bwd_epilogue(const void* s, const void* xg, const void* dy,
                                           const void* ln_s, const void* ln_b, const void* w_o,
                                           const void* b_o, const void* w_g, const void* b_g,
@@ -1111,8 +1678,15 @@ extern "C" int triangle_mult_bwd_epilogue(const void* s, const void* xg, const v
       static_cast<T*>(dxg), static_cast<float*>(vec), static_cast<float*>(dw_o),               \
       static_cast<float*>(dw_g), static_cast<float*>(scratch), P, cz, c, st
   if (dtype == 0) return (int)run_epilogue<float>(EPI_ARGS(float));
-  if (dtype == 1) return (int)run_epilogue<__nv_bfloat16>(EPI_ARGS(__nv_bfloat16));
 #undef EPI_ARGS
+  if (dtype == 1)
+    return (int)run_epilogue_mma(
+        static_cast<const float*>(s), static_cast<const bf16*>(xg), static_cast<const bf16*>(dy),
+        static_cast<const bf16*>(ln_s), static_cast<const bf16*>(ln_b),
+        static_cast<const bf16*>(w_o), static_cast<const bf16*>(b_o),
+        static_cast<const bf16*>(w_g), static_cast<const bf16*>(b_g), static_cast<float*>(ds),
+        static_cast<bf16*>(dxg), static_cast<float*>(vec), static_cast<float*>(dw_o),
+        static_cast<float*>(dw_g), scratch, P, cz, c, st);
   return (int)cudaErrorInvalidValue;
 }
 

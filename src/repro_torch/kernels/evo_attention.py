@@ -74,6 +74,12 @@ def _check_inputs(q, k, v, bias, gate):
     devs = {t.device for t in (q, k, v, bias, gate) if t is not None}
     if len(devs) != 1:
         raise ValueError(f"inputs on several devices: {devs}")
+    if q.dtype == torch.bfloat16:
+        # K1's ring copies whole key rows of k and v: 16 bytes (8 at C 4)
+        align = min(16, 2 * C)
+        for name, t in (("k", k), ("v", v)):
+            if t.data_ptr() % align:
+                raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def _ptr(t):

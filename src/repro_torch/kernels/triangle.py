@@ -44,7 +44,7 @@ def _bwd_lib():
     lib = build.load(BWD_NAME)
     if lib.triangle_mult_bwd_epilogue.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.triangle_mult_bwd_epilogue_scratch.argtypes = [ll, i, i]
+        lib.triangle_mult_bwd_epilogue_scratch.argtypes = [ll, i, i, i]
         lib.triangle_mult_bwd_epilogue_scratch.restype = ll
         lib.triangle_mult_bwd_dx_scratch.argtypes = [i] * 6
         lib.triangle_mult_bwd_dx_scratch.restype = ll
@@ -158,9 +158,10 @@ def _check_params(named, dt):
 def triangle_mult_bwd_epilogue(s, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g):
     """Launch K4 on CUDA tensors (see
     ``kernels.ref.triangle_mult_bwd_epilogue_ref``): s (r_i, r_j, c) fp32,
-    xg / dy (r_i, r_j, c_z) and the parameters of one dtype, all contiguous.
-    Returns (ds fp32, dxg, dln_s, dln_b, dw_o, db_o, dw_g, db_g), the
-    parameter gradients fp32."""
+    xg / dy (r_i, r_j, c_z) and the parameters of one dtype, all contiguous;
+    in bfloat16 c and c_z are multiples of 16, at most 128.  Returns (ds
+    fp32, dxg, dln_s, dln_b, dw_o, db_o, dw_g, db_g), the parameter
+    gradients fp32."""
     global epi_launches
     r_i, r_j, c = s.shape
     c_z = xg.shape[-1]
@@ -175,9 +176,16 @@ def triangle_mult_bwd_epilogue(s, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g):
     _check_params(named, dt)
     _check_params({"s": (s, (r_i, r_j, c))}, torch.float32)
     _same_device([s] + [t for t, _ in named.values()])
+    if dt == torch.bfloat16:
+        if c % 16 or c_z % 16 or c > 128 or c_z > 128:
+            raise ValueError(f"K4 in bf16 takes c, c_z multiples of 16 up to "
+                             f"128, got c={c}, c_z={c_z}")
+        _check_aligned({"xg": xg, "dy": dy, "w_o": w_o, "w_g": w_g})
     dev = s.device
     P = r_i * r_j
-    w_o_t, w_g_t = w_o.t().contiguous(), w_g.t().contiguous()
+    # W_o^T and W_g^T for the fp32 path; the bf16 path reads W in place
+    w_o_t, w_g_t = ((w_o.t().contiguous(), w_g.t().contiguous())
+                    if dt == torch.float32 else (w_o, w_g))
     ds = torch.empty_like(s)
     dxg = torch.empty_like(xg)
     vec = torch.empty((2 * c + 2 * c_z,), dtype=torch.float32, device=dev)
@@ -185,7 +193,7 @@ def triangle_mult_bwd_epilogue(s, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g):
     dw_g = torch.empty((c_z, c_z), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     scratch = torch.empty(
-        (lib.triangle_mult_bwd_epilogue_scratch(P, c_z, c),),
+        (lib.triangle_mult_bwd_epilogue_scratch(P, c_z, c, DTYPE_CODES[dt]),),
         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

@@ -82,8 +82,10 @@ class DecodeEngine:
             first_token_s=t1 - self._t_run))
 
     @torch.no_grad()
-    def run(self, requests: list[Request]) -> dict:
-        """Serve ``requests`` to the end; returns {rid: generated token ids}."""
+    def run(self, requests: list[Request], *, greedy: bool = True) -> dict:
+        """Serve ``requests`` to the end; returns {rid: generated token ids}.
+        Sampling is greedy whatever ``greedy`` says, as in the reference,
+        which takes the keyword and ignores it."""
         self._t_run = time.perf_counter()
         self.last_stats = {"prefill": [], "decode_step_s": [],
                            "decode_tokens": []}

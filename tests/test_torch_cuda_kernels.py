@@ -111,6 +111,37 @@ def test_evo_attention_kernel_bf16_bias(cuda_dev):
     _assert_close(got, want, torch.bfloat16)
 
 
+@pytest.mark.parametrize("L,S,H,C,bias_dtype,gated", [
+    # lead rows not a multiple of a block's chunk (19 a block on 132 SMs)
+    (301, 256, 4, 32, torch.float32, True),
+    (600, 256, 8, 8, torch.bfloat16, True),   # C 8 (m16n8k8), L >= 512
+    (2, 1000, 1, 32, torch.float32, True),    # S past the resident bias tile
+    (2, 1000, 1, 32, torch.bfloat16, False),
+    (3, 999, 2, 16, torch.float32, True),     # ... with unaligned bias rows
+    (4, 256, 4, 32, torch.float32, False),    # an fp32 bias on bf16 inputs
+    (33, 128, 8, 32, None, True),             # no bias: raw-score maxima
+])
+def test_evo_attention_ring_edges(cuda_dev, L, S, H, C, bias_dtype, gated):
+    """K1's bf16 ring kernel at the edges of its design: lead-row chunks,
+    C 8, the bias tile riding the ring past S 256, an fp32 bias; its output
+    and log-sum-exp against the plain version, and the same bits twice."""
+    rng = np.random.default_rng(L + S + C)
+    q, k, v, g = (_t(rng, (L, S, H, C), torch.bfloat16, cuda_dev)
+                  for _ in range(4))
+    bias = None
+    if bias_dtype is not None:
+        bias = _t(rng, (H, S, S), bias_dtype, cuda_dev)
+        bias[:, :, S - S // 5:] = -1e9     # masked keys
+    gate = g if gated else None
+    out, lse = ka.evo_attention_fwd(q, k, v, bias, gate, return_lse=True)
+    want, lse_r = ref.evo_attention_ref(q, k, v, bias, gate, return_lse=True)
+    again = ka.evo_attention_fwd(q, k, v, bias, gate)
+    torch.cuda.synchronize()
+    _assert_close(out, want, torch.bfloat16)
+    _assert_grad_close(lse, lse_r, "lse")
+    assert torch.equal(out, again)
+
+
 def _tri_args(rng, r, c_z, c, dtype, dev):
     xa = _t(rng, (r, r, c_z), dtype, dev)
     w = lambda *s: _t(rng, s, dtype, dev, scale=s[0] ** -0.5)
@@ -247,6 +278,25 @@ def test_triangle_bwd_kernels_match_plain(cuda_dev, dtype, r, c_z, c):
         again = kt.triangle_mult_bwd_dx(dsv, xl, xs_, wl, bl, ws, bs)
         for a, b in zip(got, again):   # no atomics: the same bits twice
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("r,c_z,c", [(256, 128, 128), (37, 16, 16)])
+def test_triangle_bwd_epilogue_reruns_bit_identical(cuda_dev, r, c_z, c):
+    """No atomics in K4: ds, dx_g and every parameter gradient are the same
+    bits on a second run (the pair pass's block partials and the split-K
+    dW partials are added in a fixed order)."""
+    rng = np.random.default_rng(r + c_z)
+    x, *w = _tri_args(rng, r, c_z, c, torch.bfloat16, cuda_dev)
+    _, _, _, _, ln_s, ln_b, w_o, b_o, w_g, b_g = w
+    s = _t(rng, (r, r, c), torch.float32, cuda_dev)
+    dy = _t(rng, (r, r, c_z), torch.bfloat16, cuda_dev)
+    args = (s, x, dy, ln_s, ln_b, w_o, b_o, w_g, b_g)
+    first = kt.triangle_mult_bwd_epilogue(*args)
+    second = kt.triangle_mult_bwd_epilogue(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("ds", "dxg", "dln_s", "dln_b", "dw_o", "db_o",
+                           "dw_g", "db_g"), first, second):
+        assert torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("L,S,H,C", [
@@ -397,3 +447,21 @@ def test_flash_attention_autograd_on_the_card(cuda_dev):
     want = grads(lambda q, k, v: attention_reference(q, k, v, causal=True))
     for a, b in zip(got, want):
         _assert_grad_close(a, b)
+
+
+def test_flash_attention_on_two_cards_in_one_process(cuda_dev):
+    """K6's 230,456-byte shared-memory attribute belongs to each device's
+    context: one process launches it on cuda:0, then on cuda:1."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two NVIDIA GPUs")
+    rng = np.random.default_rng(21)
+    for index in (0, 1, 0):
+        dev = torch.device("cuda", index)
+        q = _t(rng, (1, 256, 4, 128), torch.bfloat16, dev)
+        k = _t(rng, (1, 256, 2, 128), torch.bfloat16, dev)
+        v = _t(rng, (1, 256, 2, 128), torch.bfloat16, dev)
+        got = kf.flash_attention_fwd(q, k, v, True)
+        want = ref.flash_attention_ref(q, k, v, True)
+        torch.cuda.synchronize(dev)
+        assert got.device == dev
+        _assert_close(got, want, torch.bfloat16, K6_TOL)

@@ -334,3 +334,25 @@ def test_registry_and_launcher_rehearsal(capsys):
                        "--prompt-len", "8", "--max-len", "32"])
     assert sorted(done) == [0, 1, 2] and all(len(v) == 4 for v in done.values())
     assert "served 3 requests, 12 tokens" in capsys.readouterr().out
+
+
+def test_engine_run_takes_the_references_greedy_keyword():
+    """``run(requests, greedy=True)`` is accepted, as the reference's
+    ``DecodeEngine.run(requests, *, greedy=True)`` is, and gives the tokens
+    of ``run(requests)``: sampling is greedy either way.  glm4-9b at the
+    launcher's ``--smoke`` size."""
+    pcfg = tconfigs.get_smoke_config("glm4-9b")
+    model = tdense.init_params(pcfg, seed=3, device="cpu")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, pcfg.vocab, 8, dtype=np.int32) for _ in range(3)]
+
+    def serve(**kw):
+        engine = DecodeEngine(get_model(pcfg), pcfg, model, batch_slots=2,
+                              max_len=32, device="cpu")
+        return engine.run([Request(rid=i, prompt=p, max_new_tokens=4)
+                           for i, p in enumerate(prompts)], **kw)
+
+    plain = serve()
+    assert sorted(plain) == [0, 1, 2]
+    assert all(len(v) == 4 for v in plain.values())
+    assert serve(greedy=True) == plain

@@ -15,6 +15,14 @@ plain version ``kernels.ref.triangle_mult_bwd_dx_ref``:
 rtol 2^-7 for the bf16 dx, 1e-5 for the fp32 dW and db.  A single bf16
 rounding of ds does not stay inside it: the split is what the tolerance
 needs.
+
+K4 (the LayerNorm + out-projection + gate backward, same file) does the
+same for its fp32 operands n = LN(s), du and dzg: u = n.W_o, dn = du.W_o^T
+and dx_g = dzg.W_g^T take two products each, dW_o = n^T du three, dW_g =
+x_g^T dzg two, zg = x_g.W_g one (both bf16).  Its tests hold that
+arithmetic to the same tolerance against
+``kernels.ref.triangle_mult_bwd_epilogue_ref``, and show that one bf16
+rounding of any of n, du or dzg instead leaves it.
 """
 import numpy as np
 import pytest
@@ -106,3 +114,76 @@ def test_single_bf16_ds_leaves_the_card_tolerance():
     want = ref.triangle_mult_bwd_dx_ref(*args)
     got = bwd_dx_split(*args, single_ds=True)
     assert max(excess(a, b) for a, b in zip(got, want)) > 0.0
+
+
+LN_EPS = 1e-5
+
+
+def bwd_epilogue_split(s, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g, *,
+                       single=None):
+    """K4's function with the kernel's split products; ``single`` names one
+    of "n", "du", "dzg" to round to one bf16 instead (its lo part
+    dropped).  The vector sums add the fp32 values, as the kernel does."""
+    c, cz = s.shape[-1], xg.shape[-1]
+
+    def sp(v, name):
+        hi, lo = split(v)
+        return (hi, torch.zeros_like(lo)) if name == single else (hi, lo)
+
+    gam = ln_s.float()
+    mu = s.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((s - mu).square().mean(-1, keepdim=True) + LN_EPS)
+    nhat = (s - mu) * rstd
+    n_hi, n_lo = sp(nhat * gam + ln_b.float(), "n")
+    wo, wg = w_o.float(), w_g.float()
+    u = n_hi @ wo + n_lo @ wo + b_o.float()
+    xgf = xg.float()
+    g = torch.sigmoid(xgf @ wg + b_g.float())
+    du = dy.float() * g
+    dzg = dy.float() * u * g * (1.0 - g)
+    du_hi, du_lo = sp(du, "du")
+    dz_hi, dz_lo = sp(dzg, "dzg")
+    dn = du_hi @ wo.T + du_lo @ wo.T
+    dxg = (dz_hi @ wg.T + dz_lo @ wg.T).to(xg.dtype)
+    dnh = dn * gam
+    ds = rstd * (dnh - dnh.mean(-1, keepdim=True)
+                 - nhat * (dnh * nhat).mean(-1, keepdim=True))
+    f = lambda t, d: t.reshape(-1, d)
+    n_h, n_l, d_h, d_l = f(n_hi, c), f(n_lo, c), f(du_hi, cz), f(du_lo, cz)
+    dw_o = n_h.T @ d_h + n_h.T @ d_l + n_l.T @ d_h
+    dw_g = f(xgf, cz).T @ f(dz_hi, cz) + f(xgf, cz).T @ f(dz_lo, cz)
+    return (ds, dxg, f(dn * nhat, c).sum(0), f(dn, c).sum(0), dw_o,
+            f(du, cz).sum(0), dw_g, f(dzg, cz).sum(0))
+
+
+def epilogue_inputs(r, cz, c, seed):
+    """s, x_g, dy and the parameters as chip_smoke.py draws them for K4."""
+    rng = np.random.default_rng(seed)
+    t = lambda shape, scale=1.0: torch.from_numpy(
+        (scale * rng.standard_normal(shape)).astype(np.float32)).to(BF16)
+    s = torch.from_numpy(rng.standard_normal((r, r, c)).astype(np.float32))
+    return (s, t((r, r, cz)), t((r, r, cz)), (1.0 + t((c,), 0.1).float()).to(BF16),
+            t((c,), 0.1), t((c, cz), c ** -0.5), t((cz,), 0.1),
+            t((cz, cz), cz ** -0.5), t((cz,), 0.5))
+
+
+EPI_OUTS = ("ds", "dxg", "dln_s", "dln_b", "dw_o", "db_o", "dw_g", "db_g")
+
+
+@pytest.mark.parametrize("r,cz,c", [(16, 16, 16),      # af2_tiny
+                                    (64, 128, 128)])   # af2_initial widths
+def test_epilogue_split_products_stay_inside_the_card_tolerance(r, cz, c):
+    args = epilogue_inputs(r, cz, c, seed=r + c)
+    want = ref.triangle_mult_bwd_epilogue_ref(*args)
+    got = bwd_epilogue_split(*args)
+    for name, a, b in zip(EPI_OUTS, got, want):
+        assert excess(a, b) <= 0.0, name
+
+
+@pytest.mark.parametrize("single", ["n", "du", "dzg"])
+def test_single_bf16_epilogue_operand_leaves_the_card_tolerance(single):
+    args = epilogue_inputs(64, 128, 128, seed=11)
+    want = ref.triangle_mult_bwd_epilogue_ref(*args)
+    got = bwd_epilogue_split(*args, single=single)
+    over = [n for n, a, b in zip(EPI_OUTS, got, want) if excess(a, b) > 0.0]
+    assert over, f"one bf16 rounding of {single} stayed inside the tolerance"
