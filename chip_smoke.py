@@ -17,10 +17,16 @@ Phases, each raising on failure (exit code != 0, no result line):
   5. main path: FoldEngine at af2_initial width and depth (48 + 4 blocks,
      c_m 256, c_z 128, largest bucket r 256 s 128 se 1024), seeded random
      weights, 4 requests over 2 buckets, micro-batch 2, 3 recycles; the
-     kernels' launch counters must equal what the path implies.
-  6. profile: one more largest-bucket step of the main path's engine,
-     plain and under torch.profiler (device busy time, idle share, time by
-     kernel family).
+     kernels' launch counters must equal what the path implies.  Served
+     eagerly (graphs=False), then by a graphed engine twice: the first run
+     captures each bucket's sample-cycle, the second only replays (its
+     launches counted through replay credits); walls, folds/s, per-step
+     latency, peak memory, compile_misses, and the graphed-vs-eager max
+     |diff| of coordinates and pLDDT.
+  6. profile: one more largest-bucket step of each engine, eager and
+     graphed, plain and under torch.profiler (device busy time, idle share,
+     host launch calls, time by kernel family; K1 and K3 must show in
+     both).
   7. training kernels: K1 with its log-sum-exp, K2, K3 with its fp32 s, K4
      and K5 against their plain versions at every shape the af2_initial
      training step gives them, plus ragged shapes (S 100, r 100) and K2 at
@@ -53,8 +59,12 @@ Phases, each raising on failure (exit code != 0, no result line):
      tokens from (prefill, then the batched decode steps on the slot-copied
      cache) lie no farther from the plain path's fp32 value on prompt +
      tokens than 1.5x the plain bf16 path's; prefill and decode tokens/s,
-     time to first token, decode step latency, peak memory; then one
-     prefill (S 2048) and one decode step under torch.profiler.
+     time to first token, decode step latency, peak memory.  Served by an
+     eager engine, then by a graphed one (its decode step and each prompt
+     length's prefill captured in a warm-up first), both held to the same
+     checks, with compile_misses, whether every token id agrees and the
+     max |diff| of the checked logits; then one prefill (S 2048) and one
+     decode step under torch.profiler, eager and as graph replays.
 Kernel and library times are medians of 5 timed repeats, each after a
 warm-up call, printed with their min-max spread.  Then one JSON line of
 kernel figures, the nvidia-smi line, and the result line ``{"ok": true,
@@ -367,27 +377,54 @@ def small_fold_check(dev):
     return err32, err16, noise16
 
 
-def main_path(cfg, dev, *, n_requests=4, micro_batch=2, max_recycle=3):
-    """Serve ``n_requests`` folds through FoldEngine; returns (results,
-    engine, launch counts of this run, wall seconds)."""
+def main_path(cfg, dev, *, graphs: bool, n_requests=4, micro_batch=2,
+              max_recycle=3):
+    """A FoldEngine (``graphs`` on or off) over the seeded model and the
+    main path's ``n_requests`` requests; returns (requests, engine)."""
     from repro_torch.data.synthetic import make_fold_requests
-    from repro_torch.kernels import ops
     from repro_torch.serve.fold_engine import FoldEngine
     model = seeded_model(cfg, seed=0)
     engine = FoldEngine(cfg, model, micro_batch=micro_batch,
-                        max_recycle=max_recycle, tol=0.0, device=dev)
-    reqs = make_fold_requests(cfg, n_requests, seed=0)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+                        max_recycle=max_recycle, tol=0.0, device=dev,
+                        graphs=graphs)
+    return make_fold_requests(cfg, n_requests, seed=0), engine
+
+
+def serve_folds(engine, reqs):
+    """One ``engine.run(reqs)`` with the launch counters set to 0 just
+    before and read just after; returns (results, launch counts, wall
+    seconds, per-step seconds by bucket of this run, peak allocated GiB,
+    reserved GiB after the run: it holds the graph pool)."""
+    from repro_torch.kernels import ops
+    before = {b: dict(v) for b, v in engine.stats["per_bucket"].items()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     done = engine.run(reqs)
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
-    return reqs, done, engine, counts, wall
+    step_s = {}
+    for b, v in sorted(engine.stats["per_bucket"].items()):
+        old = before.get(b, {"steps": 0, "seconds": 0.0})
+        if v["steps"] > old["steps"]:
+            step_s[b.n_res] = round((v["seconds"] - old["seconds"])
+                                    / (v["steps"] - old["steps"]), 4)
+    return (done, counts, wall, step_s,
+            torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.memory_reserved() / 2 ** 30)
+
+
+def fold_report(tag, cfg, done, engine, counts, wall, step_s, peak, reserved,
+                sample_cycles):
+    print(f"[main path {tag}] af2_initial (48+4 blocks): {len(done)} folds "
+          f"over {engine.last_stats['steps']} steps in {wall:.3f}s = "
+          f"{len(done) / wall:.3f} folds/s; per-step latency by bucket "
+          f"r {step_s} s; {sample_cycles} sample-cycles; compile_misses "
+          f"{engine.compile_misses}; peak memory {peak:.2f} GiB allocated, "
+          f"{reserved:.2f} GiB reserved; launches {counts}", flush=True)
 
 
 def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
@@ -475,22 +512,28 @@ def union_ms(spans) -> float:
     return total / 1e3
 
 
-def profile_step(engine, reqs, done):
+def profile_step(engine, reqs, done, tag):
     """Serve the main path's largest-bucket requests again (warm, same model
     and inputs): once plain, once under torch.profiler (see
-    :func:`profile_run`)."""
+    :func:`profile_run`).  Device time must show K1 and K3, inside graph
+    replays too."""
     top = max(res.bucket for res in done.values())
     group = [r for r in reqs if done[r.rid].bucket == top]
-    profile_run(lambda: engine.run(group), "fold",
-                f"bucket {top.describe()}, {len(group)} requests x "
-                f"{engine.max_recycle} recycles")
+    by_family = profile_run(lambda: engine.run(group), tag,
+                            f"bucket {top.describe()}, {len(group)} requests "
+                            f"x {engine.max_recycle} recycles")
+    for k in ("K1", "K3"):
+        if not any(f.startswith(k) for f in by_family):
+            raise AssertionError(f"[profile {tag}] no {k} kernel in the "
+                                 f"trace: {sorted(by_family)}")
 
 
-def profile_run(work, tag: str, what: str):
+def profile_run(work, tag: str, what: str) -> dict:
     """Run ``work`` once plain and once under torch.profiler.  Prints both
     walls, the device's busy time (union of kernel intervals) and its idle
     share of the profiled wall, device time by kernel family and the top
-    kernels.  The Chrome trace goes to build/profile/<tag>_trace.json."""
+    kernels; returns the device ms by family.  The Chrome trace goes to
+    build/profile/<tag>_trace.json."""
     from torch.profiler import ProfilerActivity, profile
 
     def run():
@@ -518,15 +561,21 @@ def profile_run(work, tag: str, what: str):
         f = kernel_family(e["name"])
         by_family[f] = by_family.get(f, 0.0) + e["dur"] / 1e3
     busy = union_ms((e["ts"], e["ts"] + e["dur"]) for e in kernels)
+    calls = collections.Counter(
+        "graph" if "GraphLaunch" in e["name"] else "kernel" for e in events
+        if e.get("cat") in ("cuda_runtime", "cuda_driver")
+        and "Launch" in e.get("name", ""))
     print(f"[profile {tag}] {what}: wall {wall_plain:.1f} ms plain, "
           f"{wall_prof:.1f} ms under the profiler; device busy {busy:.1f} ms, "
           f"idle share {1 - busy / wall_prof:.3f} of the profiled wall; "
-          f"{len(kernels)} kernel launches", flush=True)
+          f"{len(kernels)} kernel launches; host launch calls: "
+          f"{calls['kernel']} kernel, {calls['graph']} graph", flush=True)
     for f, ms in sorted(by_family.items(), key=lambda kv: -kv[1]):
         print(f"[profile {tag} family] {ms:10.2f} ms  {ms / busy:6.3f}  {f}")
     for name, (ms, n) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][0])[:20]:
         print(f"[profile {tag} kernel] {ms:10.2f} ms  {n:6d}  {name[:110]}")
+    return by_family
 
 
 # ---------------------------------------------------------------------------
@@ -1073,32 +1122,37 @@ LM_NOISE_FACTOR = 1.5
 
 
 class LogitRecorder:
-    """The model module as DecodeEngine calls it, keeping the logits it
-    returns to the engine for the requests ``rids``: each prefill's last row
-    (in insert order, matched to a request through the engine's
-    ``last_stats``) and their slot's row at each decode step."""
+    """Wraps a DecodeEngine's steps ``_prefill1`` and ``_decode`` (eager
+    functions, or CUDA-graph replays), so it sees every call, and keeps the
+    logits they return to the engine for the requests ``rids``: each
+    prefill's last row (in insert order, matched to a request through the
+    engine's ``last_stats``) and their slot's row at each decode step
+    (cloned: a graph's static output is overwritten by the next replay)."""
 
-    def __init__(self, model, rids):
-        self.model, self.rids, self.engine = model, set(rids), None
+    def __init__(self, engine, rids):
+        self.engine, self.rids = engine, set(rids)
         self.clear()
+        self._steps = engine._prefill1, engine._decode
+        engine._prefill1, engine._decode = self._prefill, self._decode
 
-    def __getattr__(self, name):
-        return getattr(self.model, name)
+    def restore(self):
+        """Give the engine back its own steps."""
+        self.engine._prefill1, self.engine._decode = self._steps
 
     def clear(self):
         self.prefills, self.steps = [], collections.defaultdict(list)
 
-    def prefill(self, *args):
-        logits, cache = self.model.prefill(*args)
+    def _prefill(self, prompt):
+        logits = self._steps[0](prompt)
         self.prefills.append(logits[0, -1].clone())
-        return logits, cache
+        return logits
 
-    def decode_step(self, *args):
-        logits, cache = self.model.decode_step(*args)
+    def _decode(self, tokens):
+        logits = self._steps[1](tokens)
         for i, req in enumerate(self.engine.slots):
             if req is not None and req.rid in self.rids:
                 self.steps[req.rid].append(logits[i, 0].clone())
-        return logits, cache
+        return logits
 
     def logits(self, rid):
         """(new tokens, V): the rows the engine took each token of ``rid``
@@ -1108,35 +1162,49 @@ class LogitRecorder:
                             *self.steps[rid]])
 
 
-def lm_main_path(dev):
-    """glm4-9b through DecodeEngine: seeded bf16 weights drawn on the card,
-    one short warm-up request, then the 8 requests with the launch counters
-    set to 0 just before and read just after.  The engine serves through a
-    LogitRecorder of the dense module.  Returns (cfg, engine, recorder,
-    requests, results, launch counts, wall seconds, peak GiB, init
-    seconds)."""
+def lm_params(dev):
+    """glm4-9b's config and seeded bf16 weights drawn on the card; returns
+    (cfg, params, seconds to draw them)."""
     from repro_torch import configs
-    from repro_torch.kernels import ops
     from repro_torch.models import dense
     from repro_torch.models.lmconfig import with_kernels
-    from repro_torch.serve.engine import DecodeEngine, Request
     cfg = with_kernels(configs.get_config(LM_ARCH))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     params = dense.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    rec = LogitRecorder(dense, LM_CHECKED)
-    engine = DecodeEngine(rec, cfg, params, batch_slots=LM_SLOTS,
-                          max_len=LM_MAX_LEN, device=dev)
-    rec.engine = engine
+    return cfg, params, time.perf_counter() - t0
+
+
+def lm_main_path(cfg, params, dev, *, graphs: bool):
+    """glm4-9b through a DecodeEngine (``graphs`` on or off) that serves
+    through a LogitRecorder: warm-up requests (one of 64 tokens; with
+    graphs also one of each main-path prompt length, so that every step is
+    captured before the measured run), then the 8 requests with the launch
+    counters set to 0 just before and read just after.  Returns (engine,
+    recorder, requests, results, launch counts, wall seconds, peak
+    allocated GiB, reserved GiB, warm-up seconds)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import dense
+    from repro_torch.serve.engine import DecodeEngine, Request
+    engine = DecodeEngine(dense, cfg, params, batch_slots=LM_SLOTS,
+                          max_len=LM_MAX_LEN, device=dev, graphs=graphs)
+    rec = LogitRecorder(engine, LM_CHECKED)
     rng = np.random.default_rng(0)
     prompt = lambda n: rng.integers(0, cfg.vocab, n, dtype=np.int32)
-    engine.run([Request(rid=-1, prompt=prompt(64), max_new_tokens=2)])
+    warm = [Request(rid=-1, prompt=prompt(64), max_new_tokens=2)]
     reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=LM_NEW_TOKENS)
             for i, n in enumerate(LM_PROMPTS)]
-    rec.clear()
+    if graphs:
+        warm += [Request(rid=-2 - i, prompt=prompt(n), max_new_tokens=2)
+                 for i, n in enumerate(sorted(set(LM_PROMPTS)))]
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.run(warm)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    rec.clear()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1145,7 +1213,9 @@ def lm_main_path(dev):
     wall = time.perf_counter() - t0
     counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    return cfg, engine, rec, reqs, done, counts, wall, peak_gib, init_s
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
+    return (engine, rec, reqs, done, counts, wall, peak_gib, reserved_gib,
+            warm_s)
 
 
 def plain_lm_logits(params, cfg, tokens, start: int, dtype):
@@ -1163,15 +1233,16 @@ def plain_lm_logits(params, cfg, tokens, start: int, dtype):
         return dense.logits_fn(params, cfg, x[:, start:])[0].float()
 
 
-def check_lm_main_path(cfg, engine, rec, reqs, done, counts) -> list:
+def check_lm_main_path(cfg, engine, rec, reqs, done, counts, refs) -> list:
     """Every request's 32 token ids in the vocabulary; K6 launched once per
     layer per prompt and nothing else.  For each request of LM_CHECKED, the
     engine's logits for all its tokens (the prefill's last row, then its
     slot's row of each batched decode step, read from the slot-copied cache)
     against the plain path on prompt + tokens[:-1]: no farther from the fp32
     value than LM_NOISE_FACTOR times the plain bf16 path, and each token the
-    argmax of its row.  Returns per checked request (rid, max |served -
-    fp32|, max |plain bf16 - fp32|)."""
+    argmax of its row.  ``refs`` keeps the plain path's values by request
+    and tokens, for a second run that served the same tokens.  Returns per
+    checked request (rid, max |served - fp32|, max |plain bf16 - fp32|)."""
     if sorted(done) != [r.rid for r in reqs]:
         raise AssertionError(f"served {sorted(done)}")
     for r in reqs:
@@ -1192,13 +1263,17 @@ def check_lm_main_path(cfg, engine, rec, reqs, done, counts) -> list:
             raise AssertionError(f"request {rid}: recorded logits "
                                  f"{tuple(served.shape)} do not give its "
                                  f"tokens")
-        tokens = torch.as_tensor(np.concatenate([prompt, gen[:-1]]),
-                                 device=engine.device)[None]
-        start = len(prompt) - 1
-        ref32 = plain_lm_logits(engine.params, cfg, tokens, start,
-                                torch.float32)
-        noise = (plain_lm_logits(engine.params, cfg, tokens, start,
-                                 torch.bfloat16) - ref32).abs().max().item()
+        key = (rid, tuple(gen))
+        if key not in refs:
+            tokens = torch.as_tensor(np.concatenate([prompt, gen[:-1]]),
+                                     device=engine.device)[None]
+            start = len(prompt) - 1
+            ref32 = plain_lm_logits(engine.params, cfg, tokens, start,
+                                    torch.float32)
+            noise = (plain_lm_logits(engine.params, cfg, tokens, start,
+                                     torch.bfloat16) - ref32).abs().max().item()
+            refs[key] = ref32, noise
+        ref32, noise = refs[key]
         err = (served - ref32).abs().max().item()
         print(f"[lm check] request {rid} (prompt {len(prompt)}): max |served "
               f"- fp32| {err:.4g}, plain bf16 {noise:.4g}, |fp32| max "
@@ -1208,11 +1283,11 @@ def check_lm_main_path(cfg, engine, rec, reqs, done, counts) -> list:
                                  f"the fp32 plain path, over "
                                  f"{LM_NOISE_FACTOR} x {noise}")
         out.append((rid, err, noise))
-        del ref32, served
     return out
 
 
-def lm_report(cfg, engine, done, wall, peak_gib, init_s, n_params, errs):
+def lm_report(tag, cfg, engine, done, wall, peak_gib, reserved_gib, warm_s,
+              init_s, n_params, errs):
     st = engine.last_stats
     pre = st["prefill"]
     pre_tok = sum(p["prompt_len"] for p in pre)
@@ -1226,39 +1301,48 @@ def lm_report(cfg, engine, done, wall, peak_gib, init_s, n_params, errs):
                     first_token_s=[round(p["first_token_s"], 4) for p in ps])
             for n, ps in sorted(by_len.items())}
     total = sum(len(v) for v in done.values())
-    print(f"[lm path] {LM_ARCH} ({cfg.n_layer} layers, d {cfg.d_model}, "
-          f"{n_params / 1e9:.2f} B parameters, bf16 weights drawn in "
-          f"{init_s:.1f}s) DecodeEngine {LM_SLOTS} slots, cache {LM_MAX_LEN}: "
+    print(f"[lm path {tag}] {LM_ARCH} ({cfg.n_layer} layers, d "
+          f"{cfg.d_model}, {n_params / 1e9:.2f} B parameters, bf16 weights "
+          f"drawn in {init_s:.1f}s) DecodeEngine {LM_SLOTS} slots, cache "
+          f"{LM_MAX_LEN}, warm-up {warm_s:.2f}s, compile_misses "
+          f"{engine.compile_misses}: "
           f"{len(done)} requests, {total} tokens in {wall:.2f}s = "
           f"{total / wall:.1f} tokens/s; prefill {pre_tok} tokens in "
           f"{pre_s:.3f}s = {pre_tok / pre_s:.0f} tokens/s; decode {dec_tok} "
           f"tokens in {len(steps)} steps, {dec_s:.3f}s = "
           f"{dec_tok / dec_s:.1f} tokens/s; decode step median "
           f"{1e3 * steps[len(steps) // 2]:.2f} ms (min {1e3 * steps[0]:.2f}, "
-          f"max {1e3 * steps[-1]:.2f}); peak memory {peak_gib:.2f} GiB; "
+          f"max {1e3 * steps[-1]:.2f}); peak memory {peak_gib:.2f} GiB "
+          f"allocated, {reserved_gib:.2f} GiB reserved; "
           f"served logits vs the fp32 plain path (rid, max |diff|, plain "
           f"bf16's) {[(r, round(e, 4), round(n, 4)) for r, e, n in errs]}",
           flush=True)
-    print(f"[lm path] time to first token by prompt length (prefill alone; "
+    print(f"[lm path {tag}] time to first token by prompt length (prefill "
+          f"alone; "
           f"from the run's start, queueing included): {json.dumps(ttft)}",
           flush=True)
 
 
 def profile_lm(cfg, engine):
     """One prefill at S 2048 (batch 1) and one decode step of the engine's
-    4 slots, each plain and under torch.profiler."""
+    4 slots, each plain and under torch.profiler: eagerly through
+    ``models/dense.py``, then as the graphed engine's captured steps."""
     from repro_torch.models import dense
     rng = np.random.default_rng(1)
-    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, 2048, dtype=np.int32),
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab, 2048, dtype=np.int64),
                              device=engine.device)[None]
     cache = dense.init_cache(cfg, 1, LM_MAX_LEN, device=engine.device)
+    what = f"{LM_ARCH} prefill S 2048, batch 1"
     profile_run(lambda: dense.prefill(engine.params, cfg, prompt, cache),
-                "lm_prefill", f"{LM_ARCH} prefill S 2048, batch 1")
-    tokens = torch.zeros((LM_SLOTS, 1), dtype=torch.int64, device=engine.device)
+                "lm_prefill", what)
+    profile_run(lambda: engine._prefill1(prompt), "lm_prefill_graphed",
+                what + ", graph replay")
+    tokens = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device=engine.device)
+    what = f"{LM_ARCH} decode step, {LM_SLOTS} slots, cache {LM_MAX_LEN}"
     profile_run(lambda: dense.decode_step(engine.params, cfg, tokens,
-                                          engine.cache),
-                "lm_decode", f"{LM_ARCH} decode step, {LM_SLOTS} slots, "
-                f"cache {LM_MAX_LEN}")
+                                          engine.cache), "lm_decode", what)
+    profile_run(lambda: engine._decode(tokens), "lm_decode_graphed",
+                what + ", graph replay")
 
 
 def main() -> int:
@@ -1299,18 +1383,33 @@ def main() -> int:
           f"{err32:.3g}; bf16 card vs fp32 CPU {err16:.3g} (CPU bf16 "
           f"{noise16:.3g}, bound 3x)", flush=True)
 
-    reqs, done, engine, counts, wall = main_path(cfg, dev)
-    sample_cycles = check_main_path(cfg, reqs, done, engine, counts)
-    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_s = [s["seconds"] / s["steps"]
-              for s in engine.stats["per_bucket"].values()]
-    print(f"[main path] af2_initial (48+4 blocks): {len(done)} folds over "
-          f"{engine.last_stats['steps']} steps in {wall:.2f}s = "
-          f"{len(done) / wall:.3f} folds/s; per-step latency by bucket "
-          f"{[round(s, 3) for s in step_s]} s; {sample_cycles} sample-cycles; "
-          f"peak memory {peak_gib:.2f} GiB; launches {counts}", flush=True)
-    profile_step(engine, reqs, done)
-    del engine, done
+    # phases 5 and 6, eager: the same engine without graphs
+    reqs, engine = main_path(cfg, dev, graphs=False)
+    eager = serve_folds(engine, reqs)
+    sample_cycles = check_main_path(cfg, reqs, eager[0], engine, eager[1])
+    fold_report("eager", cfg, eager[0], engine, *eager[1:], sample_cycles)
+    profile_step(engine, reqs, eager[0], "fold")
+    del engine
+    torch.cuda.empty_cache()
+    # phases 5 and 6, graphed: the first run captures each bucket's
+    # sample-cycle, the second replays only
+    reqs, engine = main_path(cfg, dev, graphs=True)
+    for tag in ("graphed, with captures", "graphed"):
+        graphed = serve_folds(engine, reqs)
+        check_main_path(cfg, reqs, graphed[0], engine, graphed[1])
+        if engine.compile_misses != len({r.bucket for r in graphed[0].values()}):
+            raise AssertionError(f"compile_misses {engine.compile_misses}")
+        fold_report(tag, cfg, graphed[0], engine, *graphed[1:], sample_cycles)
+    d_xyz = max(np.abs(graphed[0][i].coords - eager[0][i].coords).max()
+                for i in eager[0])
+    d_plddt = max(np.abs(graphed[0][i].plddt - eager[0][i].plddt).max()
+                  for i in eager[0])
+    print(f"[main path] graphed vs eager: max |coords diff| {d_xyz:.6g}, "
+          f"max |pLDDT diff| {d_plddt:.6g}; wall {eager[2]:.3f} -> "
+          f"{graphed[2]:.3f} s", flush=True)
+    profile_step(engine, reqs, graphed[0], "fold_graphed")
+    counts = graphed[1]
+    del engine, eager, graphed
     torch.cuda.empty_cache()
 
     att_shapes, tri_shapes = train_shapes(cfg)
@@ -1355,13 +1454,33 @@ def main() -> int:
     print(f"[lm kernel total] K6 over the main path's prefills: "
           f"{json.dumps(k6_tot)}", flush=True)
 
-    lm_cfg, lm_engine, lm_rec, lm_reqs, lm_done, lm_counts, lm_wall, \
-        lm_peak, lm_init_s = lm_main_path(dev)
-    lm_errs = check_lm_main_path(lm_cfg, lm_engine, lm_rec, lm_reqs, lm_done,
-                                 lm_counts)
-    lm_report(lm_cfg, lm_engine, lm_done, lm_wall, lm_peak, lm_init_s,
-              sum(p.numel() for p in lm_engine.params.parameters()), lm_errs)
-    print(f"[lm path] launches {lm_counts}", flush=True)
+    lm_cfg, lm_weights, lm_init_s = lm_params(dev)
+    n_params = sum(p.numel() for p in lm_weights.parameters())
+    refs, served = {}, {}
+    for tag, use in (("eager", False), ("graphed", True)):
+        lm_engine, lm_rec, lm_reqs, lm_done, lm_counts, lm_wall, lm_peak, \
+            lm_reserved, lm_warm_s = lm_main_path(lm_cfg, lm_weights, dev,
+                                                  graphs=use)
+        lm_errs = check_lm_main_path(lm_cfg, lm_engine, lm_rec, lm_reqs,
+                                     lm_done, lm_counts, refs)
+        if lm_engine.compile_misses != 1 + len(set(LM_PROMPTS) | {64}):
+            raise AssertionError(f"compile_misses {lm_engine.compile_misses}")
+        lm_report(tag, lm_cfg, lm_engine, lm_done, lm_wall, lm_peak,
+                  lm_reserved, lm_warm_s, lm_init_s, n_params, lm_errs)
+        print(f"[lm path {tag}] launches {lm_counts}", flush=True)
+        served[tag] = lm_done, {rid: lm_rec.logits(rid) for rid in LM_CHECKED}
+        lm_rec.restore()
+        if not use:
+            del lm_engine, lm_rec
+            torch.cuda.empty_cache()
+    (e_done, e_logits), (g_done, g_logits) = served["eager"], served["graphed"]
+    differ = sum(a != b for r in e_done for a, b in zip(e_done[r], g_done[r]))
+    d_logits = max((g_logits[r].float() - e_logits[r].float()).abs().max().item()
+                   for r in LM_CHECKED)
+    print(f"[lm path] graphed vs eager: every token id agrees: {differ == 0} "
+          f"({differ} of {sum(len(v) for v in e_done.values())} differ); max "
+          f"|logits diff| of requests {list(LM_CHECKED)} {d_logits:.6g}",
+          flush=True)
     profile_lm(lm_cfg, lm_engine)
 
     def entry(name, source, replaces, tot, err, launches, per):

@@ -15,6 +15,7 @@ batch where the reference vmaps.  Two paths:
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -103,14 +104,20 @@ _RECYCLE_EDGES = tuple(float.fromhex(h) for h in (
     "0x1.3fd89e0000000p+4", "0x1.5600000000000p+4"))
 
 
+@functools.lru_cache(maxsize=None)
+def recycle_edges(device: torch.device) -> torch.Tensor:
+    """``_RECYCLE_EDGES`` on ``device``, made once: inside a captured CUDA
+    graph a copy from host memory is not allowed."""
+    return torch.tensor(_RECYCLE_EDGES, dtype=torch.float32, device=device)
+
+
 def recycle_distance_bins(x: torch.Tensor) -> torch.Tensor:
     """CA coords (..., r, 3) -> binned distance map (..., r, r) int32: THE
     recycling discretization (15 bins), shared by the recycling embedder and
     ``predict``'s convergence test."""
     d = torch.sqrt((x[..., :, None, :] - x[..., None, :, :]).square().sum(-1)
                    + 1e-8)
-    edges = torch.tensor(_RECYCLE_EDGES, dtype=torch.float32, device=x.device)
-    return (d[..., None] > edges).sum(-1).to(torch.int32)
+    return (d[..., None] > recycle_edges(x.device)).sum(-1).to(torch.int32)
 
 
 def embed_recycle(p: Embedder, cfg: AlphaFold2Config, msa, z, prev):
@@ -306,15 +313,30 @@ def fold_carry_init(cfg: AlphaFold2Config, bsz: int, r: int, dtype, device):
                              device=device)
 
 
+def sample_cycle(params: AlphaFold2, cfg: AlphaFold2Config, sample: dict,
+                 prev: tuple, *, dtype=torch.bfloat16) -> tuple:
+    """One recycling cycle of one sample, a function of tensors only:
+    ``sample`` its (padded) features, ``prev`` its carry (msa0, z, x).
+    Returns (msa0, z, trans, s_final).  The unit a serving engine captures
+    as a CUDA graph (``serve/fold_steps.py``); the eager path calls it too."""
+    msa, z, single = run_trunk(params, cfg, sample, prev, dtype=dtype,
+                               masks=trunk_masks(sample))
+    (_, trans), _, s_final = struct.structure_module(
+        params.structure, cfg.structure, single, z, sample.get("res_mask"))
+    return msa[0], z, trans, s_final
+
+
 def fold_cycle(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, sf,
                conv, n_rec, *, tol: float, pair_mask, pair_count,
-               dtype=torch.bfloat16, active=None):
+               dtype=torch.bfloat16, active=None, cycle=None):
     """ONE batched recycling cycle with per-sample freeze semantics.
 
     ``params`` is already cast to the compute dtype.  A converged sample, or
     an unoccupied micro-batch slot (``active`` False), keeps its carry and
     its recycle count; the reference computes it and throws the result
-    away, this loop skips it, which gives the same carry.
+    away, this loop skips it, which gives the same carry.  ``cycle(params,
+    sample, prev)`` runs one sample's cycle (:func:`sample_cycle` by
+    default; a serving engine passes its captured graph of it).
     """
     keep = conv if active is None else (conv | ~active)
     new_prev = [t.clone() for t in prev]
@@ -323,12 +345,13 @@ def fold_cycle(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, sf,
         if frozen:
             continue
         sample = {k: v[b] for k, v in batch.items()}
-        msa, z, single = run_trunk(params, cfg, sample, tuple(t[b] for t in prev),
-                                   dtype=dtype, masks=trunk_masks(sample))
-        (_, trans), _, s_final = struct.structure_module(
-            params.structure, cfg.structure, single, z, sample.get("res_mask"))
-        new_prev[0][b], new_prev[1][b], new_prev[2][b] = msa[0], z, trans
-        new_sf[b] = s_final
+        prev_b = tuple(t[b] for t in prev)
+        if cycle is None:
+            out = sample_cycle(params, cfg, sample, prev_b, dtype=dtype)
+        else:
+            out = cycle(params, sample, prev_b)
+        for dst, src in zip((*new_prev, new_sf), out):
+            dst[b] = src
     old_bins = recycle_distance_bins(prev[2])
     new_bins = recycle_distance_bins(new_prev[2])
     frac = ((old_bins != new_bins) * pair_mask).sum((1, 2)) / pair_count
@@ -352,7 +375,7 @@ def fold_heads(params: AlphaFold2, cfg: AlphaFold2Config, z, s_final) -> dict:
 @torch.no_grad()
 def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
             max_recycle: int, tol: float = 0.0, dtype=torch.bfloat16,
-            active=None) -> dict:
+            active=None, cycle=None) -> dict:
     """Batched inference with adaptive early-exit recycling.
 
     ``batch``: per-sample features with a leading batch axis (B, ...) —
@@ -366,6 +389,8 @@ def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
 
     Returns coords (B, r, 3) fp32, plddt (B, r), contact_probs (B, r, r),
     the plddt / distogram logits, n_recycles (B,) and converged (B,).
+    ``cycle`` goes to :func:`fold_cycle`.  A model already in ``dtype`` is
+    used as it is, not copied (a captured ``cycle`` reads its storage).
     """
     if max_recycle < 1:
         raise ValueError(f"max_recycle must be >= 1, got {max_recycle}")
@@ -385,7 +410,7 @@ def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
         prev, sf, conv, n_rec = fold_cycle(
             params, cfg, batch, prev, sf, conv, n_rec, tol=tol,
             pair_mask=pair_mask, pair_count=pair_count, dtype=dtype,
-            active=active)
+            active=active, cycle=cycle)
     _, z, coords = prev
     out = fold_heads(params, cfg, z, sf)
     out.update(coords=coords, n_recycles=n_rec, converged=conv)

@@ -44,6 +44,14 @@ def reset_launch_counts() -> None:
         setattr(mod, attr, 0)
 
 
+def add_launch_counts(counts: dict) -> None:
+    """Add ``counts`` ({kernel name: launches}) to the launch counters: a
+    replayed CUDA graph credits the launches it holds (``graphs.py``)."""
+    for name, n in counts.items():
+        mod, attr = KERNELS[name]
+        setattr(mod, attr, getattr(mod, attr) + n)
+
+
 def _on_cuda(*tensors) -> bool:
     dev = tensors[0].device.type
     if dev == "cpu":

@@ -7,6 +7,13 @@ iteration advances every slot, with greedy ``argmax`` sampling.  Finished
 sequences (EOS or length budget) free their slot for the next queued
 request between steps; cache writes are at per-sequence lengths, so slots
 are reused in place.
+
+As the reference jit-compiles ``_decode`` once and ``_prefill1`` once per
+prompt length, the engine builds these steps once and caches them
+(``compile_misses`` counts the builds); on the card each is a CUDA graph,
+captured at its first call (``graphs=``).  Every tensor a step touches is
+static: the slot cache and the batch-1 prefill cache are allocated once and
+written in place, never rebound.
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import graphs as graphs_lib
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import Policy
 
@@ -39,11 +47,19 @@ class DecodeEngine:
     ``last_stats`` of a ``run``: per request its prompt length, prefill
     seconds and the time from the run's start to its first token; per decode
     step its seconds and the tokens it produced.  Each time ends in a device
-    synchronisation (the sampled tokens are read on the host)."""
+    synchronisation (the sampled tokens are read on the host).
+
+    ``graphs``: run ``_decode`` and each prompt length's ``_prefill1`` as
+    CUDA graphs (``graphs.CapturedStep``, all in one memory pool); None
+    means on for a CUDA device and off on the CPU, True on the CPU raises
+    ValueError.  ``compile_misses``: the steps built, the decode step's at
+    construction and one prefill step per distinct prompt length."""
 
     def __init__(self, model, cfg, params, *, batch_slots: int,
-                 max_len: int, eos_id: int = -1, device=None):
+                 max_len: int, eos_id: int = -1, device=None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.graphs = graphs_lib.use_graphs(graphs, self.device)
         self.model, self.cfg = model, cfg
         self.params = Policy().cast(params).to(self.device)
         self.batch = batch_slots
@@ -51,25 +67,58 @@ class DecodeEngine:
         self.eos_id = eos_id
         self.cache = model.init_cache(cfg, batch_slots, max_len,
                                       device=self.device)
+        # the batch-1 cache every prefill writes before its slot copy
+        self.cache1 = model.init_cache(cfg, 1, max_len, device=self.device)
         self.slots: list[Optional[Request]] = [None] * batch_slots
         self.budget = np.zeros(batch_slots, np.int32)
         self.cur = np.zeros(batch_slots, np.int32)   # last sampled token
         self.last_stats: dict = {}
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._prefill_steps: dict = {}      # prompt length -> prefill step
+        self.compile_misses = 1
+        self._decode = self._step(self._decode_fn)
+
+    def _step(self, fn):
+        return (graphs_lib.CapturedStep(fn, pool=self._pool) if self.graphs
+                else fn)
+
+    def _decode_fn(self, tokens):
+        """One batched decode step on the slot cache, (B, 1) tokens ->
+        (B, 1, V) logits; the new lengths written back in place."""
+        logits, cache = self.model.decode_step(self.params, self.cfg, tokens,
+                                               self.cache)
+        self.cache["length"].copy_(cache["length"])
+        return logits
+
+    def _prefill_fn(self, prompt):
+        """Prefill of one (1, S) prompt into the zeroed batch-1 cache ->
+        (1, 1, V) logits."""
+        for t in self.cache1.values():
+            t.zero_()
+        logits, cache = self.model.prefill(self.params, self.cfg, prompt,
+                                           self.cache1)
+        self.cache1["length"].copy_(cache["length"])
+        return logits
+
+    def _prefill1(self, prompt):
+        """The prefill step of this prompt's length, built at its first use."""
+        n = prompt.shape[1]
+        if n not in self._prefill_steps:
+            self.compile_misses += 1
+            self._prefill_steps[n] = self._step(self._prefill_fn)
+        return self._prefill_steps[n](prompt)
 
     def _insert(self, slot: int, req: Request):
         t0 = time.perf_counter()
-        cache1 = self.model.init_cache(self.cfg, 1, self.max_len,
-                                       device=self.device)
-        prompt = torch.as_tensor(np.asarray(req.prompt),
+        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
-        logits, cache1 = self.model.prefill(self.params, self.cfg, prompt,
-                                            cache1)
+        logits = self._prefill1(prompt)
         # copy the batch-1 cache into this slot
         for key, dst in self.cache.items():
             if key == "length":
-                dst[slot] = cache1[key][0]
+                dst[slot] = self.cache1[key][0]
             else:
-                dst[:, slot] = cache1[key][:, 0]
+                dst[:, slot] = self.cache1[key][:, 0]
         req.generated = []
         self.slots[slot] = req
         # the prefill's last logits already give generated token #1
@@ -108,8 +157,7 @@ class DecodeEngine:
             # one batched decode step
             t0 = time.perf_counter()
             tokens = torch.as_tensor(self.cur, device=self.device)[:, None]
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cfg, tokens, self.cache)
+            logits = self._decode(tokens)
             nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
             self.last_stats["decode_step_s"].append(time.perf_counter() - t0)
             produced = 0

@@ -3,10 +3,13 @@
 
 Requests are padded onto a small bucket table; one fold step per bucket is
 built on first use and cached (``compile_misses`` counts the misses, so the
-step count is bounded by the table, never by traffic).  Requests of one
-bucket are micro-batched and recycled together under ``core.model.predict``'s
-early-exit loop: converged samples freeze, the batch ends when all froze or
-``max_recycle`` ran, and ``result.n_recycles`` records what each sample paid.
+step count is bounded by the table, never by traffic).  On the card a
+bucket's step replays its sample-cycle as a CUDA graph, captured at the
+step's first use (``graphs=``; the reference jit-compiles the step).
+Requests of one bucket are micro-batched and recycled together under
+``core.model.predict``'s early-exit loop: converged samples freeze, the
+batch ends when all froze or ``max_recycle`` ran, and ``result.n_recycles``
+records what each sample paid.
 """
 from __future__ import annotations
 
@@ -17,8 +20,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import graphs as graphs_lib
 from repro_torch.core.config import with_kernels
 from repro_torch.device import resolve_device
+from repro_torch.nn.layers import Policy
 from repro_torch.serve import fold_steps as fs
 
 
@@ -45,22 +50,29 @@ class FoldEngine:
     """Queue-driven AF2 fold server over one model on one device.
 
     ``device`` defaults to ``cuda`` (raising without a card); the model is
-    moved there.  Every attention and triangle update is served on the
+    moved there and cast to ``dtype`` once, into ``params``, which every
+    step reads.  Every attention and triangle update is served on the
     hand-written kernels (``config.with_kernels``), whatever impls ``cfg``
-    names.
+    names.  ``graphs``: capture each bucket's sample-cycle as a CUDA graph
+    (``fold_steps.GraphedCycle``, all in one memory pool); None means on
+    for a CUDA device and off on the CPU, True on the CPU raises
+    ValueError.
     """
 
     def __init__(self, cfg, model, *, buckets=None, micro_batch: int = 2,
                  max_recycle: Optional[int] = None, tol: float = 0.0,
-                 dtype=None, device=None):
+                 dtype=None, device=None, graphs: Optional[bool] = None):
         self.device = resolve_device(device)
+        self.graphs = graphs_lib.use_graphs(graphs, self.device)
         self.cfg = with_kernels(cfg)
-        self.model = model.to(self.device)
+        self.dtype = dtype or torch.bfloat16
+        self.params = Policy(compute_dtype=self.dtype).cast(
+            model.to(self.device))
         self.buckets = sorted(buckets or fs.default_buckets(cfg))
         self.micro_batch = micro_batch
         self.max_recycle = max_recycle or cfg.max_recycle
         self.tol = tol
-        self.dtype = dtype or torch.bfloat16
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._steps: Dict[fs.Bucket, object] = {}
         self.compile_misses = 0                 # step-cache misses
         self.stats = {"requests": 0, "steps": 0, "recycles_run": 0,
@@ -72,13 +84,24 @@ class FoldEngine:
     _SCALAR_STATS = ("requests", "steps", "recycles_run", "recycles_budget")
 
     def step_for(self, bucket: fs.Bucket):
-        """The fold step of this bucket, built once and cached."""
+        """The fold step of this bucket, built once and cached (with graphs,
+        its first call captures the bucket's sample-cycle)."""
         if bucket not in self._steps:
             self.compile_misses += 1
             self._steps[bucket] = fs.make_fold_step(
                 fs.bucket_cfg(self.cfg, bucket), max_recycle=self.max_recycle,
-                tol=self.tol, dtype=self.dtype)
+                tol=self.tol, dtype=self.dtype, graphs=self.graphs,
+                pool=self._pool)
         return self._steps[bucket]
+
+    def load_weights(self, model) -> None:
+        """Serve ``model``'s weights from now on: copied into ``params`` in
+        place, cast to its dtype, since the captured graphs read that
+        storage."""
+        with torch.no_grad():
+            for dst, src in zip(self.params.parameters(), model.parameters(),
+                                strict=True):
+                dst.copy_(src)
 
     def run(self, requests: List[FoldRequest]) -> Dict[int, FoldResult]:
         """Serve the queue to completion; returns {rid: FoldResult}.
@@ -117,7 +140,7 @@ class FoldEngine:
         active = np.arange(self.micro_batch) < len(group)
         step = self.step_for(bucket)
         t0 = time.perf_counter()
-        out = step(self.model, batch, active)
+        out = step(self.params, batch, active)
         out = {k: v.float().cpu().numpy() if v.is_floating_point()
                else v.cpu().numpy() for k, v in out.items()}
         dt = time.perf_counter() - t0

@@ -6,7 +6,9 @@
   bucket table, never by traffic;
 * ``pad_to_bucket`` pads a request's features and attaches the validity
   masks that ``core.model.predict`` threads through every cross-position op;
-* ``make_fold_step`` builds the (model, batch) -> outputs step of one bucket.
+* ``make_fold_step`` builds the (model, batch) -> outputs step of one
+  bucket; with ``graphs`` its sample-cycle is a CUDA graph
+  (:class:`GraphedCycle`).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import graphs as graphs_lib
 from repro_torch.core import model as af2
 
 # keys predict() returns, all with a leading batch axis
@@ -111,14 +114,47 @@ def stack_padded(samples: list, batch: int) -> dict:
     return {k: np.stack([smp[k] for smp in filled]) for k in filled[0]}
 
 
-def make_fold_step(cfg, *, max_recycle: int, tol: float, dtype=None):
+class GraphedCycle:
+    """``core.model.sample_cycle`` of one bucket as a CUDA graph at batch 1
+    (a ``graphs.CapturedStep`` in ``pool``), captured at the first call on
+    the parameter module it is given and replayed for every sample-cycle
+    after.  The graph reads that module's storage: a later call with
+    another module raises (load new weights into it with ``copy_``)."""
+
+    def __init__(self, cfg, *, dtype, pool=None):
+        self.cfg, self.dtype = cfg, dtype
+        self.step = graphs_lib.CapturedStep(self._cycle, pool=pool)
+        self.params = self.keys = None
+
+    def _cycle(self, *tensors):
+        n = len(self.keys)
+        return af2.sample_cycle(self.params, self.cfg,
+                                dict(zip(self.keys, tensors[:n])),
+                                tuple(tensors[n:]), dtype=self.dtype)
+
+    def __call__(self, params, sample: dict, prev: tuple):
+        if self.params is None:
+            self.params, self.keys = params, sorted(sample)
+        elif params is not self.params or sorted(sample) != self.keys:
+            raise ValueError("this bucket's graph was captured on another "
+                             "parameter module or feature set")
+        return self.step(*(sample[k] for k in self.keys), *prev)
+
+
+def make_fold_step(cfg, *, max_recycle: int, tol: float, dtype=None,
+                   graphs: bool = False, pool=None):
     """The (model, batch, active) -> outputs step of one bucket-shaped
     ``cfg``: the whole fold (``predict``'s recycling loop) on the model's
-    device; slots with ``active`` False (micro-batch filler) are skipped."""
+    device; slots with ``active`` False (micro-batch filler) are skipped.
+    With ``graphs`` every sample-cycle replays one :class:`GraphedCycle`
+    (captured into ``pool``), and the model must already be in ``dtype``
+    and the same module at every call; the freeze logic, the convergence
+    test and the heads stay on the host's eager path."""
     dtype = dtype or torch.bfloat16
+    cycle = GraphedCycle(cfg, dtype=dtype, pool=pool) if graphs else None
 
     def step(model, batch, active=None):
         return af2.predict(model, cfg, batch, max_recycle=max_recycle,
-                           tol=tol, dtype=dtype, active=active)
+                           tol=tol, dtype=dtype, active=active, cycle=cycle)
 
     return step
