@@ -42,10 +42,22 @@ Phases, each raising on failure (exit code != 0, no result line):
      bf16.
   9. training main path: TrainRunner at af2_initial width and depth (48 + 4
      blocks, r 256 s 128 se 1024), batch 1, its defaults (AdamW, per-sample
-     clipping, EMA, stochastic recycling 1..4, dropout, remat="block"), one
-     warm-up step then 3 steps; finite losses and gradient norms, changed
-     parameters and EMA, launch counters equal to what each step's drawn
-     n_recycle implies; then one more step under torch.profiler.
+     clipping, EMA, stochastic recycling 1..4, dropout, remat="block"),
+     from the seeded model, three times over the same steps: eagerly
+     (graphs=False), eagerly again (the yardstick of how far two eager runs
+     agree) and graphed (one CUDA graph per drawn n_recycle).  Four warm-up
+     steps (graphed: they capture every draw of 1..4, each capture's cost
+     printed), then 3 measured steps, each with finite losses and gradient
+     norms, changed parameters and EMA, and launch counters equal to what
+     each step's drawn n_recycle implies (graphed: through replay credits);
+     the max |diff| of losses, parameters and EMA, graphed vs eager beside
+     eager vs eager; step walls by draw, allocated and reserved memory;
+     graphed training may stray from eager no farther than the second
+     eager run does; one more step of each runner under torch.profiler;
+     then lDDT-Cα of the EMA parameters on the held-out split through the
+     eager runner's FoldEngine and twice through the graphed one's
+     (eval_compiles must stay 1, the two graphed evaluations agree), with
+     train_compiles, eval_compiles and compile_misses.
  10. LM kernel: K6 (causal GQA flash attention) against its plain version at
      every shape the glm4-9b serving path gives it (prompts 512, 1000, 2048,
      3000), plus non-causal, T != S, ragged, fp32 and head dims 32 / 64.
@@ -988,18 +1000,46 @@ def train_launches(cfg, n_recycle: int) -> dict:
             "triangle_mult_bwd_dx": 2 * k3}
 
 
-def train_main_path(cfg, dev, *, warmup=1, steps=3):
-    """TrainRunner at ``cfg`` with its defaults, batch 1: ``warmup`` steps,
-    then ``steps`` steps with the launch counters set to 0 just before and
-    read just after, each step checked."""
+# the training runs' seed: its first four draws of n_recycle are 1, 3, 2, 4,
+# so a warm-up of four steps captures every draw of 1..4 (seed 0 needs
+# twelve); the measured steps draw 3, 1, 4, and steps 7 and 8, the profile's
+# plain and profiled runs, both draw 2
+TRAIN_SEED = 1502
+TRAIN_WARMUP, TRAIN_STEPS = 4, 3
+
+
+def train_main_path(cfg, dev, *, graphs: bool, warmup=TRAIN_WARMUP,
+                    steps=TRAIN_STEPS):
+    """TrainRunner at ``cfg`` with its defaults, batch 1, from the seeded
+    model (``graphs`` on or off): ``warmup`` steps (graphed: they must
+    capture every draw of 1..max_recycle), then ``steps`` steps with the
+    launch counters set to 0 just before and read just after, each step
+    checked.  Returns (runner, launch counts, gradient norms, peak
+    allocated GiB of the measured steps, reserved GiB after them)."""
     from repro_torch.kernels import ops
     from repro_torch.train.trainer import TrainRunner
     model = seeded_model(cfg, seed=0).to(dev)
-    runner = TrainRunner(cfg, batch_size=1, seed=0, device=dev, model=model)
-    runner.run(warmup)
+    runner = TrainRunner(cfg, batch_size=1, seed=TRAIN_SEED, device=dev,
+                         model=model, graphs=graphs)
+    tag = "graphed" if graphs else "eager"
+    for _ in range(warmup):
+        built = runner.train_compiles
+        runner.run(runner.step + 1)
+        print(f"[train warm-up {tag}] step {runner.step - 1}, n_recycle "
+              f"{runner.history['n_recycle'][-1]}: "
+              f"{runner.history['step_s'][-1]:.3f} s"
+              + (" (eager run + capture)" if graphs and
+                 runner.train_compiles > built else ""), flush=True)
+    if graphs and runner.train_compiles != runner.max_recycle:
+        raise AssertionError(f"warm-up captured {runner.train_compiles} of "
+                             f"{runner.max_recycle} draws")
+    torch.cuda.synchronize()
+    print(f"[train memory {tag}] after the warm-up: "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB reserved",
+          flush=True)
     before = {k: p.detach().clone() for k, p in runner.model.named_parameters()}
     ema_before = {k: e.clone() for k, e in runner.state["ema"].items()}
-    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     norms = []
@@ -1012,6 +1052,7 @@ def train_main_path(cfg, dev, *, warmup=1, steps=3):
         norms.append(m["sample_grad_norm"])
     counts = ops.launch_counts()
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    reserved_gib = torch.cuda.memory_reserved() / 2 ** 30
     drawn = runner.history["n_recycle"][warmup:]
     want = {k: 0 for k in counts}
     for nr in drawn:
@@ -1027,7 +1068,54 @@ def train_main_path(cfg, dev, *, warmup=1, steps=3):
     if moved < 0.9 * len(before) or ema_moved < 0.9 * len(before):
         raise AssertionError(f"{moved} parameters / {ema_moved} EMA leaves "
                              f"of {len(before)} changed")
-    return runner, counts, norms, peak_gib
+    return runner, counts, norms, peak_gib, reserved_gib
+
+
+def train_report(tag, runner, counts, norms, peak, reserved,
+                 warmup=TRAIN_WARMUP):
+    step_s = runner.history["step_s"][warmup:]
+    print(f"[train path {tag}] af2_initial (48+4 blocks) TrainRunner, batch "
+          f"1: steps {list(range(warmup, runner.step))}, n_recycle "
+          f"{runner.history['n_recycle'][warmup:]}, losses "
+          f"{[round(x, 4) for x in runner.history['loss'][warmup:]]}, "
+          f"gradient norms before the 0.1 clip "
+          f"{[round(x, 4) for x in norms]}; step latency "
+          f"{[round(x, 3) for x in step_s]} s = "
+          f"{len(step_s) / sum(step_s):.3f} proteins/s; train_compiles "
+          f"{runner.train_compiles}; peak memory {peak:.2f} GiB allocated, "
+          f"{reserved:.2f} GiB reserved; launches {counts}", flush=True)
+
+
+def train_diff(a, b) -> dict:
+    """Max |diff| of two runners' losses (every step), parameters and EMA."""
+    return {
+        "loss": max(abs(x - y) for x, y in zip(a.history["loss"],
+                                                 b.history["loss"])),
+        "params": max((p - q).abs().max().item() for p, q in
+                      zip(a.model.parameters(), b.model.parameters())),
+        "ema": max((a.state["ema"][k] - b.state["ema"][k]).abs().max().item()
+                   for k in a.state["ema"])}
+
+
+def evaluate_timed(runner) -> tuple:
+    """(``runner.evaluate()``, its wall seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = runner.evaluate()
+    torch.cuda.synchronize()
+    return ev, time.perf_counter() - t0
+
+
+def check_evaluation(ev, runner) -> None:
+    """Finite coordinates of every held-out protein, lDDT-Cα in [0, 100]."""
+    per = ev["per_sample"]
+    n = runner.eval_batches * runner.eval_batch_size
+    if not (per.shape == (n,) and np.isfinite(per).all()
+            and per.min() >= 0.0 and per.max() <= 100.0
+            and ev["coords"].shape == (n, runner.cfg.n_res, 3)
+            and np.isfinite(ev["coords"]).all()):
+        raise AssertionError(f"evaluation: lDDT-Cα {per}, coords "
+                             f"{ev['coords'].shape}")
 
 
 # ---------------------------------------------------------------------------
@@ -1429,21 +1517,69 @@ def main() -> int:
           f"|diff| {t_err32:.3g}; bf16 card {t_d16:.3g} from the CPU's fp32 "
           f"gradients (CPU bf16 {t_n16:.3g}, bound 3x)", flush=True)
 
-    runner, t_counts, norms, t_peak = train_main_path(cfg, dev)
-    step_s = runner.history["step_s"][1:]
-    drawn = runner.history["n_recycle"][1:]
-    print(f"[train path] af2_initial (48+4 blocks) TrainRunner, batch 1: "
-          f"steps {list(range(1, runner.step))}, n_recycle {drawn}, losses "
-          f"{[round(x, 4) for x in runner.history['loss'][1:]]}, gradient "
-          f"norms before the 0.1 clip "
-          f"{[round(x, 4) for x in norms]}; step latency "
-          f"{[round(x, 3) for x in step_s]} s = "
-          f"{len(step_s) / sum(step_s):.3f} proteins/s; peak memory "
-          f"{t_peak:.2f} GiB; launches {t_counts}", flush=True)
-    nr_prof = runner.recycle_draw(runner.step)
-    profile_run(lambda: runner.run(runner.step + 1), "train",
-                f"training step {runner.step}, n_recycle {nr_prof}")
-    del runner
+    # phase 9: eagerly twice (the second run is the yardstick of how far two
+    # eager runs of the same steps agree), then graphed
+    runs = {}
+    for tag, use in (("eager", False), ("eager again", False),
+                     ("graphed", True)):
+        runs[tag] = train_main_path(cfg, dev, graphs=use)
+        train_report(tag, *runs[tag])
+        if tag == "eager again":
+            d_eager = train_diff(runs["eager"][0], runs.pop(tag)[0])
+            torch.cuda.empty_cache()
+    eager_runner, graphed_runner = runs["eager"][0], runs["graphed"][0]
+    t_counts = runs["graphed"][1]
+    if t_counts != runs["eager"][1]:
+        raise AssertionError(f"graphed launches {t_counts} != eager "
+                             f"{runs['eager'][1]}")
+    d_graphed = train_diff(eager_runner, graphed_runner)
+    print(f"[train path] max |diff| after the same {graphed_runner.step} "
+          f"steps, graphed vs eager: {json.dumps(d_graphed)}; eager vs "
+          f"eager: {json.dumps(d_eager)}", flush=True)
+    if any(d_graphed[k] > d_eager[k] for k in d_eager):
+        raise AssertionError("graphed training strays farther from eager "
+                             "than a second eager run does")
+    nrs = eager_runner.history["n_recycle"]
+    e_s, g_s = (r.history["step_s"] for r in (eager_runner, graphed_runner))
+    warm = TRAIN_WARMUP
+    print(f"[train path] step walls by draw, (n_recycle, eager s, graphed s): "
+          f"{[(n, round(a, 3), round(b, 3)) for n, a, b in zip(nrs[warm:], e_s[warm:], g_s[warm:])]}; "
+          f"capture cost by draw, (n_recycle, graphed - eager warm-up s): "
+          f"{[(n, round(b - a, 3)) for n, a, b in zip(nrs[:warm], e_s[:warm], g_s[:warm])]}",
+          flush=True)
+    for tag, runner in (("train", eager_runner),
+                        ("train_graphed", graphed_runner)):
+        # profile_run runs its work twice: two steps of the same draw
+        nr = {runner.recycle_draw(runner.step + i) for i in (0, 1)}
+        if len(nr) != 1:
+            raise AssertionError(f"steps {runner.step} and {runner.step + 1} "
+                                 f"draw n_recycle {nr}")
+        profile_run(lambda runner=runner: runner.run(runner.step + 1), tag,
+                    f"training steps {runner.step} (plain) and "
+                    f"{runner.step + 1} (profiled), n_recycle {nr.pop()}")
+    ev_eager, s_eager = evaluate_timed(eager_runner)
+    check_evaluation(ev_eager, eager_runner)
+    evs = [evaluate_timed(graphed_runner) for _ in range(2)]
+    for ev, _ in evs:
+        check_evaluation(ev, graphed_runner)
+    if graphed_runner.eval_compiles != 1:
+        raise AssertionError(f"eval_compiles {graphed_runner.eval_compiles}")
+    if not np.array_equal(evs[0][0]["coords"], evs[1][0]["coords"]):
+        raise AssertionError("two graphed evaluations of the same weights "
+                             "differ")
+    d_coords = np.abs(evs[1][0]["coords"] - ev_eager["coords"]).max()
+    print(f"[train eval] lDDT-Cα of the EMA parameters on "
+          f"{len(ev_eager['per_sample'])} held-out proteins, "
+          f"{graphed_runner.eval_n_recycle} cycles: eager "
+          f"{ev_eager['lddt_ca']:.4f} in {s_eager:.3f} s; graphed "
+          f"{evs[0][0]['lddt_ca']:.4f} in {evs[0][1]:.3f} s (with its "
+          f"capture), {evs[1][0]['lddt_ca']:.4f} in {evs[1][1]:.3f} s; "
+          f"max |coords diff| graphed vs eager {d_coords:.6g} (their EMA "
+          f"parameters' max |diff| {d_graphed['ema']:.3g}); train_compiles "
+          f"{graphed_runner.train_compiles}, eval_compiles "
+          f"{graphed_runner.eval_compiles}, compile_misses "
+          f"{graphed_runner.compile_misses}", flush=True)
+    del runs, eager_runner, graphed_runner, runner
     torch.cuda.empty_cache()
 
     from repro_torch import configs

@@ -8,11 +8,13 @@ block variants of paper Fig. 1 (counterpart of ``repro/core/evoformer.py``).
 
 All functions work on one protein: ``msa`` (s, r, c_m), ``pair`` (r, r, c_z).
 Dropout (training, ``deterministic=False``) is AF2's shared-axis dropout.
-Its randomness comes from an ``rng``: a tuple of ints, the port's
-counterpart of a JAX key, extended by :func:`fold_in` at every level
-(sample, cycle, stack, block, branch, site).  Each dropout site seeds a
-generator of its own from that tuple, so recomputing a block under
-``torch.utils.checkpoint`` draws the very same masks.
+Its randomness comes from an ``rng``, the port's counterpart of a JAX key:
+a tuple of ints, or a :class:`Key` whose per-step words live in a device
+tensor (a captured training step replays with new words), extended on the
+host by :func:`fold_in` at every level (sample, cycle, stack, block,
+branch, site).  Each dropout site hashes its key with the mask's element
+index, so recomputing a block under ``torch.utils.checkpoint`` draws the
+very same masks.
 
 Impls: ``attention_impl="evo_pallas"`` and ``tri_mult_impl="pallas"`` go
 through ``kernels.ops`` — the hand-written CUDA kernels for CUDA tensors,
@@ -22,9 +24,9 @@ impls are not ported.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple, Union
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -49,35 +51,95 @@ def mask_bias(key_mask: torch.Tensor) -> torch.Tensor:
 # Dropout with shared axes (AF2 row-/column-wise dropout)
 # ---------------------------------------------------------------------------
 
-Rng = Optional[Tuple[int, ...]]
+class Key(NamedTuple):
+    """A dropout key in two parts, so that a captured training step draws
+    new masks at every replay.  ``lanes``: a (2,) int64 tensor on the
+    device, two 32-bit words mixed from the per-step words (seed, step) by
+    :func:`key_lanes`; a captured step reads it from a static buffer that is
+    written before each replay.  ``path``: the static sub-stream indices
+    (protein, cycle, stack, block, branch, site), appended to on the host by
+    :func:`fold_in`."""
+    lanes: torch.Tensor
+    path: Tuple[int, ...] = ()
+
+
+# an rng: None (no dropout), a tuple of ints (every word on the host), or a Key
+Rng = Optional[Union[Tuple[int, ...], Key]]
+
+_M32 = 0xFFFFFFFF
+# starting words of the lanes of a key's words and of its path (digits of
+# pi); different for the two, so that words and path never trade places
+_WORD_SEEDS = (0x243F6A88, 0x85A308D3)
+_PATH_SEEDS = (0x13198A2E, 0x03707344)
 
 
 def fold_in(rng: Rng, i: int) -> Rng:
     """The rng of sub-stream ``i`` (``jax.random.fold_in``'s counterpart);
     None stays None."""
-    return None if rng is None else (*rng, int(i))
+    if rng is None:
+        return None
+    if isinstance(rng, Key):
+        return Key(rng.lanes, (*rng.path, int(i)))
+    return (*rng, int(i))
 
 
-def rng_seed(rng: Tuple[int, ...]) -> int:
-    """A 63-bit generator seed from an rng tuple (numpy's SeedSequence mixes
-    every entry, so nearby tuples give unrelated seeds)."""
-    hi, lo = np.random.SeedSequence([int(v) for v in rng]).generate_state(2)
-    return (int(hi) << 31) ^ int(lo)
+def _mix32(x):
+    """A 32-bit integer finaliser (Wellons' lowbias32 family; both
+    multipliers below 2^31) of a Python int or an int64 tensor holding
+    values in [0, 2^32).  Masking to 32 bits before each multiply keeps
+    every product below 2^63, so the CPU and the card give the same bits."""
+    x = x ^ (x >> 16)
+    x = (x * 0x21F0AAAD) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x735A2D97) & _M32
+    return x ^ (x >> 15)
+
+
+def key_lanes(words, seeds=_WORD_SEEDS) -> Tuple[int, int]:
+    """Two 32-bit lanes mixed on the host from a tuple of ints (each below
+    2^63 in magnitude), starting from ``seeds``: nearby tuples give
+    unrelated lanes."""
+    lanes = []
+    for h in seeds:
+        for w in words:
+            h = _mix32(h ^ (int(w) & _M32))
+            h = _mix32(h ^ ((int(w) >> 32) & _M32))
+        lanes.append(h)
+    return lanes[0], lanes[1]
+
+
+def dropout_key(words, device) -> Key:
+    """The :class:`Key` of the per-step ``words`` (e.g. (seed, step)) on
+    ``device``, with an empty path."""
+    return Key(torch.tensor(key_lanes(words), dtype=torch.int64,
+                            device=device))
 
 
 def shared_dropout(x: torch.Tensor, rate: float, *, shared_axis: int,
                    rng: Rng, deterministic: bool) -> torch.Tensor:
     """Dropout whose keep-mask is shared along ``shared_axis`` (one draw per
-    row or column), kept entries scaled by 1 / (1 - rate).  The mask comes
-    from a generator seeded by ``rng`` on x's device: the same rng gives the
-    same mask."""
+    row or column), kept entries scaled by 1 / (1 - rate).
+
+    The mask is a counter-based hash of the mask's element index under a
+    64-bit key, in plain int64 ops on x's device: a Key's device lanes xor
+    the host lanes of its path (a tuple's lanes are all mixed on the host),
+    and an element is kept when its 32-bit hash lies below
+    (1 - rate) * 2^32.  The
+    same rng gives the same mask, on the CPU and on the card, and nothing
+    is drawn from torch's generators, so a recompute under
+    ``torch.utils.checkpoint`` repeats the mask by construction."""
     if deterministic or rate == 0.0 or rng is None:
         return x
     shape = list(x.shape)
     shape[shared_axis] = 1
-    gen = torch.Generator(device=x.device)
-    gen.manual_seed(rng_seed(rng))
-    keep = torch.rand(shape, generator=gen, device=x.device) < 1.0 - rate
+    if isinstance(rng, Key):
+        p0, p1 = key_lanes(rng.path, _PATH_SEEDS)
+        k0, k1 = rng.lanes[0] ^ p0, rng.lanes[1] ^ p1
+    else:
+        k0, k1 = key_lanes(rng)
+    idx = torch.arange(math.prod(shape), dtype=torch.int64, device=x.device)
+    h = _mix32(_mix32(idx ^ k0) ^ k1)
+    keep = (h < round((1.0 - rate) * 2 ** 32)).reshape(shape)
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

@@ -3,6 +3,8 @@
 ``repro/core/heads.py``."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
@@ -66,7 +68,8 @@ def contact_probs_from_distogram(logits: torch.Tensor, *, cutoff: float = 8.0,
     at most ``cutoff``."""
     nb = logits.shape[-1]
     edges = torch.linspace(min_dist, max_dist, nb - 1, device=logits.device)
-    upper = torch.cat([edges, torch.tensor([float("inf")], device=logits.device)])
+    upper = torch.cat([edges, torch.full((1,), float("inf"),
+                                         device=logits.device)])
     probs = torch.softmax(logits.float(), dim=-1)
     return (probs * (upper <= cutoff)).sum(-1)
 
@@ -120,14 +123,22 @@ def fape_loss(pred_rots, pred_trans, true_rots, true_trans, res_mask, *,
     return per_iter.mean()
 
 
+@functools.lru_cache(maxsize=None)
+def distogram_edges(n_bins: int, min_dist: float, max_dist: float,
+                    device: torch.device) -> torch.Tensor:
+    """The fp32 edges of the reference's ``jnp.linspace(min_dist, max_dist,
+    n_bins - 1)`` (torch.linspace may round one apart) on ``device``, made
+    once: inside a captured CUDA graph a copy from host memory is not
+    allowed."""
+    return torch.from_numpy(np.linspace(min_dist, max_dist, n_bins - 1)
+                            .astype(np.float32)).to(device)
+
+
 def distogram_loss(logits, true_coords, res_mask, *, n_bins: int,
                    min_dist: float = 2.3125, max_dist: float = 21.6875):
     d = torch.sqrt((true_coords[:, None] - true_coords[None, :]).square().sum(-1)
                    + 1e-8)
-    # the fp32 edges of the reference's jnp.linspace (torch.linspace may
-    # round one apart)
-    edges = torch.from_numpy(np.linspace(min_dist, max_dist, n_bins - 1)
-                             .astype(np.float32)).to(d.device)
+    edges = distogram_edges(n_bins, min_dist, max_dist, d.device)
     bins = (d[..., None] > edges).sum(-1)                   # (r, r) in [0, n_bins)
     onehot = F.one_hot(bins, n_bins).float()
     return softmax_xent(logits, onehot, res_mask[:, None] * res_mask[None, :])

@@ -141,8 +141,7 @@ def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
     block i draws its dropout from ``fold_in(rng, i)``.  With ``remat`` and
     autograd on, each block keeps only its inputs and is recomputed in the
     backward (``torch.utils.checkpoint``, non-reentrant); its dropout masks
-    come from generators seeded inside the block, so the recompute draws
-    the same masks."""
+    are hashes of its rng, so the recompute draws the same masks."""
     for i, blk in enumerate(blocks):
         def one(m, zz, blk=blk, key=evo.fold_in(rng, i)):
             mo, zo = evo.evoformer_block(blk, cfg_block, m, zz, rng=key,
@@ -150,7 +149,12 @@ def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
                                          masks=masks)
             return mo.to(m.dtype), zo.to(zz.dtype)
         if remat and torch.is_grad_enabled():
-            msa, z = checkpoint(one, msa, z, use_reentrant=False)
+            # no block draws from torch's generators (dropout hashes its
+            # rng), so there is no RNG state to stash and restore; stashing
+            # it reads the CUDA generator's state, which a graph capture
+            # does not allow
+            msa, z = checkpoint(one, msa, z, use_reentrant=False,
+                                preserve_rng_state=False)
         else:
             msa, z = one(msa, z)
     return msa, z

@@ -3,8 +3,8 @@ every attention and triangle update on the hand-written kernels.
 
   # on the GPU (the default device)
   PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 3 --batch 1
-  # on the CPU (the kernels' plain versions), small shapes
-  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu
+  # on the CPU (the kernels' plain versions), small shapes, evaluating at step 2
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu --eval-every 2
 """
 from __future__ import annotations
 
@@ -27,6 +27,9 @@ def main(argv=None):
                     help="upper bound of the draw (0: the config's)")
     ap.add_argument("--ema", type=float, default=0.999,
                     help="EMA decay of the eval parameters (0: no EMA)")
+    ap.add_argument("--eval-every", type=int, default=0,
+                    help="lDDT-Cα evaluation of the EMA parameters on the "
+                         "held-out split every N steps (0: off)")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
@@ -47,16 +50,20 @@ def run_af2(args):
     runner = TrainRunner(cfg, optimizer=opt, batch_size=args.batch,
                          seed=args.seed, recycle_sample=args.recycle_sample,
                          max_recycle=args.max_recycle or None,
-                         ema_decay=args.ema or None, deterministic=False,
+                         ema_decay=args.ema or None,
+                         eval_every=args.eval_every, deterministic=False,
                          device=args.device)
     print(f"train: {args.af2} cfg on {runner.device}, params "
           f"{count_params(runner.model):,}, recycle_sample="
           f"{args.recycle_sample} (max {runner.max_recycle}), ema="
-          f"{args.ema or 'off'}")
+          f"{args.ema or 'off'}, graphs={runner.graphs}")
     t0 = time.time()
     runner.run(args.steps, log_every=args.log_every)
+    evals = runner.history["eval"]
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s; last loss "
-          f"{runner.history['loss'][-1]:.4f}")
+          f"{runner.history['loss'][-1]:.4f}; train compiles: "
+          f"{runner.train_compiles}"
+          + (f"; final lDDT-Cα {evals[-1]['lddt_ca']:.2f}" if evals else ""))
     return runner
 
 

@@ -13,6 +13,7 @@ records what each sample paid.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Dict, List, Optional
@@ -50,10 +51,10 @@ class FoldEngine:
     """Queue-driven AF2 fold server over one model on one device.
 
     ``device`` defaults to ``cuda`` (raising without a card); the model is
-    moved there and cast to ``dtype`` once, into ``params``, which every
-    step reads.  Every attention and triangle update is served on the
-    hand-written kernels (``config.with_kernels``), whatever impls ``cfg``
-    names.  ``graphs``: capture each bucket's sample-cycle as a CUDA graph
+    moved there and cast to ``dtype`` once, into ``params`` (a copy of its
+    own), which every step reads.  Every attention and triangle update is
+    served on the hand-written kernels (``config.with_kernels``), whatever
+    impls ``cfg`` names.  ``graphs``: capture each bucket's sample-cycle as a CUDA graph
     (``fold_steps.GraphedCycle``, all in one memory pool); None means on
     for a CUDA device and off on the CPU, True on the CPU raises
     ValueError.
@@ -66,8 +67,10 @@ class FoldEngine:
         self.graphs = graphs_lib.use_graphs(graphs, self.device)
         self.cfg = with_kernels(cfg)
         self.dtype = dtype or torch.bfloat16
-        self.params = Policy(compute_dtype=self.dtype).cast(
-            model.to(self.device))
+        model = model.to(self.device)
+        params = Policy(compute_dtype=self.dtype).cast(model)
+        # the engine owns its storage: load_weights writes into it
+        self.params = copy.deepcopy(model) if params is model else params
         self.buckets = sorted(buckets or fs.default_buckets(cfg))
         self.micro_batch = micro_batch
         self.max_recycle = max_recycle or cfg.max_recycle
@@ -94,14 +97,18 @@ class FoldEngine:
                 pool=self._pool)
         return self._steps[bucket]
 
-    def load_weights(self, model) -> None:
-        """Serve ``model``'s weights from now on: copied into ``params`` in
-        place, cast to its dtype, since the captured graphs read that
-        storage."""
+    def load_weights(self, weights) -> None:
+        """Serve ``weights`` from now on, a model or its parameters by key
+        path (an EMA): copied into ``params`` in place, cast to its dtype,
+        since the captured graphs read that storage."""
+        if isinstance(weights, torch.nn.Module):
+            weights = dict(weights.named_parameters())
+        dst = dict(self.params.named_parameters())
+        if sorted(weights) != sorted(dst):
+            raise ValueError("weights do not match the engine's parameters")
         with torch.no_grad():
-            for dst, src in zip(self.params.parameters(), model.parameters(),
-                                strict=True):
-                dst.copy_(src)
+            for k, p in dst.items():
+                p.copy_(weights[k])
 
     def run(self, requests: List[FoldRequest]) -> Dict[int, FoldResult]:
         """Serve the queue to completion; returns {rid: FoldResult}.

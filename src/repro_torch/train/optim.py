@@ -9,6 +9,14 @@ update writes the new values into ``params`` and the state's tensors in
 place (``torch.no_grad``), which keeps one copy of 93M parameters and their
 moments on the card; it returns the same objects.  All optimizer state is
 fp32 (AMP master copies).
+
+``update`` computes the learning rate and AdamW's bias corrections on the
+host from ``state.step``.  ``opt.apply(grads, state, params, step)`` is the
+same update with those scalars computed on the device from ``step``, a 0-d
+fp32 tensor holding ``state.step + 1``: a captured training step reads it
+from a static buffer, so its replays follow the schedule.  Both paths do
+the same fp32 operations in the same order; ``apply`` leaves
+``state.step`` (a Python int) to the caller.
 """
 from __future__ import annotations
 
@@ -17,9 +25,6 @@ import math
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
-
-Schedule = Callable[[int], float]
-
 
 class OptState(NamedTuple):
     step: int
@@ -31,6 +36,8 @@ class OptState(NamedTuple):
 class Optimizer:
     init: Callable
     update: Callable
+    # the update on device scalars (see the module docstring)
+    apply: Callable
     # per-SAMPLE gradient clip threshold (AF2 suppl. 1.11.3): read by the
     # train step, which clips each protein's gradient before accumulating;
     # ``clip_norm`` of adamw/sgd clips the accumulated batch gradient instead
@@ -47,44 +54,49 @@ def _map(fn, tree):
     return [fn(v) for v in tree]
 
 
-def _f32(x: float) -> float:
-    """``x`` rounded to fp32, as the reference's traced fp32 scalars are."""
-    return float(torch.tensor(x, dtype=torch.float32))
-
-
 # ---------------------------------------------------------------------------
 # Schedules: step -> learning rate, computed in fp32 as the reference does
 # ---------------------------------------------------------------------------
 
+class Schedule:
+    """step -> learning rate.  Called with an int step it returns a Python
+    float; ``on_device(step)`` takes the step as a 0-d fp32 tensor and
+    returns a 0-d fp32 tensor on its device.  Both run ``fn`` (fp32 tensor
+    ops on the step) and give the same bits."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], torch.Tensor]):
+        self.fn = fn
+
+    def __call__(self, step: int) -> float:
+        return float(self.fn(torch.tensor(step, dtype=torch.float32)))
+
+    def on_device(self, step: torch.Tensor) -> torch.Tensor:
+        return self.fn(step.float())
+
+
 def warmup_constant(base_lr: float, warmup_steps: int) -> Schedule:
-    def fn(step):
-        s = torch.tensor(step, dtype=torch.float32)
-        return float(base_lr * torch.clamp((s + 1) / max(warmup_steps, 1),
-                                           max=1.0))
-    return fn
+    return Schedule(lambda s: base_lr * torch.clamp(
+        (s + 1) / max(warmup_steps, 1), max=1.0))
 
 
 def warmup_cosine(base_lr: float, warmup_steps: int, total_steps: int,
                   final_frac: float = 0.1) -> Schedule:
-    def fn(step):
-        s = torch.tensor(step, dtype=torch.float32)
+    def fn(s):
         warm = torch.clamp((s + 1) / max(warmup_steps, 1), max=1.0)
         prog = torch.clamp((s - warmup_steps)
                            / max(total_steps - warmup_steps, 1), 0.0, 1.0)
         cos = final_frac + (1 - final_frac) * 0.5 * (1 + torch.cos(math.pi * prog))
-        return float(base_lr * warm * cos)
-    return fn
+        return base_lr * warm * cos
+    return Schedule(fn)
 
 
 def af2_lr_schedule(base_lr: float = 1e-3, warmup_steps: int = 1000,
                     decay_after: int = 50000, decay: float = 0.95) -> Schedule:
     """AF2 suppl. 1.11.3: linear warmup, x0.95 after 50k steps."""
-    def fn(step):
-        s = torch.tensor(step, dtype=torch.float32)
+    def fn(s):
         warm = torch.clamp((s + 1) / warmup_steps, max=1.0)
-        dec = decay if step >= decay_after else 1.0
-        return float(base_lr * warm * dec)
-    return fn
+        return base_lr * warm * torch.where(s >= decay_after, decay, 1.0)
+    return Schedule(fn)
 
 
 # ---------------------------------------------------------------------------
@@ -135,8 +147,22 @@ def ema(decay: float = 0.999) -> Ema:
 # AdamW (AF2 trains with Adam; weight decay off by default) and SGD
 # ---------------------------------------------------------------------------
 
-def _schedule(lr) -> Schedule:
-    return lr if callable(lr) else (lambda step: float(lr))
+def _schedule(lr):
+    if callable(lr):
+        return lr
+    return Schedule(lambda s: torch.full_like(s, lr))
+
+
+def _on_device(sched, step: torch.Tensor) -> torch.Tensor:
+    if not isinstance(sched, Schedule):
+        raise ValueError("the device update needs a Schedule of this module "
+                         f"or a number as its learning rate, got {sched!r}")
+    return sched.on_device(step)
+
+
+def _bias_correction(beta: float, step: torch.Tensor) -> torch.Tensor:
+    """1 - beta ** step in fp32, ``step`` a 0-d fp32 tensor."""
+    return 1.0 - torch.full_like(step, beta) ** step
 
 
 def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -149,15 +175,11 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                                       device=p.device)
         return OptState(step=0, mu=_map(zeros, params), nu=_map(zeros, params))
 
-    @torch.no_grad()
-    def update(grads, state, params):
+    def step_params(grads, state, params, lr_t, c1, c2):
+        """The moments and parameters in place; ``lr_t``, ``c1``, ``c2``
+        Python floats or 0-d fp32 tensors of the same values."""
         if clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, clip_norm)
-        step = state.step + 1
-        lr_t = sched(step)
-        st = torch.tensor(float(step), dtype=torch.float32)
-        c1 = float(1.0 - torch.tensor(b1, dtype=torch.float32) ** st)
-        c2 = float(1.0 - torch.tensor(b2, dtype=torch.float32) ** st)
         for k, p in _items(params):
             m, v, g = state.mu[k], state.nu[k], grads[k].float()
             m.mul_(b1).add_((1 - b1) * g)
@@ -166,9 +188,24 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             if weight_decay:
                 delta = delta + weight_decay * p.float()
             p.copy_(p.float() - lr_t * delta)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state.step + 1
+        st = torch.tensor(float(step), dtype=torch.float32)
+        step_params(grads, state, params, sched(step),
+                    float(_bias_correction(b1, st)),
+                    float(_bias_correction(b2, st)))
         return params, OptState(step=step, mu=state.mu, nu=state.nu)
 
-    return Optimizer(init=init, update=update, per_sample_clip=per_sample_clip)
+    @torch.no_grad()
+    def apply(grads, state, params, step: torch.Tensor):
+        step_params(grads, state, params, _on_device(sched, step),
+                    _bias_correction(b1, step), _bias_correction(b2, step))
+        return params
+
+    return Optimizer(init=init, update=update, apply=apply,
+                     per_sample_clip=per_sample_clip)
 
 
 def sgd(lr, *, momentum: float = 0.0, clip_norm: Optional[float] = None,
@@ -181,16 +218,24 @@ def sgd(lr, *, momentum: float = 0.0, clip_norm: Optional[float] = None,
         # nu stays zeros (unused); its own tensors, as mu is updated in place
         return OptState(step=0, mu=_map(zeros, params), nu=_map(zeros, params))
 
-    @torch.no_grad()
-    def update(grads, state, params):
+    def step_params(grads, state, params, lr_t):
         if clip_norm is not None:
             grads, _ = clip_by_global_norm(grads, clip_norm)
-        step = state.step + 1
-        lr_t = sched(step)
         for k, p in _items(params):
             m = state.mu[k]
             m.mul_(momentum).add_(grads[k].float())
             p.copy_(p.float() - lr_t * m)
+
+    @torch.no_grad()
+    def update(grads, state, params):
+        step = state.step + 1
+        step_params(grads, state, params, sched(step))
         return params, OptState(step=step, mu=state.mu, nu=state.nu)
 
-    return Optimizer(init=init, update=update, per_sample_clip=per_sample_clip)
+    @torch.no_grad()
+    def apply(grads, state, params, step: torch.Tensor):
+        step_params(grads, state, params, _on_device(sched, step))
+        return params
+
+    return Optimizer(init=init, update=update, apply=apply,
+                     per_sample_clip=per_sample_clip)

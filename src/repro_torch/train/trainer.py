@@ -6,66 +6,126 @@ warmup_steps=100)`` with per-sample clipping at 0.1, EMA 0.999, stochastic
 recycling (``n_recycle`` drawn from 1..``max_recycle`` per step,
 deterministically in (seed, step)), dropout on.  Every attention and
 triangle update runs on the hand-written kernels (their plain versions on
-the CPU).  Evaluation, checkpoints, the step watchdog, telemetry and the
-data pipeline of the reference are not ported yet.
+the CPU).
+
+The reference compiles one step for every draw (``n_recycle`` is a traced
+loop bound).  On the card the port captures the whole step (forward,
+backward, clipping, AdamW, EMA) as a CUDA graph, one per drawn
+``n_recycle``, and replays it with each step's batch, dropout key and
+optimizer step copied into its static inputs.  Evaluation (lDDT-Cα of the
+EMA parameters on the held-out split) goes through a ``FoldEngine``, graphed
+too.  Checkpoints, the step watchdog, telemetry and the data pipeline of
+the reference are not ported yet.
 """
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import graphs as graphs_lib
+from repro_torch.core import heads as heads_lib
 from repro_torch.core.config import with_kernels
-from repro_torch.core.model import AlphaFold2
+from repro_torch.core.model import AlphaFold2, to_device
 from repro_torch.data.protein import protein_batch
 from repro_torch.device import resolve_device
+from repro_torch.serve import fold_steps as fs
+from repro_torch.serve.fold_engine import FoldEngine
 from repro_torch.train import optim as optim_lib
-from repro_torch.train.trainstep import init_state, make_af2_train_step
+from repro_torch.train.trainstep import (METRICS, init_state, make_step_body,
+                                         step_inputs)
 
 
 class TrainRunner:
     """Drive AF2 training for a config on one device.
 
-    ``ema_decay=None`` keeps no EMA copy; ``recycle_sample=False`` runs the
-    fixed ``n_recycle`` every step.  ``device``: ``cuda`` unless ``"cpu"``
-    is passed (raises without a card).  ``model``: the AlphaFold2 to train
-    (on ``device``), else one initialised from ``seed``.  ``state`` holds ``params`` (the
-    model), ``opt`` and ``ema``; ``history`` the per-step ``loss``,
-    ``n_recycle`` and ``step_s`` (wall seconds, ending in a synchronize on
-    the card).
+    ``ema_decay=None`` keeps no EMA copy (evaluation then uses the raw
+    parameters); ``recycle_sample=False`` runs the fixed ``n_recycle`` every
+    step.  ``device``: ``cuda`` unless ``"cpu"`` is passed (raises without a
+    card).  ``model``: the AlphaFold2 to train (on ``device``), else one
+    initialised from ``seed``.  ``dtype``: the compute dtype of training and
+    evaluation (the fp32 masters are cast to it).  ``graphs``: replay each
+    step from a CUDA graph captured at the first step of its draw (all
+    draws in one memory pool); None means on for a CUDA device and off on
+    the CPU, True on the CPU raises ValueError.  ``eval_every``: evaluate
+    every that many steps (0: only when :meth:`evaluate` is called), over
+    ``eval_batches`` held-out batches of ``eval_batch_size`` proteins with
+    ``eval_n_recycle`` cycles (default ``max_recycle``).
+
+    ``state`` holds ``params`` (the model), ``opt`` and ``ema``;
+    ``history`` the per-step ``loss``, ``n_recycle`` and ``step_s`` (wall
+    seconds, ending in a synchronize on the card) and the ``eval`` rows
+    ({"step", "lddt_ca"}); ``last_metrics`` the last step's
+    ``trainstep.METRICS`` as floats.
     """
 
     def __init__(self, cfg, *, optimizer=None, batch_size: int = 1,
                  seed: int = 0, n_recycle: int = 1, recycle_sample: bool = True,
                  max_recycle: Optional[int] = None,
                  ema_decay: Optional[float] = 0.999,
-                 deterministic: bool = False, device=None, model=None):
+                 eval_every: int = 0, eval_batches: int = 1,
+                 eval_batch_size: int = 2, eval_n_recycle: Optional[int] = None,
+                 deterministic: bool = False, device=None, model=None,
+                 graphs: Optional[bool] = None, dtype=torch.bfloat16):
         self.device = resolve_device(device)
+        self.graphs = graphs_lib.use_graphs(graphs, self.device)
         self.cfg = with_kernels(cfg)
         self.seed = seed
         self.batch_size = batch_size
         self.n_recycle = n_recycle
         self.recycle_sample = recycle_sample
         self.max_recycle = max_recycle or cfg.max_recycle
+        self.eval_every = eval_every
+        self.eval_batches = eval_batches
+        self.eval_batch_size = eval_batch_size
+        self.eval_n_recycle = eval_n_recycle or self.max_recycle
+        self.dtype = dtype
         self.optimizer = optimizer or optim_lib.adamw(
             optim_lib.af2_lr_schedule(1e-3, warmup_steps=100),
             per_sample_clip=0.1)
         self.ema = optim_lib.ema(ema_decay) if ema_decay else None
-        self._train_step = make_af2_train_step(
-            self.cfg, self.optimizer, n_recycle=n_recycle,
-            deterministic=deterministic, device=self.device, ema=self.ema)
+        self._body = make_step_body(self.cfg, self.optimizer,
+                                    deterministic=deterministic, ema=self.ema,
+                                    dtype=dtype)
         if model is None:
             model = AlphaFold2(self.cfg, seed=seed, device=self.device)
         self.state = init_state(model, self.optimizer, self.ema)
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self._steps: dict = {}          # n_recycle -> its step
+        self._batch_keys: Optional[list] = None
+        self._eval_eng: Optional[FoldEngine] = None
         self.step = 0
-        self.history = {"loss": [], "n_recycle": [], "step_s": []}
+        self.history = {"loss": [], "n_recycle": [], "step_s": [], "eval": []}
         self.last_metrics: dict = {}
 
     @property
     def model(self) -> AlphaFold2:
         return self.state["params"]
+
+    # -- compile accounting -------------------------------------------------
+
+    @property
+    def train_compiles(self) -> int:
+        """Training steps built so far: one per distinct ``n_recycle`` drawn,
+        so at most ``max_recycle``.  The reference's count stays 1, since
+        its draw is a traced loop bound; a CUDA graph has no data-dependent
+        loop bound, so each draw is a graph of its own."""
+        return len(self._steps)
+
+    @property
+    def eval_compiles(self) -> int:
+        """The eval FoldEngine's ``compile_misses``: 1 once :meth:`evaluate`
+        ran (one bucket), however often it runs."""
+        return self._eval_eng.compile_misses if self._eval_eng else 0
+
+    @property
+    def compile_misses(self) -> int:
+        return self.train_compiles + self.eval_compiles
+
+    # -- stochastic recycling -----------------------------------------------
 
     def recycle_draw(self, step: int) -> int:
         """This step's ``n_recycle``: Uniform{1..max_recycle}, deterministic
@@ -78,16 +138,49 @@ class TrainRunner:
     def batch(self, step: int) -> dict:
         return protein_batch(self.seed, step, self.batch_size, self.cfg)
 
+    # -- the step -----------------------------------------------------------
+
+    def step_for(self, n_recycle: int):
+        """The training step of this draw, built once: ``step(*tensors)``
+        over the batch's tensors (sorted by key), the dropout key lanes and
+        the optimizer step; a ``graphs.CapturedStep`` when graphed."""
+        if n_recycle not in self._steps:
+            fn = functools.partial(self._run_body, n_recycle)
+            self._steps[n_recycle] = (
+                graphs_lib.CapturedStep(fn, pool=self._pool) if self.graphs
+                else fn)
+        return self._steps[n_recycle]
+
+    def _run_body(self, n_recycle: int, *tensors):
+        n = len(self._batch_keys)
+        return self._body(self.state, dict(zip(self._batch_keys, tensors[:n])),
+                          *tensors[n:], n_recycle)
+
+    def _train_step(self, step: int, batch: dict, nr: int) -> dict:
+        batch, key, opt_step = step_inputs(batch, (self.seed, step),
+                                           self.state["opt"].step + 1,
+                                           self.device)
+        if self._batch_keys is None:
+            self._batch_keys = sorted(batch)
+        elif sorted(batch) != self._batch_keys:
+            raise ValueError(f"batch keys {sorted(batch)} != the step's "
+                             f"{self._batch_keys}")
+        out = self.step_for(nr)(*(batch[k] for k in self._batch_keys), key,
+                                opt_step)
+        # read now: the next replay of any graph of the pool overwrites them
+        metrics = {k: float(v) for k, v in zip(METRICS, out)}
+        opt = self.state["opt"]
+        self.state["opt"] = opt._replace(step=opt.step + 1)
+        return metrics
+
     def run(self, steps: int, *, log_every: int = 0, log=print) -> dict:
-        """Train until global step ``steps`` (continuing from ``self.step``);
-        returns ``history``."""
+        """Train until global step ``steps`` (continuing from ``self.step``),
+        evaluating every ``eval_every`` steps; returns ``history``."""
         for step in range(self.step, steps):
             batch = self.batch(step)
             nr = self.recycle_draw(step)
             t0 = time.perf_counter()
-            self.state, metrics = self._train_step(
-                self.state, batch, (self.seed, step),
-                nr if self.recycle_sample else None)
+            metrics = self._train_step(step, batch, nr)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             dt = time.perf_counter() - t0
@@ -99,4 +192,68 @@ class TrainRunner:
             if log_every and step % log_every == 0:
                 log(f"step {step:5d}  loss {metrics['loss']:.4f}  n_recycle "
                     f"{nr}  ({self.batch_size / max(dt, 1e-9):.2f} protein/s)")
+            if self.eval_every and self.step % self.eval_every == 0:
+                ev = self.evaluate()
+                self.history["eval"].append({"step": self.step,
+                                             "lddt_ca": ev["lddt_ca"]})
+                if log_every:
+                    log(f"  eval @ {self.step}: lDDT-Cα {ev['lddt_ca']:.2f} "
+                        f"(ema={self.ema is not None}, "
+                        f"{self.batch_size / max(dt, 1e-9):.2f} protein/s)")
         return self.history
+
+    # -- evaluation ---------------------------------------------------------
+
+    def eval_params(self):
+        """The weights evaluation runs with: the EMA (fp32 by key path) when
+        enabled, else the raw parameters (the model)."""
+        return self.state.get("ema", self.model)
+
+    def _eval_engine(self) -> FoldEngine:
+        """The serving engine evaluation runs through, built once: one
+        full-shape bucket, ``eval_batch_size`` proteins a step, exactly
+        ``eval_n_recycle`` cycles (tol 0), graphed as training is.  It holds
+        its own weights in the compute dtype, which :meth:`evaluate` loads
+        before each use; its graphs keep their addresses."""
+        if self._eval_eng is None:
+            cfg = self.cfg
+            self._eval_eng = FoldEngine(
+                cfg, self.model,
+                buckets=[fs.Bucket(cfg.n_res, cfg.n_seq, cfg.n_extra_seq)],
+                micro_batch=self.eval_batch_size,
+                max_recycle=self.eval_n_recycle, tol=0.0, dtype=self.dtype,
+                device=self.device, graphs=self.graphs)
+        return self._eval_eng
+
+    @torch.no_grad()
+    def evaluate(self) -> dict:
+        """lDDT-Cα over the held-out split (``protein_batch(split='val')``)
+        with the EMA parameters: ``core.model.predict`` with tol 0 (exactly
+        ``eval_n_recycle`` cycles) through the eval engine's step, scored by
+        ``heads.lddt_ca``.  Returns the mean ``lddt_ca``, the ``per_sample``
+        scores and the ``coords``, ``true_trans`` and ``res_mask`` they came
+        from (numpy)."""
+        eng = self._eval_engine()
+        eng.load_weights(self.eval_params())
+        step = eng.step_for(eng.buckets[0])
+        keys = fs.REQUEST_FEATURE_KEYS + ("res_mask",)
+        lddts, coords, truths, masks = [], [], [], []
+        for b in range(self.eval_batches):
+            batch = protein_batch(self.seed, b, self.eval_batch_size,
+                                  self.cfg, split="val")
+            out = step(eng.params, {k: batch[k] for k in keys})
+            c = out["coords"].float()
+            truth = to_device({k: batch[k] for k in ("true_trans", "res_mask")},
+                              c.device)
+            lddts.append(torch.stack([
+                heads_lib.lddt_ca(c[i], truth["true_trans"][i],
+                                  truth["res_mask"][i])
+                for i in range(self.eval_batch_size)]).cpu().numpy())
+            coords.append(c.cpu().numpy())
+            truths.append(batch["true_trans"])
+            masks.append(batch["res_mask"])
+        lddts = np.concatenate(lddts)
+        return {"lddt_ca": float(lddts.mean()), "per_sample": lddts,
+                "coords": np.concatenate(coords),
+                "true_trans": np.concatenate(truths),
+                "res_mask": np.concatenate(masks)}

@@ -29,6 +29,8 @@ import torch
 
 from repro_torch.kernels import ref
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 BF16 = torch.bfloat16
 LOG2E = 1.4426950408889634
 

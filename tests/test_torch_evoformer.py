@@ -83,9 +83,10 @@ def test_evoformer_block_matches_jax(block_params, stack, variant, masked,
     jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
     tdt = getattr(torch, dtype)
     jmasks = jevo.EvoMasks(jnp.asarray(rows), jnp.asarray(res)) if masked else None
-    m_j, z_j = jevo.evoformer_block(jnn.Policy(compute_dtype=jdt).cast(params),
-                                    ev, jnp.asarray(msa, jdt),
-                                    jnp.asarray(z, jdt), masks=jmasks)
+    # one compile of the whole block (op by op, JAX compiles every op)
+    m_j, z_j = jax.jit(lambda p, m, zz, mk: jevo.evoformer_block(
+        jnn.Policy(compute_dtype=jdt).cast(p), ev, m, zz, masks=mk))(
+        params, jnp.asarray(msa, jdt), jnp.asarray(z, jdt), jmasks)
 
     pev = _port_cfg(ev)
     block = load_into(tevo.EvoformerBlock(pev, generator=torch.Generator()),

@@ -11,6 +11,8 @@ from repro.serve import fold_steps as jfs
 from repro_torch.data.synthetic import fold_features
 from repro_torch.serve import fold_steps as tfs
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 @pytest.mark.parametrize("preset", ["af2_tiny", "af2_small", "af2_initial",
                                     "af2_finetune"])

@@ -1,23 +1,29 @@
-"""The port's captured serving steps (``repro_torch.graphs``): the sample-
-cycle ``FoldEngine`` captures, the ``DecodeEngine`` steps' static buffers,
-the launch credits of a replay, and (on the card) graphed against eager
-serving, bit for bit.
+"""The port's captured steps (``repro_torch.graphs``): the sample-cycle
+``FoldEngine`` captures, the ``DecodeEngine`` steps' static buffers, the
+launch credits of a replay, and (on the card) graphed against eager
+serving, bit for bit, and graphed against eager training (``TrainRunner``,
+one graph per drawn ``n_recycle``) with its evaluation.
 
 CPU cases run at af2_tiny and glm4-9b's reduced config; the ``cuda`` cases
 skip without a card (the ``cuda_dev`` fixture decides at run time).  On the
 card: ``PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_graphs.py``.
 
-Tolerance: none.  A graph replays the launches of the eager step it was
-captured from, in the same order on the same inputs, and no kernel sums
-with atomics, so graphed and eager results are compared for equality.
+Tolerance: none for serving.  A graph replays the launches of the eager
+step it was captured from, in the same order on the same inputs, and no
+kernel sums with atomics, so graphed and eager results are compared for
+equality.  Training is held to the distance between two eager runs of the
+same steps, since autograd's own backward kernels (index and scatter
+gradients) may sum with atomics.
 """
 import contextlib
+import copy
 
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import configs, graphs
+from repro_torch.core import evoformer as evo
 from repro_torch.core import model as af2
 from repro_torch.core.config import af2_tiny, with_kernels
 from repro_torch.data.synthetic import make_fold_requests
@@ -28,6 +34,9 @@ from repro_torch.models.lmconfig import with_kernels as lm_with_kernels
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.engine import DecodeEngine, Request
 from repro_torch.serve.fold_engine import FoldEngine
+from repro_torch.train.trainer import TrainRunner
+
+import torch_threads  # noqa: F401  (one intra-op thread)
 
 CFG = with_kernels(af2_tiny())
 LM_CFG = lm_with_kernels(configs.get_smoke_config("glm4-9b"))
@@ -102,21 +111,34 @@ def test_graphs_need_a_cuda_device():
     engine = DecodeEngine(get_model(LM_CFG), LM_CFG, params, batch_slots=1,
                           max_len=16, device="cpu")
     assert engine.graphs is False and engine.compile_misses == 1
+    with pytest.raises(ValueError, match="CUDA"):
+        TrainRunner(CFG, device="cpu", graphs=True)
+    assert TrainRunner(CFG, device="cpu").graphs is False
 
 
-def test_fold_engine_loads_weights_into_its_storage():
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_fold_engine_loads_weights_into_its_storage(dtype):
     """load_weights copies into the cast module the graphs read: same
-    tensors, same storage, the new values in the engine's dtype."""
-    engine = FoldEngine(CFG, _fold_model(seed=0), device="cpu")
+    tensors, same storage, the new values in the engine's dtype; a model
+    or a dict by key path (an EMA).  The engine owns that storage, also
+    when the model is already in its dtype: the caller's model is never
+    written."""
+    model = _fold_model(seed=0)
+    before = {k: p.clone() for k, p in model.named_parameters()}
+    engine = FoldEngine(CFG, model, device="cpu", dtype=dtype)
     params = list(engine.params.parameters())
     ptrs = [p.data_ptr() for p in params]
     new = _fold_model(seed=4)
-    engine.load_weights(new)
-    assert list(engine.params.parameters()) == params
-    assert [p.data_ptr() for p in params] == ptrs
-    for got, src in zip(params, new.parameters()):
-        assert got.dtype == torch.bfloat16
-        assert torch.equal(got, src.to(torch.bfloat16))
+    for weights in (new, {k: p.detach() for k, p in new.named_parameters()}):
+        engine.load_weights(weights)
+        assert list(engine.params.parameters()) == params
+        assert [p.data_ptr() for p in params] == ptrs
+        for got, src in zip(params, new.parameters()):
+            assert got.dtype == dtype
+            assert torch.equal(got, src.to(dtype))
+    assert all(torch.equal(p, before[k]) for k, p in model.named_parameters())
+    with pytest.raises(ValueError, match="match"):
+        engine.load_weights({"heads.distogram.w": params[0]})
 
 
 def test_decode_engine_reused_slot_equals_fresh_engines():
@@ -309,3 +331,67 @@ def test_graphed_decode_and_prefill_equal_eager_bit_for_bit(cuda_dev,
     assert len(rows) == len(want_rows)
     for i, (g, w) in enumerate(zip(rows, want_rows)):
         assert torch.equal(g, w), i
+
+
+def _train_diff(a, b) -> dict:
+    """Max |diff| of two runners' losses, parameters and EMA."""
+    return {
+        "loss": max(abs(x - y) for x, y in zip(a.history["loss"],
+                                                 b.history["loss"])),
+        "params": max((p - q).abs().max().item() for p, q in
+                      zip(a.model.parameters(), b.model.parameters())),
+        "ema": max((a.state["ema"][k] - b.state["ema"][k]).abs().max().item()
+                   for k in a.state["ema"])}
+
+
+@pytest.mark.cuda
+def test_graphed_training_equals_eager_and_evaluates_once(cuda_dev, captures):
+    """af2_tiny, dropout on, six steps whose draws (seed 17: 3, 1, 4, 2, 4,
+    3) cover every n_recycle of 1..4: the graphed runner's losses,
+    parameters and EMA lie no farther from an eager run's than a second
+    eager run's do; one training graph per distinct draw, replayed with
+    new batches, dropout keys and optimizer steps; the launches credited
+    by replays equal the eager run's; two evaluations capture the eval
+    engine's step once and agree."""
+    model = _fold_model()
+
+    def run(graphs):
+        runner = TrainRunner(CFG, seed=17, device=cuda_dev, graphs=graphs,
+                             model=copy.deepcopy(model).to(cuda_dev))
+        ops.reset_launch_counts()
+        runner.run(6)
+        torch.cuda.synchronize()
+        return runner, ops.launch_counts()
+
+    (eager, counts), (again, _), (graphed, g_counts) = (
+        run(False), run(False), run(None))
+    assert graphed.graphs and graphed.history["n_recycle"] == [3, 1, 4, 2, 4, 3]
+    assert graphed.train_compiles == len(captures) == 4
+    assert g_counts == counts and counts["evo_attention_bwd"] > 0
+    d_eager, d_graphed = _train_diff(eager, again), _train_diff(eager, graphed)
+    for k in d_eager:
+        assert d_graphed[k] <= d_eager[k], (k, d_graphed, d_eager)
+    first, second = graphed.evaluate(), graphed.evaluate()
+    assert graphed.eval_compiles == 1 and len(captures) == 5
+    assert graphed.compile_misses == 5
+    np.testing.assert_array_equal(first["coords"], second["coords"])
+    assert np.isfinite(first["coords"]).all()
+
+
+@pytest.mark.cuda
+def test_dropout_mask_on_the_card_equals_the_cpu_mask(cuda_dev):
+    """The hash dropout's integer arithmetic gives the same mask bits on the
+    card as on the CPU, for the same words and path."""
+    x = torch.ones((48, 80, 4))
+    for dev_key, cpu_key in ((evo.dropout_key((5, 9), cuda_dev),
+                              evo.dropout_key((5, 9), "cpu")),
+                             ((5, 9), (5, 9))):
+        for axis in (0, 1):
+            rng = evo.fold_in(evo.fold_in(dev_key, 1), 3)
+            want = evo.shared_dropout(x, 0.25, shared_axis=axis,
+                                      rng=evo.fold_in(evo.fold_in(cpu_key, 1), 3),
+                                      deterministic=False)
+            got = evo.shared_dropout(x.to(cuda_dev), 0.25, shared_axis=axis,
+                                     rng=rng, deterministic=False)
+            assert torch.equal(got.cpu(), want)
+

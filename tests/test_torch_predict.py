@@ -1,8 +1,9 @@
 """The port's serving path end to end against the JAX package, at af2_tiny:
 ``predict`` on a padded batch, ``FoldEngine.run`` on a mixed-length queue,
-and the launcher in a subprocess.
+``TrainRunner.evaluate`` (which serves through a FoldEngine), and the
+launcher in a subprocess.
 
-Both sides get the same JAX params (``init_params``, perturbed as
+Both sides get the same JAX params (the init rules' tree, perturbed as
 ``tests/util.py::randomize`` does, in numpy) through the bridge, and the
 same numpy features.  JAX runs its ``chunked`` impls, the port its kernel
 impls (plain versions on CPU tensors), everything in fp32.  Tolerance
@@ -11,6 +12,7 @@ reference's own padded-vs-unpadded pins (tests/test_fold_engine.py); a
 fold chains two recycles of the whole trunk and eight IPA layers.
 Recycle counts and convergence flags must match exactly.
 """
+import copy
 import dataclasses
 import os
 import subprocess
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import heads as jheads
 from repro.core import model as jaf2
 from repro.core.config import af2_tiny
 from repro.serve import FoldEngine as JaxFoldEngine
@@ -29,11 +32,13 @@ from repro.serve import FoldRequest as JaxFoldRequest
 from repro.serve.fold_steps import Bucket as JaxBucket
 
 from repro_torch.core import model as taf2
+from repro_torch.data.protein import protein_batch
 from repro_torch.data.synthetic import fold_features
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.fold_engine import FoldEngine, FoldRequest
+from repro_torch.train.trainer import TrainRunner
 
-from torch_util import load_into, port_cfg, randomize_np, to_np
+from torch_util import af2_tree, load_into, port_cfg, randomize_np, to_np
 
 CFG = af2_tiny()
 PCFG = port_cfg(CFG)
@@ -41,7 +46,7 @@ PCFG = port_cfg(CFG)
 
 @pytest.fixture(scope="module")
 def init_params():
-    return jax.jit(lambda k: jaf2.init_params(k, CFG))(jax.random.PRNGKey(0))
+    return af2_tree(CFG)
 
 
 def _models(init_params, scale, backbone_gain=1.0):
@@ -157,6 +162,34 @@ def test_fold_engine_matches_jax_engine(models):
         np.testing.assert_allclose(got[rid].plddt, want[rid].plddt,
                                    atol=1e-3, rtol=0)
         assert got[rid].n_recycles == want[rid].n_recycles == 2
+
+
+def test_trainrunner_evaluate_matches_jax_predict_and_lddt(models):
+    """``TrainRunner.evaluate`` (EMA weights, the held-out batch, tol 0,
+    ``eval_n_recycle`` cycles through its FoldEngine) against the
+    reference's ``predict`` and ``heads.lddt_ca`` on the same weights and
+    batch: coordinates within 1e-4, lDDT-Cα within 1e-4 of the
+    reference's on its own coordinates.  Before any step the EMA equals
+    the model's weights, the randomized ones of ``models``."""
+    params, model = models
+    runner = TrainRunner(PCFG, seed=3, eval_n_recycle=2, device="cpu",
+                         dtype=torch.float32, model=copy.deepcopy(model))
+    got = runner.evaluate()
+    assert runner.eval_compiles == 1 and runner.train_compiles == 0
+    batch = protein_batch(3, 0, runner.eval_batch_size, PCFG, split="val")
+    keys = fs.REQUEST_FEATURE_KEYS + ("res_mask",)
+    want = _jax_predict(params, {k: batch[k] for k in keys}, max_recycle=2,
+                        tol=0.0)
+    assert np.abs(to_np(want["coords"])).max() > 0.1     # a real structure
+    np.testing.assert_allclose(got["coords"], to_np(want["coords"]),
+                               atol=1e-4, rtol=0)
+    want_lddt = np.asarray(jax.vmap(jheads.lddt_ca)(
+        want["coords"], batch["true_trans"], batch["res_mask"]))
+    np.testing.assert_allclose(got["per_sample"], want_lddt, atol=1e-4,
+                               rtol=0)
+    assert abs(got["lddt_ca"] - float(want_lddt.mean())) <= 1e-4
+    np.testing.assert_array_equal(got["true_trans"], batch["true_trans"])
+    np.testing.assert_array_equal(got["res_mask"], batch["res_mask"])
 
 
 def test_engine_defaults_to_cuda_and_raises_without_it(models, monkeypatch):

@@ -10,7 +10,6 @@ the loss by O(1).
 """
 import jax
 import jax.numpy as jnp
-import numpy as np
 import torch
 
 from repro.core import model as jaf2
@@ -20,7 +19,7 @@ from repro_torch import bridge
 from repro_torch.core import model as taf2
 from repro_torch.data.protein import protein_batch
 
-from torch_util import np_tree, port_cfg, randomize_np
+from torch_util import af2_tree, port_cfg, randomize_np
 
 CFG = af2_tiny()
 PCFG = port_cfg(CFG)
@@ -28,8 +27,7 @@ RTOL = 2e-2
 
 
 def test_bf16_loss_matches_jax_loss_fn():
-    params = randomize_np(np_tree(jax.jit(
-        lambda k: jaf2.init_params(k, CFG))(jax.random.PRNGKey(0))), seed=5)
+    params = randomize_np(af2_tree(CFG), seed=5)
     sample = {k: v[1] for k, v in protein_batch(0, 0, 2, PCFG).items()}
     loss_j, metrics_j = jax.jit(lambda p, b: jaf2.loss_fn(p, CFG, b))(
         params, {k: jnp.asarray(v) for k, v in sample.items()})

@@ -180,3 +180,52 @@ def test_dropout_masks_differ_across_cycles_and_steps():
         for j in range(i + 1, 3):
             agree = (masks[i] == masks[j]).float().mean().item()
             assert agree < 0.8      # independent masks agree ~62.5%
+
+
+def _key(*words):
+    """A training step's dropout key: device lanes of (seed, step)."""
+    return tevo.dropout_key(words, "cpu")
+
+
+@pytest.mark.parametrize("rate", [0.15, 0.25])
+def test_hash_dropout_key_is_shared_scaled_and_keeps_one_minus_rate(rate):
+    """The Key form: one keep/drop per row or column, kept entries scaled
+    by 1 / (1 - rate), a keep rate within 5 binomial sigmas of 1 - rate,
+    and the same words and path give the same mask."""
+    x = torch.ones((64, 96, 4))
+    key = tevo.fold_in(tevo.fold_in(_key(3, 7), 0), 2)  # protein 0, cycle 2
+    for axis in (0, 1):
+        y = tevo.shared_dropout(x, rate, shared_axis=axis, rng=key,
+                                deterministic=False)
+        kept = y != 0
+        assert bool((kept == kept.select(axis, 0).unsqueeze(axis)).all())
+        assert torch.allclose(y[kept], torch.full_like(y[kept],
+                                                       1 / (1 - rate)))
+        n = x.numel() // x.shape[axis]
+        p = 1 - rate
+        assert abs(kept.float().mean().item() - p) < 5 * (p * rate / n) ** 0.5
+        again = tevo.Key(_key(3, 7).lanes, (0, 2))
+        assert torch.equal(y, tevo.shared_dropout(
+            x, rate, shared_axis=axis, rng=again, deterministic=False))
+    big = torch.ones((1, 200_000))
+    kept = tevo.shared_dropout(big, rate, shared_axis=0, rng=key,
+                               deterministic=False) != 0
+    p = 1 - rate
+    assert abs(kept.float().mean().item() - p) < 5 * (p * rate / big.numel()) ** 0.5
+    # neighbouring elements are independent: both kept with probability p^2
+    both = (kept[0, 1:] & kept[0, :-1]).float().mean().item()
+    assert abs(both - p * p) < 5 * (p * p * (1 - p * p) / big.numel()) ** 0.5
+
+
+def test_hash_dropout_masks_differ_across_cycles_steps_and_proteins():
+    x = torch.ones((32, 64, 2))
+    mask = lambda rng: (tevo.shared_dropout(x, 0.25, shared_axis=0, rng=rng,
+                                            deterministic=False) != 0)
+    protein = lambda step, b: tevo.fold_in(_key(0, step), b)
+    masks = [mask(cycle_rng(protein(0, 0), 0)), mask(cycle_rng(protein(0, 0), 1)),
+             mask(cycle_rng(protein(1, 0), 0)), mask(cycle_rng(protein(0, 1), 0))]
+    for i in range(len(masks)):
+        for j in range(i + 1, len(masks)):
+            agree = (masks[i] == masks[j]).float().mean().item()
+            assert agree < 0.8      # independent masks agree ~62.5%
+

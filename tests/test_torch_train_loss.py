@@ -32,7 +32,7 @@ from repro_torch.data.protein import protein_batch
 from repro_torch.train import optim as toptim
 from repro_torch.train.trainstep import init_state, make_af2_train_step
 
-from torch_util import np_tree, port_cfg, randomize_np
+from torch_util import af2_tree, np_tree, port_cfg, randomize_np
 
 CFG = af2_tiny()
 PCFG = port_cfg(CFG)
@@ -62,8 +62,7 @@ def jax_loss(params, batch, n_recycle):
 
 @pytest.fixture(scope="module")
 def setup():
-    params = randomize_np(np_tree(jax.jit(
-        lambda k: jaf2.init_params(k, CFG))(jax.random.PRNGKey(0))), seed=5)
+    params = randomize_np(af2_tree(CFG), seed=5)
     batch = protein_batch(0, 0, 2, PCFG)
     vg = jax.jit(jax.value_and_grad(jax_loss))
     return params, batch, vg
@@ -119,9 +118,12 @@ def test_per_sample_clip_matches_oracle(setup):
     clip, lr = 0.1, 0.05
     params, batch, _ = setup
     gs = [_jax_grads(setup, b, 1)[1] for b in range(2)]
-    norms = [float(joptim.global_norm(g)) for g in gs]
+    # one compiled oracle (op by op, JAX compiles each op for each leaf shape)
+    norm_and_clip = jax.jit(lambda g: (joptim.global_norm(g),
+                                       joptim.clip_by_global_norm(g, clip)[0]))
+    norms, clipped = zip(*((float(n), np_tree(c)) for n, c in
+                           map(norm_and_clip, gs)))
     assert max(norms) > clip * 0.99           # clipping actually engaged
-    clipped = [np_tree(joptim.clip_by_global_norm(g, clip)[0]) for g in gs]
     expect = jax.tree_util.tree_map(lambda p, a, b: p - lr * (a + b) / 2.0,
                                     params, *clipped)
 

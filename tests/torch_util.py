@@ -8,6 +8,8 @@ import torch
 
 from repro_torch import bridge
 
+import torch_threads  # noqa: F401  (one intra-op thread)
+
 
 def np_tree(params):
     """JAX pytree -> the same nested dict with numpy leaves."""
@@ -23,6 +25,17 @@ def randomize_np(tree, seed: int, scale: float = 0.02):
     return jax.tree_util.tree_map(
         lambda x: (np.asarray(x) + scale * rng.standard_normal(np.shape(x))
                    ).astype(np.asarray(x).dtype), tree)
+
+
+def af2_tree(cfg, seed: int = 0) -> dict:
+    """An AlphaFold2 param tree in the reference's layout (numpy leaves), from
+    the port's own initialisation: the reference's shapes and init rules
+    (pinned by tests/test_torch_bridge.py), without compiling
+    ``jax.jit(init_params)``, which takes 15-40 s of CPU at af2_tiny.
+    ``cfg`` is the reference's config."""
+    from repro_torch.core.model import AlphaFold2
+    model = AlphaFold2(port_cfg(cfg), seed=seed, device="cpu")
+    return bridge.state_dict_to_params(model.state_dict())
 
 
 def load_into(module, params, *, stacked=bridge.STACKED):
