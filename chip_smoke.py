@@ -42,7 +42,8 @@ Phases, each raising on failure (exit code != 0, no result line):
      bf16.
   9. training main path: TrainRunner at af2_initial width and depth (48 + 4
      blocks, r 256 s 128 se 1024), batch 1, its defaults (AdamW, per-sample
-     clipping, EMA, stochastic recycling 1..4, dropout, remat="block"),
+     clipping, EMA, stochastic recycling 1..4, dropout, remat="block", the
+     synthetic stream through the DataPipeline with its device stage),
      from the seeded model, three times over the same steps: eagerly
      (graphs=False), eagerly again (the yardstick of how far two eager runs
      agree) and graphed (one CUDA graph per drawn n_recycle).  Four warm-up
@@ -58,6 +59,19 @@ Phases, each raising on failure (exit code != 0, no result line):
      eager runner's FoldEngine and twice through the graphed one's
      (eval_compiles must stay 1, the two graphed evaluations agree), with
      train_compiles, eval_compiles and compile_misses.
+  9b. training data and checkpoints, af2_initial at full width and depth,
+     batch 1: (a) the record-path DataPipeline (8 demo FASTA records,
+     length-bucketed, 2 workers) places 6 batches on the card, which must
+     equal the same pipeline's batches on the CPU bit for bit; (b) graphed
+     TrainRunners on those records, one cycle a step, checkpoints every 3
+     steps (2 kept): run A trains 6 steps, run B (a runner from another
+     model seed) restores step 3 and trains to 6, run C (run A's runner)
+     restores step 3 into its captured graph and replays steps 3-5; B and C
+     must equal A within phase 9's eager-vs-eager distance, restoring
+     captures nothing, launch counts equal each run's steps; (c) two graphed
+     steps at remat="dots" against remat="block", the same bound, with
+     peak memory and step walls; featurize, stall, transfer, fill, bucket
+     counts, checkpoint bytes and snapshot / save / restore seconds.
  10. LM kernel: K6 (causal GQA flash attention) against its plain version at
      every shape the glm4-9b serving path gives it (prompts 512, 1000, 2048,
      3000), plus non-causal, T != S, ragged, fp32 and head dims 32 / 64.
@@ -89,6 +103,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1119,6 +1134,194 @@ def check_evaluation(ev, runner) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9b: training data on the card, checkpoints and resume, remat="dots"
+# ---------------------------------------------------------------------------
+
+DATA_BATCHES = 6
+RESUME_STEPS, RESUME_AT = 6, 3
+
+
+def fasta_source(cfg):
+    """8 deterministic demo FASTA records of 8..n_res residues."""
+    from repro_torch.data.ingest import FastaSource, demo_fasta
+    return FastaSource(demo_fasta(cfg, n_records=8, seed=TRAIN_SEED), cfg)
+
+
+def check_pipeline_on_card(cfg, dev):
+    """a. The record-path pipeline (length-bucketed, 2 workers) places its
+    batches on the card; each is read on the consumer's stream as a
+    captured step reads it (a copy into another buffer) while a matmul load
+    keeps that stream busy and the next batch's copy is in flight.  The
+    first DATA_BATCHES must equal the same pipeline's batches on the CPU
+    (no workers) bit for bit.  Returns the card pipeline's StageReport."""
+    from repro_torch.data.bucketing import train_bucket
+    from repro_torch.data.pipeline import DataPipeline
+    kw = dict(source=fasta_source(cfg), batch_size=1, seed=TRAIN_SEED,
+              bucket_by_length=True, pad_to=train_bucket(cfg))
+    want, got = [], []
+    cpu = DataPipeline(cfg, workers=0, **kw)
+    for step, batch in cpu:
+        want.append((step, batch))
+        if len(want) == DATA_BATCHES:
+            break
+    cpu.close()
+    load = torch.randn((4096, 4096), device=dev, dtype=torch.bfloat16)
+    card = DataPipeline(cfg, workers=2, device=dev, **kw)
+    for step, batch in card:
+        if not all(v.device.type == "cuda" for v in batch.values()):
+            raise AssertionError(f"step {step}: a batch tensor is not on "
+                                 "the card")
+        got.append((step, {k: v.clone() for k, v in batch.items()}))
+        for _ in range(50):
+            load = load @ load * 1e-2
+        if len(got) == DATA_BATCHES:
+            break
+    card.close()
+    torch.cuda.synchronize()
+    if [s for s, _ in got] != [s for s, _ in want]:
+        raise AssertionError(f"steps {[s for s, _ in got]} != "
+                             f"{[s for s, _ in want]}")
+    for (step, g), (_, w) in zip(got, want):
+        for k, v in w.items():
+            if not torch.equal(g[k].cpu(), torch.from_numpy(v)):
+                raise AssertionError(f"step {step}: {k} on the card differs "
+                                     "from the CPU pipeline's")
+    return card.report
+
+
+def resume_runner(cfg, dev, ckpt_dir, model_seed: int):
+    """A graphed TrainRunner on the FASTA records, one draw (n_recycle 1,
+    one capture), checkpoints every RESUME_AT steps, the newest 2 kept."""
+    from repro_torch.train.trainer import TrainRunner
+    return TrainRunner(cfg, batch_size=1, seed=TRAIN_SEED, device=dev,
+                       model=seeded_model(cfg, seed=model_seed).to(dev),
+                       graphs=True, recycle_sample=False, n_recycle=1,
+                       data_source=fasta_source(cfg), bucket_by_length=True,
+                       data_workers=2, ckpt_dir=str(ckpt_dir),
+                       ckpt_every=RESUME_AT, keep=2)
+
+
+def train_state(runner) -> dict:
+    """{(part, key): tensor} over the parameters, moments and EMA."""
+    out = {}
+    for part, tensors in (("params", dict(runner.model.named_parameters())),
+                          ("mu", runner.state["opt"].mu),
+                          ("nu", runner.state["opt"].nu),
+                          ("ema", runner.state["ema"])):
+        out.update({(part, k): t for k, t in tensors.items()})
+    return out
+
+
+def state_diff(losses_a, losses_b, state_a: dict, state_b: dict) -> dict:
+    """Max |diff| of two runs' losses and of each part of their states."""
+    out = {"loss": max(abs(x - y) for x, y in zip(losses_a, losses_b))}
+    for (part, k), t in state_a.items():
+        d = (t.float() - state_b[(part, k)].float()).abs().max().item()
+        out[part] = max(out.get(part, 0.0), d)
+    return out
+
+
+def run_counted(runner, steps: int, n_steps: int, what: str) -> None:
+    """``runner.run(steps)`` with the launch counters set to 0 just before;
+    they must equal ``n_steps`` one-cycle training steps' launches."""
+    from repro_torch.kernels import ops
+    ops.reset_launch_counts()
+    runner.run(steps)
+    counts = ops.launch_counts()
+    want = {k: n_steps * v for k, v in train_launches(runner.cfg, 1).items()}
+    want["flash_attention_fwd"] = 0
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts} != the path's {want}")
+
+
+def check_resume(cfg, dev, bound: float) -> dict:
+    """b. Run A trains RESUME_STEPS steps (checkpoints at RESUME_AT and at
+    the end); run B, a new runner from another model seed, restores step
+    RESUME_AT and trains to RESUME_STEPS; run C is run A's runner restoring
+    step RESUME_AT into the tensors its captured graph reads and replaying
+    the steps after it.  B and C must equal A within ``bound``, restoring
+    must capture nothing, and each run's launches must equal its steps'."""
+    from repro_torch.train import checkpoint as ck
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        a = resume_runner(cfg, dev, d, model_seed=0)
+        run_counted(a, RESUME_STEPS, RESUME_STEPS, "run A")
+        if a.train_compiles != 1:
+            raise AssertionError(f"run A captured {a.train_compiles} graphs")
+        kept = sorted(p.name for p in pathlib.Path(d).iterdir())
+        if kept != [f"step_{s:010d}" for s in (RESUME_AT, RESUME_STEPS)]:
+            raise AssertionError(f"checkpoints kept: {kept}")
+        final = {k: t.clone() for k, t in train_state(a).items()}
+        a_losses = a.history["loss"][RESUME_AT:]
+        out["bytes"] = ck.checkpoint_bytes(d, RESUME_AT)
+        out["a_data"] = a.history["data"][-1]
+        out["a_step_s"] = a.history["step_s"]
+
+        b = resume_runner(cfg, dev, d, model_seed=1)
+        if b.restore(step=RESUME_AT) != RESUME_AT or b.train_compiles != 0:
+            raise AssertionError("run B: restore")
+        run_counted(b, RESUME_STEPS, RESUME_STEPS - RESUME_AT, "run B")
+        out["b"] = state_diff(a_losses, b.history["loss"], final,
+                              train_state(b))
+        out["b_step_s"] = b.history["step_s"]
+
+        ptrs = {k: t.data_ptr() for k, t in train_state(a).items()}
+        if a.restore(step=RESUME_AT) != RESUME_AT or a.train_compiles != 1:
+            raise AssertionError(f"run C: restore captured "
+                                 f"({a.train_compiles} graphs)")
+        if {k: t.data_ptr() for k, t in train_state(a).items()} != ptrs:
+            raise AssertionError("run C: restore rebound a tensor")
+        run_counted(a, RESUME_STEPS, RESUME_STEPS - RESUME_AT, "run C")
+        if a.train_compiles != 1:
+            raise AssertionError(f"run C captured: train_compiles "
+                                 f"{a.train_compiles}")
+        out["c"] = state_diff(a_losses, a.history["loss"][RESUME_STEPS:],
+                              final, train_state(a))
+        out["c_step_s"] = a.history["step_s"][RESUME_STEPS:]
+        out["stats"] = {"A": a.mgr.stats, "B": b.mgr.stats}
+        del a, b, final
+    torch.cuda.empty_cache()
+    for run in ("b", "c"):
+        if any(v > bound for v in out[run].values()):
+            raise AssertionError(f"run {run.upper()} strays from run A "
+                                 f"beyond {bound}: {out[run]}")
+    return out
+
+
+def check_remat_dots(cfg, dev, bound: float) -> dict:
+    """c. Two graphed one-cycle steps at remat="block", then the same two
+    at remat="dots" from the same seeded model: losses, parameters,
+    moments and EMA within ``bound``; peak allocated memory (the capture's
+    eager run included) and step walls of each."""
+    from repro_torch.train.trainer import TrainRunner
+    runs = {}
+    for remat in ("block", "dots"):
+        c = dataclasses.replace(cfg, remat=remat)
+        runner = TrainRunner(c, batch_size=1, seed=TRAIN_SEED, device=dev,
+                             model=seeded_model(c, seed=0).to(dev),
+                             graphs=True, recycle_sample=False, n_recycle=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        run_counted(runner, 2, 2, f"remat={remat}")
+        runs[remat] = {
+            "losses": list(runner.history["loss"]),
+            "state": {k: t.clone() for k, t in train_state(runner).items()},
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
+            "step_s": list(runner.history["step_s"])}
+        del runner
+        torch.cuda.empty_cache()
+    diff = state_diff(runs["block"]["losses"], runs["dots"]["losses"],
+                      runs["block"]["state"], runs["dots"]["state"])
+    if any(v > bound for v in diff.values()):
+        raise AssertionError(f"remat=dots strays from remat=block beyond "
+                             f"{bound}: {diff}")
+    for r in runs.values():
+        del r["state"]
+    return {"diff": diff, **runs}
+
+
+# ---------------------------------------------------------------------------
 # Phases 10 and 11: the LM serving path, K6 and glm4-9b
 # ---------------------------------------------------------------------------
 
@@ -1580,6 +1783,43 @@ def main() -> int:
           f"{graphed_runner.eval_compiles}, compile_misses "
           f"{graphed_runner.compile_misses}", flush=True)
     del runs, eager_runner, graphed_runner, runner
+    torch.cuda.empty_cache()
+
+    # phase 9b: the record-path pipeline on the card, checkpoints and resume
+    # into the captured graphs, remat="dots"; held to phase 9's eager-vs-
+    # eager distance
+    bound = max(d_eager.values())
+    rep = check_pipeline_on_card(cfg, dev)
+    d = rep.as_dict()
+    print(f"[train data] {DATA_BATCHES} record-path batches (8 FASTA "
+          f"records, length-bucketed, 2 workers) placed on the card equal the "
+          f"CPU pipeline's bit for bit; featurize "
+          f"{d['featurize_ms_per_step']} ms/step, stall fraction "
+          f"{d['stall_fraction']}, transfer {d['transfer_ms_per_step']} "
+          f"ms/step, mean fill {d['mean_fill']}, buckets {d['buckets']}",
+          flush=True)
+    res = check_resume(cfg, dev, bound)
+    st = res["stats"]
+    print(f"[train resume] run A {RESUME_STEPS} graphed steps (n_recycle 1, "
+          f"FASTA records), checkpoints at {RESUME_AT} and {RESUME_STEPS}: "
+          f"{res['bytes']} bytes on disk each; snapshot s {st['A']['snapshot_s']}, "
+          f"save s {st['A']['save_s']}; run B restored step {RESUME_AT} in "
+          f"{st['B']['restore_s']} s; max |diff| vs run A: B {json.dumps(res['b'])}, "
+          f"C (run A's runner, restored into its graph) {json.dumps(res['c'])}; "
+          f"bound {bound}; train_compiles unchanged on restore; step walls A "
+          f"{[round(x, 3) for x in res['a_step_s']]}, B "
+          f"{[round(x, 3) for x in res['b_step_s']]}, C "
+          f"{[round(x, 3) for x in res['c_step_s']]} s; run A's data "
+          f"{json.dumps(res['a_data'])}", flush=True)
+    rm = check_remat_dots(cfg, dev, bound)
+    print(f"[train remat] 2 graphed steps, remat=dots vs remat=block: max "
+          f"|diff| {json.dumps(rm['diff'])}; peak allocated (with the "
+          f"capture's eager run) block {rm['block']['peak_gib']:.2f} GiB, "
+          f"dots {rm['dots']['peak_gib']:.2f} GiB; reserved block "
+          f"{rm['block']['reserved_gib']:.2f}, dots "
+          f"{rm['dots']['reserved_gib']:.2f} GiB; step walls block "
+          f"{[round(x, 3) for x in rm['block']['step_s']]}, dots "
+          f"{[round(x, 3) for x in rm['dots']['step_s']]} s", flush=True)
     torch.cuda.empty_cache()
 
     from repro_torch import configs

@@ -51,28 +51,60 @@ def params_to_state_dict(tree: dict, *, stacked=STACKED) -> dict:
     return sd
 
 
+class Stacked:
+    """One leaf of the reference's tree held as the blocks of a stack:
+    ``parts[i]`` is block i's tensor, the leaf their stack along a new
+    leading axis."""
+
+    def __init__(self, parts):
+        self.parts = list(parts)
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self.parts),) + tuple(self.parts[0].shape)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+
+def nest(named: dict, *, stacked=STACKED) -> dict:
+    """{dotted key path: leaf} (a ``state_dict``, ``named_parameters``, an
+    optimizer moment or EMA dict) -> the reference's nested dict, each
+    stack's per-block leaves gathered into one :class:`Stacked` leaf."""
+    flat, blocks = {}, {}
+    for key, leaf in named.items():
+        head, _, rest = key.partition(".")
+        if head in stacked:
+            idx, _, name = rest.partition(".")
+            blocks.setdefault(f"{head}.{name}", {})[int(idx)] = leaf
+        else:
+            flat[key] = leaf
+    for key, per_block in blocks.items():
+        flat[key] = Stacked(per_block[i] for i in range(len(per_block)))
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        *path, name = key.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[name] = leaf
+    return tree
+
+
+def _map_nested(fn, tree: dict) -> dict:
+    return {k: _map_nested(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
 def state_dict_to_params(sd: dict, *, stacked=STACKED) -> dict:
     """Port ``state_dict`` -> nested dict of numpy arrays with the stacks'
     block axis restored: the inverse of :func:`params_to_state_dict`."""
-    flat, blocks = {}, {}
-    for key, t in sd.items():
-        arr = t.detach().cpu().numpy()
-        head, _, rest = key.partition(".")
-        if head in stacked:
-            idx, _, leaf = rest.partition(".")
-            blocks.setdefault(f"{head}.{leaf}", {})[int(idx)] = arr
-        else:
-            flat[key] = arr
-    for key, per_block in blocks.items():
-        flat[key] = np.stack([per_block[i] for i in range(len(per_block))])
-    tree: dict = {}
-    for key, arr in flat.items():
-        node = tree
-        *path, leaf = key.split(".")
-        for part in path:
-            node = node.setdefault(part, {})
-        node[leaf] = arr
-    return tree
+    def to_numpy(leaf):
+        if isinstance(leaf, Stacked):
+            return np.stack([t.detach().cpu().numpy() for t in leaf.parts])
+        return leaf.detach().cpu().numpy()
+    return _map_nested(to_numpy, nest(sd, stacked=stacked))
 
 
 def load_jax_params(module: torch.nn.Module, tree: dict, *,

@@ -78,7 +78,7 @@ class AlphaFold2Config:
     n_templ: int = 4            # template stack not modeled (see DESIGN.md)
     max_recycle: int = 4
     scan_blocks: bool = True    # lax.scan over Evoformer blocks
-    remat: str = "block"        # 'none' | 'block'
+    remat: str = "block"        # 'none' | 'block' | 'dots'
 
     @property
     def c_m(self) -> int:

@@ -8,7 +8,8 @@ batch where the reference vmaps.  Two paths:
 * training — :func:`forward` and :func:`loss_fn`: ``n_recycle - 1`` cycles
   without gradients, then one cycle with them; dropout when
   ``deterministic=False``; ``remat="block"`` recomputes each Evoformer block
-  in the backward (``torch.utils.checkpoint``).
+  in the backward (``torch.utils.checkpoint``), ``remat="dots"`` keeps the
+  outputs of its plain 2-D products and recomputes the rest.
 * serving — :func:`predict`: forward-only under ``torch.no_grad`` with no
   checkpointing (the reference's inference plan sets ``remat="none"``), and
   adaptive early-exit recycling.
@@ -21,7 +22,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.core import evoformer as evo
 from repro_torch.core import heads as heads_lib
@@ -134,38 +136,59 @@ def embed_recycle(p: Embedder, cfg: AlphaFold2Config, msa, z, prev):
 # Stacks and trunk
 # ---------------------------------------------------------------------------
 
+# the products whose outputs remat="dots" keeps: plain 2-D matmuls, the
+# dense projections (``x @ w`` folds the leading axes into one), as
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps the
+# reference's dot_generals without batch dimensions
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
                     masks: Optional[evo.EvoMasks] = None, rng=None,
-                    deterministic: bool = True, remat: bool = False):
+                    deterministic: bool = True, remat=None):
     """Apply the blocks in order (the reference scans over stacked params);
-    block i draws its dropout from ``fold_in(rng, i)``.  With ``remat`` and
-    autograd on, each block keeps only its inputs and is recomputed in the
-    backward (``torch.utils.checkpoint``, non-reentrant); its dropout masks
-    are hashes of its rng, so the recompute draws the same masks."""
+    block i draws its dropout from ``fold_in(rng, i)``.  ``remat`` (with
+    autograd on): ``"block"`` keeps only each block's inputs and recomputes
+    it in the backward (``torch.utils.checkpoint``, non-reentrant);
+    ``"dots"`` keeps the outputs of its 2-D products (``aten.mm`` /
+    ``aten.addmm``) as well and recomputes everything else, the hand-written
+    kernels included.  Dropout masks are hashes of the block's rng, so the
+    recompute draws the same masks."""
     for i, blk in enumerate(blocks):
         def one(m, zz, blk=blk, key=evo.fold_in(rng, i)):
             mo, zo = evo.evoformer_block(blk, cfg_block, m, zz, rng=key,
                                          deterministic=deterministic,
                                          masks=masks)
             return mo.to(m.dtype), zo.to(zz.dtype)
-        if remat and torch.is_grad_enabled():
+        if remat in ("block", "dots") and torch.is_grad_enabled():
             # no block draws from torch's generators (dropout hashes its
             # rng), so there is no RNG state to stash and restore; stashing
             # it reads the CUDA generator's state, which a graph capture
             # does not allow
+            kw = {"context_fn": _dots_contexts} if remat == "dots" else {}
             msa, z = checkpoint(one, msa, z, use_reentrant=False,
-                                preserve_rng_state=False)
+                                preserve_rng_state=False, **kw)
         else:
             msa, z = one(msa, z)
     return msa, z
 
 
-def remat_blocks(cfg: AlphaFold2Config) -> bool:
-    """``cfg.remat`` as the stacks take it: 'none' or 'block'."""
-    if cfg.remat not in ("none", "block"):
-        raise ValueError(f"remat={cfg.remat!r} is not ported; the port has "
-                         "'none' and 'block'")
-    return cfg.remat == "block"
+def remat_blocks(cfg: AlphaFold2Config) -> Optional[str]:
+    """``cfg.remat`` as the stacks take it: None for 'none', else 'block'
+    or 'dots'."""
+    if cfg.remat not in ("none", "block", "dots"):
+        raise ValueError(f"remat={cfg.remat!r}: the port has 'none', 'block' "
+                         "and 'dots'")
+    return None if cfg.remat == "none" else cfg.remat
 
 
 def trunk_masks(batch) -> Optional[dict]:
@@ -180,7 +203,7 @@ def trunk_masks(batch) -> Optional[dict]:
 
 def run_trunk(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, *,
               dtype=torch.bfloat16, masks: Optional[dict] = None, rng=None,
-              deterministic: bool = True, remat: bool = False):
+              deterministic: bool = True, remat=None):
     """One recycling iteration of the trunk: returns (msa, z, single).  The
     extra and main stacks draw dropout from sub-streams 1 and 2 of ``rng``."""
     msa, z, extra = embed_inputs(params.embedder, cfg, batch, dtype)
@@ -229,8 +252,8 @@ def forward(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
     (:func:`cast_params`), so the gradients reach the masters.  The first
     ``n_recycle - 1`` cycles run under ``torch.no_grad`` (the kernels take
     their forward-only launches) and their recycled outputs are detached;
-    the last cycle records the graph, with ``cfg.remat="block"``
-    checkpointing each Evoformer block.  Cycle i draws dropout from
+    the last cycle records the graph, with ``cfg.remat`` ("block" or
+    "dots") checkpointing each Evoformer block.  Cycle i draws dropout from
     ``cycle_rng(rng, i)``.
     """
     if n_recycle < 1:

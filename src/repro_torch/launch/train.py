@@ -5,6 +5,10 @@ every attention and triangle update on the hand-written kernels.
   PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 3 --batch 1
   # on the CPU (the kernels' plain versions), small shapes, evaluating at step 2
   PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu --eval-every 2
+  # FASTA records (a deterministic demo set without --fasta), length-bucketed,
+  # a checkpoint every step; then resume from the latest and train to step 4
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 3 --batch 1 --device cpu --data-source fasta --bucket-by-length --ckpt-dir runs/tiny --ckpt-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 4 --batch 1 --device cpu --data-source fasta --bucket-by-length --ckpt-dir runs/tiny --ckpt-every 1 --resume
 """
 from __future__ import annotations
 
@@ -30,6 +34,28 @@ def main(argv=None):
     ap.add_argument("--eval-every", type=int, default=0,
                     help="lDDT-Cα evaluation of the EMA parameters on the "
                          "held-out split every N steps (0: off)")
+    ap.add_argument("--data-workers", type=int, default=1,
+                    help="host featurize worker threads (0: featurize "
+                         "inline in the training loop, no overlap)")
+    ap.add_argument("--data-source", choices=["synthetic", "fasta"],
+                    default="synthetic",
+                    help="'synthetic': the deterministic protein_batch "
+                         "stream; 'fasta': record ingest (parse, MSA stack, "
+                         "featurize_record) over --fasta or a demo set")
+    ap.add_argument("--fasta", default="",
+                    help="FASTA file for --data-source fasta (empty: "
+                         "deterministic demo records)")
+    ap.add_argument("--bucket-by-length", action="store_true",
+                    help="group records of similar length per batch (record "
+                         "sources only; batches still pad to the config's "
+                         "training bucket, so the step keeps one shape)")
+    ap.add_argument("--ckpt-dir", default="")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", action="store_true",
+                    help="restore the latest checkpoint of --ckpt-dir first")
+    ap.add_argument("--adapt-plan", action="store_true",
+                    help="allow --resume from a checkpoint written under a "
+                         "different ParallelPlan")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
@@ -44,26 +70,59 @@ def run_af2(args):
     from repro_torch.train.trainer import TrainRunner
 
     cfg = PRESETS[args.af2]()
+    source = None
+    if args.data_source == "fasta":
+        from repro_torch.data.ingest import FastaSource, demo_fasta
+        if args.fasta:
+            source = FastaSource(args.fasta, cfg, is_path=True)
+        else:
+            source = FastaSource(demo_fasta(cfg, seed=args.seed), cfg,
+                                 is_path=False)
+        print(f"data: fasta source, {len(source)} records"
+              + (f" from {args.fasta}" if args.fasta else " (bundled demo)"))
+    if args.bucket_by_length and source is None:
+        raise SystemExit("--bucket-by-length needs --data-source fasta "
+                         "(the synthetic stream is fixed-shape)")
     # paper §5.2 / AF2 suppl. 1.11.3: clip each SAMPLE's gradient at 0.1
     opt = adamw(af2_lr_schedule(args.lr, warmup_steps=100),
                 per_sample_clip=0.1)
-    runner = TrainRunner(cfg, optimizer=opt, batch_size=args.batch,
-                         seed=args.seed, recycle_sample=args.recycle_sample,
-                         max_recycle=args.max_recycle or None,
-                         ema_decay=args.ema or None,
-                         eval_every=args.eval_every, deterministic=False,
-                         device=args.device)
+    runner = TrainRunner(
+        cfg, optimizer=opt, batch_size=args.batch, seed=args.seed,
+        recycle_sample=args.recycle_sample,
+        max_recycle=args.max_recycle or None, ema_decay=args.ema or None,
+        eval_every=args.eval_every, ckpt_dir=args.ckpt_dir,
+        ckpt_every=args.ckpt_every, install_sigterm=True,
+        deterministic=False, device=args.device, data_source=source,
+        data_workers=args.data_workers,
+        bucket_by_length=args.bucket_by_length,
+        on_straggler=lambda s, dt, ema: print(
+            f"  [watchdog] step {s} took {dt:.2f}s (EMA {ema:.2f}s)"))
     print(f"train: {args.af2} cfg on {runner.device}, params "
           f"{count_params(runner.model):,}, recycle_sample="
           f"{args.recycle_sample} (max {runner.max_recycle}), ema="
           f"{args.ema or 'off'}, graphs={runner.graphs}")
+    if args.ckpt_dir and args.resume:
+        try:
+            print(f"resumed from step "
+                  f"{runner.restore(adapt_plan=args.adapt_plan)}")
+        except FileNotFoundError:
+            pass
     t0 = time.time()
     runner.run(args.steps, log_every=args.log_every)
     evals = runner.history["eval"]
     print(f"done: {args.steps} steps in {time.time() - t0:.1f}s; last loss "
           f"{runner.history['loss'][-1]:.4f}; train compiles: "
-          f"{runner.train_compiles}"
+          f"{runner.train_compiles}; stragglers flagged: "
+          f"{len(runner.watchdog.flagged)}"
           + (f"; final lDDT-Cα {evals[-1]['lddt_ca']:.2f}" if evals else ""))
+    data = runner.history["data"]
+    if data:
+        d = data[-1]
+        print(f"data ({args.data_workers} workers): stall "
+              f"{d['stall_ms_per_step']}ms/step "
+              f"({100 * d['stall_fraction']:.1f}% of loop), featurize "
+              f"{d['featurize_ms_per_step']}ms, transfer "
+              f"{d['transfer_ms_per_step']}ms, fill {d['mean_fill']:.2f}")
     return runner
 
 

@@ -14,8 +14,20 @@ backward, clipping, AdamW, EMA) as a CUDA graph, one per drawn
 ``n_recycle``, and replays it with each step's batch, dropout key and
 optimizer step copied into its static inputs.  Evaluation (lDDT-Cα of the
 EMA parameters on the held-out split) goes through a ``FoldEngine``, graphed
-too.  Checkpoints, the step watchdog, telemetry and the data pipeline of
-the reference are not ported yet.
+too.
+
+Batches come from ``data.pipeline.DataPipeline``: ``data_source=None`` keeps
+the synthetic ``protein_batch`` stream; a ``data.ingest`` source switches to
+record featurization (optionally length-bucketed), padded onto the
+config's one training bucket, so one graph per draw serves every batch.
+Host workers featurize the next batches while the step runs, and on the
+card each batch is copied to the device one step ahead, on a copy stream.
+``ckpt_dir`` turns on checkpoints in the reference's format
+(``train.checkpoint``): every ``ckpt_every`` steps and at the end of
+``run``; :meth:`TrainRunner.restore` copies a checkpoint into the live
+tensors, which the captured graphs go on reading.  A ``StepWatchdog``
+flags steps slower than twice its EMA of step walls.  Telemetry (the
+reference's metric registry) is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,11 +42,15 @@ from repro_torch import graphs as graphs_lib
 from repro_torch.core import heads as heads_lib
 from repro_torch.core.config import with_kernels
 from repro_torch.core.model import AlphaFold2, to_device
+from repro_torch.data.bucketing import train_bucket
+from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.protein import protein_batch
 from repro_torch.device import resolve_device
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.fold_engine import FoldEngine
 from repro_torch.train import optim as optim_lib
+from repro_torch.train.checkpoint import (CheckpointManager, StepWatchdog,
+                                          train_state_tree)
 from repro_torch.train.trainstep import (METRICS, init_state, make_step_body,
                                          step_inputs)
 
@@ -55,11 +71,22 @@ class TrainRunner:
     ``eval_batches`` held-out batches of ``eval_batch_size`` proteins with
     ``eval_n_recycle`` cycles (default ``max_recycle``).
 
+    Data: ``data_source`` (None: the synthetic stream; else a
+    ``data.ingest`` source), ``data_workers`` featurize threads,
+    ``data_prefetch`` batches ahead, ``bucket_by_length`` (record sources
+    only).  Checkpoints: ``ckpt_dir`` ("" for none), every ``ckpt_every``
+    steps, the newest ``keep`` kept, ``install_sigterm`` for a final save
+    on SIGTERM.  ``on_straggler(step, dt, ema)`` is called for a step the
+    watchdog flags.
+
     ``state`` holds ``params`` (the model), ``opt`` and ``ema``;
-    ``history`` the per-step ``loss``, ``n_recycle`` and ``step_s`` (wall
-    seconds, ending in a synchronize on the card) and the ``eval`` rows
-    ({"step", "lddt_ca"}); ``last_metrics`` the last step's
-    ``trainstep.METRICS`` as floats.
+    ``history`` the per-step ``loss``, ``n_recycle`` and ``step_s`` (the raw
+    wall seconds of each step, ending in a synchronize on the card; the
+    reference records its watchdog's EMA there, which here is
+    ``watchdog.ema``), the ``eval`` rows ({"step", "lddt_ca"}) and the
+    ``data`` rows (the pipeline's ``StageReport.as_dict()`` and the step, at
+    each evaluation and at the end of ``run``); ``last_metrics`` the last
+    step's ``trainstep.METRICS`` as floats.
     """
 
     def __init__(self, cfg, *, optimizer=None, batch_size: int = 1,
@@ -68,8 +95,12 @@ class TrainRunner:
                  ema_decay: Optional[float] = 0.999,
                  eval_every: int = 0, eval_batches: int = 1,
                  eval_batch_size: int = 2, eval_n_recycle: Optional[int] = None,
+                 ckpt_dir: str = "", ckpt_every: int = 50, keep: int = 3,
+                 install_sigterm: bool = False,
                  deterministic: bool = False, device=None, model=None,
-                 graphs: Optional[bool] = None, dtype=torch.bfloat16):
+                 graphs: Optional[bool] = None, dtype=torch.bfloat16,
+                 on_straggler=None, data_source=None, data_workers: int = 1,
+                 data_prefetch: int = 2, bucket_by_length: bool = False):
         self.device = resolve_device(device)
         self.graphs = graphs_lib.use_graphs(graphs, self.device)
         self.cfg = with_kernels(cfg)
@@ -82,6 +113,11 @@ class TrainRunner:
         self.eval_batches = eval_batches
         self.eval_batch_size = eval_batch_size
         self.eval_n_recycle = eval_n_recycle or self.max_recycle
+        self.ckpt_every = ckpt_every
+        self.data_source = data_source
+        self.data_workers = data_workers
+        self.data_prefetch = data_prefetch
+        self.bucket_by_length = bucket_by_length
         self.dtype = dtype
         self.optimizer = optimizer or optim_lib.adamw(
             optim_lib.af2_lr_schedule(1e-3, warmup_steps=100),
@@ -98,7 +134,14 @@ class TrainRunner:
         self._batch_keys: Optional[list] = None
         self._eval_eng: Optional[FoldEngine] = None
         self.step = 0
-        self.history = {"loss": [], "n_recycle": [], "step_s": [], "eval": []}
+        # the port has no ParallelPlan yet: its checkpoints carry meta {}
+        self.mgr = (CheckpointManager(ckpt_dir, keep=keep,
+                                      install_sigterm=install_sigterm,
+                                      plan_meta={})
+                    if ckpt_dir else None)
+        self.watchdog = StepWatchdog(on_straggler=on_straggler)
+        self.history = {"loss": [], "n_recycle": [], "step_s": [], "eval": [],
+                        "data": []}
         self.last_metrics: dict = {}
 
     @property
@@ -134,9 +177,6 @@ class TrainRunner:
             return self.n_recycle
         gen = np.random.default_rng([abs(self.seed), step])
         return int(gen.integers(1, self.max_recycle + 1))
-
-    def batch(self, step: int) -> dict:
-        return protein_batch(self.seed, step, self.batch_size, self.cfg)
 
     # -- the step -----------------------------------------------------------
 
@@ -175,32 +215,100 @@ class TrainRunner:
 
     def run(self, steps: int, *, log_every: int = 0, log=print) -> dict:
         """Train until global step ``steps`` (continuing from ``self.step``),
-        evaluating every ``eval_every`` steps; returns ``history``."""
-        for step in range(self.step, steps):
-            batch = self.batch(step)
-            nr = self.recycle_draw(step)
-            t0 = time.perf_counter()
-            metrics = self._train_step(step, batch, nr)
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            dt = time.perf_counter() - t0
-            self.last_metrics = metrics
-            self.history["loss"].append(metrics["loss"])
-            self.history["n_recycle"].append(nr)
-            self.history["step_s"].append(dt)
-            self.step = step + 1
-            if log_every and step % log_every == 0:
-                log(f"step {step:5d}  loss {metrics['loss']:.4f}  n_recycle "
-                    f"{nr}  ({self.batch_size / max(dt, 1e-9):.2f} protein/s)")
-            if self.eval_every and self.step % self.eval_every == 0:
-                ev = self.evaluate()
-                self.history["eval"].append({"step": self.step,
-                                             "lddt_ca": ev["lddt_ca"]})
-                if log_every:
-                    log(f"  eval @ {self.step}: lDDT-Cα {ev['lddt_ca']:.2f} "
-                        f"(ema={self.ema is not None}, "
-                        f"{self.batch_size / max(dt, 1e-9):.2f} protein/s)")
+        reading batches from :meth:`make_pipeline`, evaluating every
+        ``eval_every`` steps and saving every ``ckpt_every`` steps before
+        ``steps`` and once at the end (then waiting for the write); returns
+        ``history``."""
+        pipeline = self.make_pipeline()
+        try:
+            for step, batch in pipeline:
+                if step >= steps:
+                    break
+                nr = self.recycle_draw(step)
+                self.watchdog.start_step()
+                t0 = time.perf_counter()
+                metrics = self._train_step(step, batch, nr)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                dt = time.perf_counter() - t0
+                self.watchdog.end_step(step)
+                self.last_metrics = metrics
+                self.history["loss"].append(metrics["loss"])
+                self.history["n_recycle"].append(nr)
+                self.history["step_s"].append(dt)
+                self.step = step + 1
+                if log_every and step % log_every == 0:
+                    log(f"step {step:5d}  loss {metrics['loss']:.4f}  "
+                        f"n_recycle {nr}  "
+                        f"({self.batch_size / max(dt, 1e-9):.2f} protein/s)")
+                if self.eval_every and self.step % self.eval_every == 0:
+                    ev = self.evaluate()
+                    self.history["eval"].append({"step": self.step,
+                                                 "lddt_ca": ev["lddt_ca"]})
+                    self.history["data"].append(
+                        dict(pipeline.report.as_dict(), step=self.step))
+                    if log_every:
+                        log(f"  eval @ {self.step}: lDDT-Cα "
+                            f"{ev['lddt_ca']:.2f} (ema={self.ema is not None},"
+                            f" {self.batch_size / max(dt, 1e-9):.2f}"
+                            f" protein/s)")
+                        log(f"  {pipeline.report.describe()}")
+                if (self.mgr and self.step % self.ckpt_every == 0
+                        and self.step < steps):
+                    self.save()
+        finally:
+            self.history["data"].append(
+                dict(pipeline.report.as_dict(), step=self.step))
+            pipeline.close()
+        if self.mgr:
+            self.save()
+            self.mgr.wait()
         return self.history
+
+    # -- the input pipeline -------------------------------------------------
+
+    def make_pipeline(self) -> DataPipeline:
+        """The input pipeline from ``self.step``: the synthetic stream, or
+        records padded onto the config's training bucket (one step shape
+        for every batch); batches placed on the runner's device one step
+        ahead when it is a card."""
+        return DataPipeline(
+            self.cfg, source=self.data_source, batch_size=self.batch_size,
+            seed=self.seed, start_step=self.step, workers=self.data_workers,
+            prefetch=self.data_prefetch,
+            bucket_by_length=self.bucket_by_length,
+            pad_to=(train_bucket(self.cfg) if self.data_source is not None
+                    else None),
+            device=self.device)
+
+    # -- checkpoints --------------------------------------------------------
+
+    def checkpoint_tree(self) -> dict:
+        """The train state in the reference's checkpoint layout, its leaves
+        the live tensors (``checkpoint.train_state_tree``)."""
+        return train_state_tree(self.state)
+
+    def save(self) -> None:
+        """Checkpoint the state at ``self.step`` (written asynchronously)."""
+        if self.mgr is None:
+            raise ValueError("TrainRunner has no ckpt_dir; nothing to save to")
+        self.mgr.save(self.step, self.checkpoint_tree())
+
+    def restore(self, *, adapt_plan: bool = False,
+                step: Optional[int] = None) -> int:
+        """Resume from the latest checkpoint (or the one at ``step``): the
+        parameters, moments and EMA are copied into the tensors they live in
+        (the training graphs and the eval engine keep their addresses), and
+        the optimizer's step and ``self.step`` are set.  Returns the step."""
+        if self.mgr is None:
+            raise ValueError("TrainRunner has no ckpt_dir; nothing to restore")
+        self.mgr.wait()
+        tree, step = self.mgr.restore(self.checkpoint_tree(), step=step,
+                                      adapt_plan=adapt_plan)
+        self.state["opt"] = self.state["opt"]._replace(
+            step=int(tree["opt"].step))
+        self.step = step
+        return step
 
     # -- evaluation ---------------------------------------------------------
 

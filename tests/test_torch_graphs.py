@@ -1,8 +1,10 @@
 """The port's captured steps (``repro_torch.graphs``): the sample-cycle
 ``FoldEngine`` captures, the ``DecodeEngine`` steps' static buffers, the
 launch credits of a replay, and (on the card) graphed against eager
-serving, bit for bit, and graphed against eager training (``TrainRunner``,
-one graph per drawn ``n_recycle``) with its evaluation.
+serving, bit for bit, graphed against eager training (``TrainRunner``,
+one graph per drawn ``n_recycle``) with its evaluation, a checkpoint
+restored into a captured training graph, and the data pipeline's batches
+placed on the card.
 
 CPU cases run at af2_tiny and glm4-9b's reduced config; the ``cuda`` cases
 skip without a card (the ``cuda_dev`` fixture decides at run time).  On the
@@ -26,6 +28,9 @@ from repro_torch import configs, graphs
 from repro_torch.core import evoformer as evo
 from repro_torch.core import model as af2
 from repro_torch.core.config import af2_tiny, with_kernels
+from repro_torch.data import bucketing as bk
+from repro_torch.data.ingest import FastaSource, demo_fasta
+from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.synthetic import make_fold_requests
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import ops
@@ -395,3 +400,91 @@ def test_dropout_mask_on_the_card_equals_the_cpu_mask(cuda_dev):
                                      rng=rng, deterministic=False)
             assert torch.equal(got.cpu(), want)
 
+
+
+@pytest.mark.cuda
+def test_pipeline_batches_on_the_card_equal_the_cpu_batches(cuda_dev):
+    """FASTA records, length-bucketed, 2 workers: the batches the pipeline
+    places on the card, read on the consumer's stream as a captured step
+    reads them (a copy into another buffer), equal the CPU pipeline's, and
+    ``to_device`` (the step's input path) passes them through uncopied."""
+    kw = dict(source=FastaSource(demo_fasta(CFG, n_records=8, seed=1), CFG),
+              batch_size=1, seed=1, bucket_by_length=True,
+              pad_to=bk.train_bucket(CFG))
+
+    def take(pipe, read):
+        out = []
+        for step, batch in pipe:
+            if pipe.device is not None:
+                # the step's inputs are these tensors: no second copy
+                placed = af2.to_device(batch, cuda_dev)
+                assert all(placed[k] is v for k, v in batch.items())
+            out.append((step, {k: read(v) for k, v in batch.items()}))
+            if len(out) == 6:
+                break
+        pipe.close()
+        return out
+
+    want = take(DataPipeline(CFG, workers=0, **kw), np.asarray)
+    got = take(DataPipeline(CFG, workers=2, device=cuda_dev, **kw),
+               lambda v: v.clone())
+    assert [s for s, _ in got] == [s for s, _ in want]
+    for (_, g), (_, w) in zip(got, want):
+        assert list(g) == list(w)
+        for k in w:
+            assert g[k].is_cuda and torch.equal(g[k].cpu(),
+                                                torch.from_numpy(w[k])), k
+
+
+def _train_tensors(runner) -> dict:
+    out = {}
+    for part, tensors in (("params", dict(runner.model.named_parameters())),
+                          ("mu", runner.state["opt"].mu),
+                          ("nu", runner.state["opt"].nu),
+                          ("ema", runner.state["ema"])):
+        out.update({(part, k): t for k, t in tensors.items()})
+    return out
+
+
+@pytest.mark.cuda
+def test_restore_into_a_captured_graph_replays_the_run(cuda_dev, captures,
+                                                       tmp_path):
+    """Graphed, one draw, FASTA records: 6 steps with checkpoints at 3 and
+    6; the same runner restores step 3 into the tensors its graph reads
+    (no tensor rebound, no new capture) and replays steps 3-5: its losses,
+    parameters, moments and EMA equal the first pass's within the distance
+    of two eager runs of the same steps."""
+    source = FastaSource(demo_fasta(CFG, n_records=8, seed=1), CFG)
+    model = _fold_model()
+
+    def runner(graphs, sub):
+        return TrainRunner(CFG, seed=1, recycle_sample=False, device=cuda_dev,
+                           graphs=graphs,
+                           model=copy.deepcopy(model).to(cuda_dev),
+                           data_source=source, bucket_by_length=True,
+                           ckpt_dir=str(tmp_path / sub), ckpt_every=3, keep=2)
+
+    eager, again = runner(False, "e1"), runner(False, "e2")
+    eager.run(6)
+    again.run(6)
+    bound = max([abs(x - y) for x, y in zip(eager.history["loss"],
+                                             again.history["loss"])]
+                + [(x.float() - y.float()).abs().max().item()
+                   for x, y in zip(_train_tensors(eager).values(),
+                                   _train_tensors(again).values())])
+    g = runner(None, "g")
+    g.run(6)
+    assert g.train_compiles == len(captures) == 1
+    final = {k: t.clone() for k, t in _train_tensors(g).items()}
+    ptrs = {k: t.data_ptr() for k, t in _train_tensors(g).items()}
+    assert g.restore(step=3) == 3 and g.step == 3
+    assert {k: t.data_ptr() for k, t in _train_tensors(g).items()} == ptrs
+    ops.reset_launch_counts()
+    g.run(6)
+    assert g.train_compiles == len(captures) == 1
+    assert ops.launch_counts()["evo_attention_bwd"] == 3 * (
+        4 * CFG.n_evoformer + 3 * CFG.n_extra_msa_blocks)
+    assert max(abs(x - y) for x, y in zip(g.history["loss"][6:],
+                                          g.history["loss"][3:6])) <= bound
+    for k, t in _train_tensors(g).items():
+        assert (t.float() - final[k].float()).abs().max().item() <= bound, k

@@ -30,7 +30,9 @@ def _imported_names(path):
 
 TRAINING_MODULES = ("repro_torch.data.protein", "repro_torch.train.optim",
                     "repro_torch.train.trainstep", "repro_torch.train.trainer",
-                    "repro_torch.launch.train")
+                    "repro_torch.launch.train", "repro_torch.data.ingest",
+                    "repro_torch.data.bucketing", "repro_torch.data.pipeline",
+                    "repro_torch.data.loader", "repro_torch.train.checkpoint")
 
 
 LM_MODULES = ("repro_torch.models", "repro_torch.models.lmconfig",

@@ -252,6 +252,7 @@ def test_launcher_serves_on_cpu():
         [sys.executable, "-m", "repro_torch.launch.serve", "--fold", "tiny",
          "--device", "cpu", "--requests", "3"],
         capture_output=True, text=True, timeout=300,
-        env={**os.environ, "PYTHONPATH": "src"})
+        # one thread, as the suite's other processes (tests/torch_threads.py)
+        env={**os.environ, "PYTHONPATH": "src", "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "served 3 folds" in proc.stdout

@@ -22,10 +22,17 @@ from util import randomize
 SC = af2_tiny().structure
 
 
+@pytest.fixture(scope="module")
+def params():
+    """The reference's randomized structure-module params, made once for
+    both cases under one jax.jit (op by op, JAX compiles each op)."""
+    return jax.jit(lambda k1, k2: randomize(
+        jst.structure_module_init(k1, SC), k2, scale=0.05))(
+        jax.random.PRNGKey(0), jax.random.PRNGKey(2))
+
+
 @pytest.mark.parametrize("masked", [False, True])
-def test_structure_module_matches_jax(masked):
-    params = randomize(jst.structure_module_init(jax.random.PRNGKey(0), SC),
-                       jax.random.PRNGKey(2), scale=0.05)
+def test_structure_module_matches_jax(params, masked):
     r = 12
     rng = np.random.default_rng(4)
     s_init = rng.standard_normal((r, SC.c_s)).astype(np.float32)
@@ -33,8 +40,10 @@ def test_structure_module_matches_jax(masked):
     res_mask = np.ones((r,), np.float32)
     if masked:
         res_mask[-3:] = 0.0
-    (rots_j, trans_j), (_, traj_j), s_j = jst.structure_module(
-        params, SC, s_init, z, res_mask if masked else None)
+    # the reference under one jax.jit, not op by op
+    (rots_j, trans_j), (_, traj_j), s_j = jax.jit(
+        lambda p, s, zz, m: jst.structure_module(p, SC, s, zz, m))(
+        params, s_init, z, res_mask if masked else None)
 
     cfg = StructureConfig(**SC.__dict__)
     mod = load_into(tst.StructureModule(cfg, generator=torch.Generator()),

@@ -52,8 +52,13 @@ def test_evo_attention_bwd_ref_matches_jax_vjp(L, S, H, C, biased, gated):
 
     jargs = [jnp.asarray(a) if a is not None else None
              for a in (q, k, v, bias, g if gated else None)]
-    out_j, vjp = jax.vjp(lambda *a: jfn(*a), *jargs)
-    want = vjp(jnp.asarray(do))
+
+    def fwd_bwd(args, cot):
+        out, vjp = jax.vjp(lambda *a: jfn(*a), *args)
+        return out, vjp(cot)
+
+    # one compile of the forward and its vjp (op by op, JAX compiles each op)
+    out_j, want = jax.jit(fwd_bwd)(jargs, jnp.asarray(do))
 
     t = lambda a: None if a is None else torch.from_numpy(a)
     tq, tk, tv, tb, tg = t(q), t(k), t(v), t(bias), t(g if gated else None)
@@ -82,10 +87,16 @@ def test_triangle_mult_bwd_matches_jax_vjp(outgoing, r):
     jp = jax.tree_util.tree_map(
         lambda x: np.asarray(x) + 0.3 * _np(rng, *np.shape(x)), jp)
     z, dy = _np(rng, r, r, cfg.c_z), _np(rng, r, r, cfg.c_z)
-    out_j, vjp = jax.vjp(
-        lambda zz, pp: jevo.triangle_mult(pp, zz, outgoing=outgoing),
-        jnp.asarray(z), jp)
-    dz_j, dp_j = vjp(jnp.asarray(dy))
+
+    def fwd_bwd(zz, pp, cot):
+        out, vjp = jax.vjp(
+            lambda zz, pp: jevo.triangle_mult(pp, zz, outgoing=outgoing),
+            zz, pp)
+        return out, vjp(cot)
+
+    # one compile of the forward and its vjp (op by op, JAX compiles each op)
+    out_j, (dz_j, dp_j) = jax.jit(fwd_bwd)(jnp.asarray(z), jp,
+                                           jnp.asarray(dy))
 
     mod = load_into(tevo.TriangleMult(cfg.c_z, cfg.c_hidden_mul,
                                       generator=torch.Generator()), jp,

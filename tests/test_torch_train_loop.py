@@ -167,7 +167,10 @@ def test_bridge_round_trips_opt_state_and_ema_bit_for_bit():
     cfg = jaf2_tiny()
     params = randomize_np(af2_tree(cfg, seed=1), seed=3)
     opt = joptim.adamw(1e-3)
-    state = opt.init(params)
+    # the reference optimizer's state layout, traced once: its moments are
+    # zeros of the params' shapes (running opt.init op by op compiles each)
+    state = jax.tree_util.tree_map(lambda s: np.zeros(s.shape, s.dtype),
+                                   jax.eval_shape(opt.init, params))
     mu = randomize_np(np_tree(state.mu), seed=4, scale=1.0)
     nu = randomize_np(np_tree(state.nu), seed=5, scale=1.0)
     port = bridge.opt_state_to_port(np.int32(7), mu, nu)
