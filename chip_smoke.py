@@ -1134,6 +1134,366 @@ def check_evaluation(ev, runner) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 9c: the training step under BP, DAP and BP x DAP plans
+# ---------------------------------------------------------------------------
+
+def dap_train_shapes(cfg, d: int = 2):
+    """The shapes a DAP-``d`` rank gives K1 / K2 in the af2_initial
+    training step: the serial shapes with 1/d of the lead rows (the bias
+    heads gathered to full S), and launches per sample-cycle of one rank."""
+    att, _ = train_shapes(cfg)
+    return [(f"dap{d}_{name}", (L // d, S, H, C), per, biased)
+            for name, (L, S, H, C), per, biased in att if per]
+
+
+def check_triangle_dap(dev, r: int, d: int, c_z: int, c: int, per: int,
+                       dtype=torch.bfloat16):
+    """K3 (with s), K4 and K5 (both operand sides) at a DAP-``d`` rank's
+    shapes: xa and xg r/d rows of the LayerNorm'd pair rep, xb all r rows
+    (outgoing: the shard's rows and every row; incoming: the shard's
+    columns and every column, as transposed views), against their plain
+    versions; times and bounds per call.  ``per``: K4 launches per
+    sample-cycle of one rank (K3 and K5 twice that)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import triangle as kt
+    g = torch.Generator(device=dev).manual_seed(9)
+    ri, el = r // d, 2
+    rows = []
+    for outgoing in (True, False):
+        x = _rand(g, (r, r, c_z), dtype)
+        w = (_rand(g, (c_z, 2 * c), dtype, c_z ** -0.5),
+             _rand(g, (2 * c,), dtype, 0.5),
+             _rand(g, (c_z, 2 * c), dtype, c_z ** -0.5),
+             _rand(g, (2 * c,), dtype, 0.5),
+             (1 + _rand(g, (c,), torch.float32, 0.1)).to(dtype),
+             _rand(g, (c,), dtype, 0.1), _rand(g, (c, c_z), dtype, c ** -0.5),
+             _rand(g, (c_z,), dtype, 0.1),
+             _rand(g, (c_z, c_z), dtype, c_z ** -0.5),
+             _rand(g, (c_z,), dtype, 0.5))
+        w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g = w
+        xg = x[:ri]
+        if outgoing:
+            xa, xb = xg, x
+        else:
+            xa, xb = x[:, :ri].transpose(0, 1), x.transpose(0, 1)
+        dy = _rand(g, (ri, r, c_z), dtype)
+        y, s_k = kt.triangle_mult_fwd(xa, xb, xg, *w, return_s=True)
+        y_r, s_r = ref.triangle_mult_ref(xa, xb, xg, *w, return_s=True)
+        pa = ref.gated_projection(xa, w_a, b_a).to(dtype).float().abs()
+        pb = ref.gated_projection(xb, w_b, b_b).to(dtype).float().abs()
+        extra = 2.0 ** -7 * torch.einsum("ikc,jkc->ijc", pa, pb)
+        name = f"dap{d}_" + ("outgoing" if outgoing else "incoming")
+        err3 = max(check_close(y, y_r, f"K3 {name}"),
+                   check_grad_close(s_k, s_r, f"K3 s {name}", extra))
+        del pa, pb, extra
+        epi = kt.triangle_mult_bwd_epilogue(s_r, xg, dy, ln_s, ln_b, w_o, b_o,
+                                            w_g, b_g)
+        epi_r = ref.triangle_mult_bwd_epilogue_ref(s_r, xg, dy, ln_s, ln_b,
+                                                   w_o, b_o, w_g, b_g)
+        err4 = max(check_grad_close(a, b, f"K4 {name} {i}")
+                   for i, (a, b) in enumerate(zip(epi, epi_r)))
+        ds = epi_r[0]
+        sides = ((ds, xa, xb, w_a, b_a, w_b, b_b),
+                 (ds.transpose(0, 1), xb, xa, w_b, b_b, w_a, b_a))
+        err5, ms5 = 0.0, []
+        for side, args in enumerate(sides):
+            got = kt.triangle_mult_bwd_dx(*args)
+            want = ref.triangle_mult_bwd_dx_ref(*args)
+            err5 = max([err5] + [check_grad_close(
+                a, b, f"K5 {name} side {side} {i}")
+                for i, (a, b) in enumerate(zip(got, want))])
+            ms5.append(cuda_median(lambda args=args: kt.triangle_mult_bwd_dx(
+                *args), 10))
+            del got, want
+        torch.cuda.synchronize()
+        ms3 = cuda_median(lambda: kt.triangle_mult_fwd(xa, xb, xg, *w,
+                                                       return_s=True), 10)
+        ms4 = cuda_median(lambda: kt.triangle_mult_bwd_epilogue(
+            s_k, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g), 10)
+        plain3 = cuda_time(lambda: ref.triangle_mult_ref(xa, xb, xg, *w,
+                                                         return_s=True), 2)
+        plain4 = cuda_time(lambda: ref.triangle_mult_bwd_epilogue_ref(
+            s_k, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g), 2)
+        plain5 = [cuda_time(lambda args=args: ref.triangle_mult_bwd_dx_ref(
+            *args), 2) for args in sides]
+        P, Pb = ri * r, r * r
+        wbytes = sum(t.numel() * el for t in w)
+        f3 = (2.0 * (P + Pb) * c_z * 2 * c + 2.0 * P * r * c
+              + 2.0 * P * c * c_z + 2.0 * P * c_z * c_z)
+        by3 = (Pb + 2 * P) * c_z * el + wbytes + P * c * 4
+        f4 = 6 * 2.0 * P * c * c_z
+        by4 = P * c * 4 * 2 + 3 * P * c_z * el + (c * c_z + c_z * c_z) * (el + 4)
+        # side 0: dx of the r/d xa rows, side 1: dx of all r xb rows
+        f5 = [2.0 * P * r * c + 2 * 2.0 * n * c_z * 2 * c + 2 * 2.0 * m * c_z * 2 * c
+              for n, m in ((P, Pb), (Pb, P))]
+        by5 = [P * c * 4 + (n + m) * c_z * el + n * c_z * el
+               + 2 * c_z * 2 * c * el + c_z * 2 * c * 4
+               for n, m in ((P, Pb), (Pb, P))]
+        for kernel, err, ms, plain, fl, by, n in (
+                ("K3+s", err3, ms3, plain3, f3, by3, 2 * per),
+                ("K4", err4, ms4, plain4, f4, by4, per),
+                ("K5 side 0", err5, ms5[0], plain5[0], f5[0], by5[0], per),
+                ("K5 side 1", err5, ms5[1], plain5[1], f5[1], by5[1], per)):
+            b_ms, b_by = bound(fl, by)
+            rows.append(dict(kernel=kernel, shape=name, r_i=ri, r=r, c_z=c_z,
+                             c=c, per_cycle=n, max_abs_err=err,
+                             **timed_fields("ms", ms), plain_ms=plain,
+                             bound_ms=b_ms, bound_by=b_by))
+        del x, w, xa, xb, xg, dy, y, s_k, y_r, s_r, epi, epi_r, ds, sides
+        torch.cuda.empty_cache()
+    return rows
+
+
+def dap_totals(att_tots, tri_rows) -> dict:
+    """Per-kernel ms of one DAP-2 rank's training sample-cycle (launches
+    per cycle x median ms, summed over the shapes), beside the bound."""
+    out = {"K1+lse": (att_tots["k1_lse"]["ms"], att_tots["k1_lse"]["bound_ms"]),
+           "K2": (att_tots["k2"]["ms"], att_tots["k2"]["bound_ms"])}
+    for row in tri_rows:
+        name = row["kernel"].split()[0]
+        ms, b = out.get(name, (0.0, 0.0))
+        out[name] = (ms + row["per_cycle"] * row["ms"],
+                     b + row["per_cycle"] * row["bound_ms"])
+    return {k: {"ms": ms, "bound_ms": b} for k, (ms, b) in out.items()}
+
+
+# plans of the parallel phase: name, ParallelPlan fields, ranks (of four),
+# (n_evoformer, n_extra_msa_blocks) or None for af2_initial's full depth.
+# BP 2 on ranks 0-1 and DAP 2 on ranks 2-3 run at the same time on the card
+# (each plan's walls include the other's load), then the hybrid on all four
+PAR_PLANS = (("bp2", {"branch": 2}, (0, 1), None),
+             ("dap2", {"dap": 2}, (2, 3), None),
+             ("bp2_dap2", {"branch": 2, "dap": 2}, (0, 1, 2, 3), (16, 4)))
+PAR_STEPS = 2
+PAR_LR = 1.0
+# a plan's step may differ from the one-device step by the order of its
+# sums (partial gradients summed across ranks, shards' reductions): the
+# losses within 2e-3 relative, and the parameter update within 5e-2 of the
+# one-device update's L2 norm (bf16 compute)
+PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 2e-3, 5e-2
+
+
+def par_cfg(cfg, depth):
+    if depth is None:
+        return cfg
+    return dataclasses.replace(cfg, n_evoformer=depth[0],
+                               n_extra_msa_blocks=depth[1])
+
+
+def par_runner(cfg, plan, dev):
+    """The parallel phase's TrainRunner: the seeded model, batch 1, one
+    cycle a step, SGD with the trainer's per-sample clip at 0.1 (so the
+    parameters' change is the clipped gradient, whose scale SGD keeps
+    visible), dropout on, no EMA, eager."""
+    from repro_torch.train.optim import sgd
+    from repro_torch.train.trainer import TrainRunner
+    return TrainRunner(cfg, plan, optimizer=sgd(PAR_LR, per_sample_clip=0.1),
+                       batch_size=1, seed=TRAIN_SEED, recycle_sample=False,
+                       n_recycle=1, ema_decay=None, deterministic=False,
+                       device=dev, model=seeded_model(cfg, seed=0).to(dev),
+                       graphs=False)
+
+
+def par_launches(cfg, role: str) -> dict:
+    """One n_recycle-1 step's launches on a rank that runs ``role`` of each
+    block: "all" (serial, DAP), "msa" (BP branch 0: row and column
+    attention; the extra stack's column attention is global, no kernel) or
+    "pair" (BP branch 1: triangle updates and attention)."""
+    ne, nx = cfg.n_evoformer, cfg.n_extra_msa_blocks
+    k1 = {"all": 4 * ne + 3 * nx, "msa": 2 * ne + nx, "pair": 2 * ne + 2 * nx}[role]
+    k3 = 0 if role == "msa" else 2 * (ne + nx)
+    return {"evo_attention_fwd": 2 * k1, "evo_attention_bwd": k1,
+            "triangle_mult_fwd": 2 * k3, "triangle_mult_bwd_epilogue": k3,
+            "triangle_mult_bwd_dx": 2 * k3, "flash_attention_fwd": 0}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def par_time_collectives(built, cfg, dev, n_params: int) -> dict:
+    """Seconds (median of 3, host clock, card synchronized) of one
+    collective of each kind over the plan's axes, at the main path's
+    sizes: the pair shard's all-gather, the MSA shard's all-to-all, the
+    gathered pair rep's reduce-scatter (DAP), the block exchange's and the
+    gradient completion's all-reduce (BP)."""
+    from repro_torch.parallel import collectives as coll
+    ev, r, s = cfg.evoformer, cfg.n_res, cfg.n_seq
+    out = {}
+
+    def med(fn):
+        ts = []
+        for _ in range(3):
+            _sync(dev)
+            t0 = time.perf_counter()
+            fn()
+            _sync(dev)
+            ts.append(time.perf_counter() - t0)
+        return sorted(ts)[1]
+
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    if "dap" in built.sync_axes:
+        ax = built.axis("dap")
+        d = ax.size
+        z_l = torch.randn((r // d, r, ev.c_z), **bf)
+        m_l = torch.randn((s // d, r, ev.c_m), **bf)
+        z = torch.randn((r, r, ev.c_z), **bf)
+        out["all_gather pair shard"] = (z_l.numel() * 2, med(
+            lambda: coll.all_gather(z_l, ax, 0)))
+        out["all_to_all msa shard"] = (m_l.numel() * 2, med(
+            lambda: coll.all_to_all(m_l, ax, 1, 0)))
+        out["reduce_scatter pair rep"] = (z.numel() * 2, med(
+            lambda: coll._reduce_scatter_dim(z, ax, 0)))
+    if "branch" in built.sync_axes:
+        ax = built.axis("branch")
+        ex = [torch.randn((s, r, ev.c_m), **bf), torch.randn((r, r, ev.c_z), **bf),
+              torch.randn((r, r, ev.c_z), **bf)]
+        out["psum block exchange"] = (sum(t.numel() for t in ex) * 2, med(
+            lambda: coll.psum(tuple(ex), ax)))
+        g = {"all": torch.randn((n_params,), device=dev)}
+        out["psum gradient completion"] = (n_params * 4, med(
+            lambda: coll.psum_tree(g, (ax,))))
+    return out
+
+
+def par_rank(rank, world, dev, cfg, serial_dir, plans):
+    """One rank of the parallel phase: every plan of ``plans`` (its mesh
+    built by all four ranks; a plan runs on its ranks while the others
+    wait at the next mesh), PAR_STEPS steps with the launch counters and
+    collective counts set to 0 just before and read just after; then the
+    max |diff| of the parameters against the one-device run's (saved by
+    the parent in ``serial_dir``) and the collectives' times."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.plan import ParallelPlan
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cuda = dev.type == "cuda"
+    out = {}
+    for name, kw, ranks_of, depth in plans:
+        pcfg = par_cfg(cfg, depth)
+        built = ParallelPlan(**kw).build(list(ranks_of), cfg=pcfg, device=dev)
+        if not built.in_mesh:
+            continue
+        runner = par_runner(pcfg, built, dev)
+        init = {k: p.detach().clone() for k, p in runner.model.named_parameters()}
+        _sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        coll.reset_counts()
+        runner.run(PAR_STEPS)
+        _sync(dev)
+        counts, colls = ops.launch_counts(), coll.counts()
+        serial = torch.load(f"{serial_dir}/{name}.pt", map_location=dev)
+        d_max = max((p - serial[k]).abs().max().item()
+                    for k, p in runner.model.named_parameters())
+        num = sum((p.float() - serial[k].float()).square().sum()
+                  for k, p in runner.model.named_parameters()).sqrt().item()
+        den = sum((serial[k].float() - init[k].float()).square().sum()
+                  for k in init).sqrt().item()
+        coord = built.mesh.get_coordinate()
+        role = "all"
+        if "branch" in built.sync_axes:
+            role = ("msa", "pair")[built.axis("branch").index]
+        out[name] = {"rank": rank, "coord": coord, "role": role,
+                     "losses": runner.history["loss"],
+                     "step_s": runner.history["step_s"],
+                     "launches": counts, "want": par_launches(pcfg, role),
+                     "collectives": colls, "max_param_diff": d_max,
+                     "update_rel_diff": num / den,
+                     "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                  if cuda else 0.0)}
+        # every rank of the plan takes part in each timed collective
+        out[name]["collective_s"] = par_time_collectives(
+            built, pcfg, dev, sum(t.numel() for t in init.values()))
+        del runner, init, serial
+        if cuda:
+            torch.cuda.empty_cache()
+    return out
+
+
+def parallel_phase(cfg, dev):
+    """Phase 9c.  The one-device runs first, in this process (their
+    parameters saved for the ranks), then four rank processes on this card
+    over gloo (the backend of ranks sharing a card), each plan's steps
+    held to the one-device steps' losses and parameters."""
+    from repro_torch.parallel import ranks as ranks_lib
+    serial = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, _, _, depth in PAR_PLANS:
+            pcfg = par_cfg(cfg, depth)
+            key = depth or (pcfg.n_evoformer, pcfg.n_extra_msa_blocks)
+            if key not in serial:
+                runner = par_runner(pcfg, None, dev)
+                runner.run(PAR_STEPS)
+                serial[key] = (runner.history["loss"],
+                               runner.history["step_s"],
+                               {k: p.detach().cpu() for k, p in
+                                runner.model.named_parameters()})
+                del runner
+                if dev.type == "cuda":
+                    torch.cuda.empty_cache()
+            torch.save(serial[key][2], f"{tmp}/{name}.pt")
+            print(f"[parallel serial] {name}: af2_initial "
+                  f"{pcfg.n_evoformer}+{pcfg.n_extra_msa_blocks} blocks, one "
+                  f"device, losses {serial[key][0]}, step walls "
+                  f"{[round(x, 3) for x in serial[key][1]]} s", flush=True)
+        print(f"[parallel] {ranks_lib.describe_backend(dev.type, 'gloo', 4)}",
+              flush=True)
+        t0 = time.perf_counter()
+        res = ranks_lib.spawn(par_rank, 4, cfg, tmp, PAR_PLANS,
+                              device_type=dev.type, backend="gloo",
+                              timeout_s=900)
+        wall = time.perf_counter() - t0
+    print(f"[parallel] four rank processes on {dev.type} over gloo: "
+          f"{wall:.1f} s with their start-up", flush=True)
+    summary = {}
+    for name, kw, ranks_of, depth in PAR_PLANS:
+        pcfg = par_cfg(cfg, depth)
+        want_losses = serial[depth or (pcfg.n_evoformer,
+                                       pcfg.n_extra_msa_blocks)][0]
+        rows = [res[r][name] for r in ranks_of]
+        for row in rows:
+            print(f"[parallel {name}] rank {row['rank']} mesh coordinate "
+                  f"{row['coord']} ({row['role']} branch): losses "
+                  f"{row['losses']} (one device {want_losses}), step walls "
+                  f"{[round(x, 3) for x in row['step_s']]} s, peak "
+                  f"{row['peak_gib']:.2f} GiB, max |param diff| "
+                  f"{row['max_param_diff']:.3g}, update rel L2 diff "
+                  f"{row['update_rel_diff']:.3g}, launches {row['launches']}, "
+                  f"collectives {row['collectives']}", flush=True)
+            want_launch = {k: v * PAR_STEPS for k, v in row["want"].items()}
+            if row["launches"] != want_launch:
+                raise AssertionError(f"{name} rank {row['rank']}: launches "
+                                     f"{row['launches']} != {want_launch}")
+            for a, b in zip(row["losses"], want_losses):
+                if not abs(a - b) <= PAR_LOSS_RTOL * abs(b):
+                    raise AssertionError(f"{name}: loss {a} vs one device {b}")
+            if not row["update_rel_diff"] <= PAR_UPDATE_RTOL:
+                raise AssertionError(f"{name}: update differs by "
+                                     f"{row['update_rel_diff']} of its norm")
+
+        print(f"[parallel collectives {name}] rank {rows[0]['rank']}, gloo"
+              f"{', staged through host memory' if dev.type == 'cuda' else ''}"
+              f", (bytes, median s): {json.dumps(rows[0]['collective_s'])}",
+              flush=True)
+        print(f"[parallel {name}] first loss bit for bit the one-device "
+              f"loss: {rows[0]['losses'][0] == want_losses[0]}", flush=True)
+        summary[name] = rows
+    total = collections.Counter()
+    for rows in summary.values():
+        for row in rows:
+            total.update(row["launches"])
+    if any(total[k] == 0 for k in ("evo_attention_fwd", "evo_attention_bwd",
+                                   "triangle_mult_fwd",
+                                   "triangle_mult_bwd_epilogue",
+                                   "triangle_mult_bwd_dx")):
+        raise AssertionError(f"a kernel of the parallel path never ran: {total}")
+    return summary, dict(total)
+
+
+# ---------------------------------------------------------------------------
 # Phase 9b: training data on the card, checkpoints and resume, remat="dots"
 # ---------------------------------------------------------------------------
 
@@ -1648,6 +2008,12 @@ def main() -> int:
     from repro_torch.core.config import af2_initial
     from repro_torch.kernels import build
 
+    t_start = time.perf_counter()
+
+    def stamp(what):
+        print(f"[time] {what} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+
     card = device_line()
     dev = torch.device("cuda")
     print(f"[device] {card} | torch {torch.__version__} cuda "
@@ -1674,6 +2040,7 @@ def main() -> int:
           f"{err32:.3g}; bf16 card vs fp32 CPU {err16:.3g} (CPU bf16 "
           f"{noise16:.3g}, bound 3x)", flush=True)
 
+    stamp("phases 1-4")
     # phases 5 and 6, eager: the same engine without graphs
     reqs, engine = main_path(cfg, dev, graphs=False)
     eager = serve_folds(engine, reqs)
@@ -1703,6 +2070,7 @@ def main() -> int:
     del engine, eager, graphed
     torch.cuda.empty_cache()
 
+    stamp("phases 5-6")
     att_shapes, tri_shapes = train_shapes(cfg)
     att_rows, att_tot = check_attention_train(
         dev, att_shapes, torch.bfloat16, ("msa_row", (16, 256, 8, 32)))
@@ -1720,6 +2088,7 @@ def main() -> int:
           f"|diff| {t_err32:.3g}; bf16 card {t_d16:.3g} from the CPU's fp32 "
           f"gradients (CPU bf16 {t_n16:.3g}, bound 3x)", flush=True)
 
+    stamp("phases 7-8")
     # phase 9: eagerly twice (the second run is the yardstick of how far two
     # eager runs of the same steps agree), then graphed
     runs = {}
@@ -1785,6 +2154,7 @@ def main() -> int:
     del runs, eager_runner, graphed_runner, runner
     torch.cuda.empty_cache()
 
+    stamp("phase 9")
     # phase 9b: the record-path pipeline on the card, checkpoints and resume
     # into the captured graphs, remat="dots"; held to phase 9's eager-vs-
     # eager distance
@@ -1822,6 +2192,27 @@ def main() -> int:
           f"{[round(x, 3) for x in rm['dots']['step_s']]} s", flush=True)
     torch.cuda.empty_cache()
 
+    stamp("phase 9b")
+    # phase 9c: K1-K5 at a DAP-2 rank's shapes, then the training step under
+    # BP, DAP and BP x DAP plans in four rank processes sharing the card
+    dap_rows, dap_tots = check_attention_train(
+        dev, dap_train_shapes(cfg), torch.bfloat16,
+        ("dap2_msa_row", (cfg.n_seq // 2, cfg.n_res, cfg.evoformer.n_head_msa,
+                          cfg.evoformer.c_hidden_att)))
+    dap_tri = check_triangle_dap(
+        dev, cfg.n_res, 2, cfg.evoformer.c_z, cfg.evoformer.c_hidden_mul,
+        cfg.n_evoformer + cfg.n_extra_msa_blocks)
+    for row in dap_rows + dap_tri:
+        print(f"[parallel kernel] {json.dumps(row)}", flush=True)
+    print(f"[parallel kernel total] one DAP-2 rank's sample-cycle of "
+          f"training, ms: {json.dumps(dap_totals(dap_tots, dap_tri))}",
+          flush=True)
+    _, par_total = parallel_phase(cfg, dev)
+    print(f"[parallel path] launches over every rank and plan: "
+          f"{json.dumps(par_total)}", flush=True)
+    torch.cuda.empty_cache()
+    stamp("phase 9c")
+
     from repro_torch import configs
     k6_rows, k6_tot = check_flash_attention(
         dev, lm_kernel_shapes(configs.get_config(LM_ARCH)))
@@ -1853,6 +2244,7 @@ def main() -> int:
     differ = sum(a != b for r in e_done for a, b in zip(e_done[r], g_done[r]))
     d_logits = max((g_logits[r].float() - e_logits[r].float()).abs().max().item()
                    for r in LM_CHECKED)
+    stamp("phases 10-11")
     print(f"[lm path] graphed vs eager: every token id agrees: {differ == 0} "
           f"({differ} of {sum(len(v) for v in e_done.values())} differ); max "
           f"|logits diff| of requests {list(LM_CHECKED)} {d_logits:.6g}",

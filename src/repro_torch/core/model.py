@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
-                                    create_selective_checkpoint_contexts)
+                                    create_selective_checkpoint_contexts,
+                                    set_checkpoint_early_stop)
 
 from repro_torch.core import evoformer as evo
 from repro_torch.core import heads as heads_lib
@@ -154,7 +155,7 @@ def _dots_contexts():
 
 def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
                     masks: Optional[evo.EvoMasks] = None, rng=None,
-                    deterministic: bool = True, remat=None):
+                    deterministic: bool = True, remat=None, block_fn=None):
     """Apply the blocks in order (the reference scans over stacked params);
     block i draws its dropout from ``fold_in(rng, i)``.  ``remat`` (with
     autograd on): ``"block"`` keeps only each block's inputs and recomputes
@@ -162,23 +163,47 @@ def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
     ``"dots"`` keeps the outputs of its 2-D products (``aten.mm`` /
     ``aten.addmm``) as well and recomputes everything else, the hand-written
     kernels included.  Dropout masks are hashes of the block's rng, so the
-    recompute draws the same masks."""
+    recompute draws the same masks.
+
+    ``block_fn`` (a ``ParallelPlan``'s BP / DAP block; None: the serial
+    ``evoformer_block``) takes the serial block's arguments.  A block_fn
+    with ``prefetch_init`` (the overlapped DAP schedule) follows the
+    prefetch protocol: the stack starts the gather of its input pair rep
+    once (``prefetch_init``), then before each block waits on the pending
+    gather and hands its result to ``block_fn.block(..., prefetch=)``, and
+    after each block but the last starts the gather of the block's output
+    (``prefetch_issue``), which the next block waits on.  Waits and issues
+    stay outside the checkpointed block, so a recompute repeats only the
+    block; a recompute that holds collectives (BP, DAP) reruns all of the
+    block on every rank, so the ranks issue the same collectives in the
+    same order."""
+    fn = block_fn or evo.evoformer_block
+    prefetch_init = getattr(fn, "prefetch_init", None)
+    mask_kw = {} if masks is None else {"masks": masks}
+    pending = prefetch_init(msa, z) if prefetch_init is not None else None
+    ckpt = remat in ("block", "dots") and torch.is_grad_enabled()
     for i, blk in enumerate(blocks):
-        def one(m, zz, blk=blk, key=evo.fold_in(rng, i)):
-            mo, zo = evo.evoformer_block(blk, cfg_block, m, zz, rng=key,
-                                         deterministic=deterministic,
-                                         masks=masks)
+        def one(m, zz, *zf, blk=blk, key=evo.fold_in(rng, i)):
+            kw = dict(rng=key, deterministic=deterministic, **mask_kw)
+            if zf:
+                mo, zo = fn.block(blk, cfg_block, m, zz, prefetch=zf[0], **kw)
+            else:
+                mo, zo = fn(blk, cfg_block, m, zz, **kw)
             return mo.to(m.dtype), zo.to(zz.dtype)
-        if remat in ("block", "dots") and torch.is_grad_enabled():
+        zf = () if pending is None else (pending.wait(),)
+        if ckpt:
             # no block draws from torch's generators (dropout hashes its
             # rng), so there is no RNG state to stash and restore; stashing
             # it reads the CUDA generator's state, which a graph capture
             # does not allow
             kw = {"context_fn": _dots_contexts} if remat == "dots" else {}
-            msa, z = checkpoint(one, msa, z, use_reentrant=False,
-                                preserve_rng_state=False, **kw)
+            with set_checkpoint_early_stop(block_fn is None):
+                msa, z = checkpoint(one, msa, z, *zf, use_reentrant=False,
+                                    preserve_rng_state=False, **kw)
         else:
-            msa, z = one(msa, z)
+            msa, z = one(msa, z, *zf)
+        if pending is not None and i + 1 < len(blocks):
+            pending = fn.prefetch_issue(z)
     return msa, z
 
 
@@ -203,11 +228,19 @@ def trunk_masks(batch) -> Optional[dict]:
 
 def run_trunk(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, *,
               dtype=torch.bfloat16, masks: Optional[dict] = None, rng=None,
-              deterministic: bool = True, remat=None):
+              deterministic: bool = True, remat=None, block_fn=None,
+              stack_io=None):
     """One recycling iteration of the trunk: returns (msa, z, single).  The
-    extra and main stacks draw dropout from sub-streams 1 and 2 of ``rng``."""
+    extra and main stacks draw dropout from sub-streams 1 and 2 of ``rng``.
+
+    ``block_fn`` goes to both stacks; ``stack_io`` = (pre, post) wraps them
+    (a ``ParallelPlan``'s): DAP shards (msa, z) at the entry of each stack
+    and gathers at the exit, z staying sharded between the two stacks.
+    Masked axes are read at full extent in every layout (DAP shards
+    queries, never keys), so the same masks serve every block_fn."""
     msa, z, extra = embed_inputs(params.embedder, cfg, batch, dtype)
     msa, z = embed_recycle(params.embedder, cfg, msa, z, prev)
+    pre, post = stack_io or ((lambda m, zz: (m, zz)),) * 2
     extra_masks = main_masks = None
     if masks is not None:
         ones = lambda n: torch.ones((n,), device=z.device)
@@ -217,11 +250,15 @@ def run_trunk(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, *,
         extra_masks = evo.EvoMasks(ones(extra.shape[0]) if rows is None else rows, res)
         rows = masks.get("msa_rows")
         main_masks = evo.EvoMasks(ones(msa.shape[0]) if rows is None else rows, res)
-    kw = dict(deterministic=deterministic, remat=remat)
-    _, z = evoformer_stack(params.extra_stack, cfg.extra, extra, z,
-                           masks=extra_masks, rng=evo.fold_in(rng, 1), **kw)
-    msa, z = evoformer_stack(params.evoformer, cfg.evoformer, msa, z,
-                             masks=main_masks, rng=evo.fold_in(rng, 2), **kw)
+    kw = dict(deterministic=deterministic, remat=remat, block_fn=block_fn)
+    extra_l, z_l = pre(extra, z)
+    _, z_l = evoformer_stack(params.extra_stack, cfg.extra, extra_l, z_l,
+                             masks=extra_masks, rng=evo.fold_in(rng, 1), **kw)
+    msa_l = pre(msa, z)[0]
+    msa_l, z_l = evoformer_stack(params.evoformer, cfg.evoformer, msa_l, z_l,
+                                 masks=main_masks, rng=evo.fold_in(rng, 2),
+                                 **kw)
+    msa, z = post(msa_l, z_l)
     single = dense(params.embedder.single_proj, msa[0])
     return msa, z, single
 
@@ -244,7 +281,7 @@ def to_device(batch: dict, device) -> dict:
 
 def forward(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
             n_recycle: int = 1, rng=None, deterministic: bool = True,
-            dtype=torch.bfloat16) -> dict:
+            dtype=torch.bfloat16, block_fn=None, stack_io=None) -> dict:
     """Full forward of one protein with ``n_recycle`` trunk passes, the
     gradient through the last only.
 
@@ -254,7 +291,8 @@ def forward(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
     their forward-only launches) and their recycled outputs are detached;
     the last cycle records the graph, with ``cfg.remat`` ("block" or
     "dots") checkpointing each Evoformer block.  Cycle i draws dropout from
-    ``cycle_rng(rng, i)``.
+    ``cycle_rng(rng, i)``.  ``block_fn`` / ``stack_io``: a plan's, to
+    :func:`run_trunk`.
     """
     if n_recycle < 1:
         raise ValueError(f"n_recycle must be >= 1, got {n_recycle}")
@@ -270,7 +308,8 @@ def forward(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
     def cycle(prev, key):
         msa, z, single = run_trunk(params, cfg, batch, prev, dtype=dtype,
                                    rng=key, deterministic=deterministic,
-                                   remat=remat)
+                                   remat=remat, block_fn=block_fn,
+                                   stack_io=stack_io)
         (rots, trans), traj, s_final = struct.structure_module(
             params.structure, cfg.structure, single, z)
         out = {"msa": msa, "z": z, "single": single, "s_final": s_final,
@@ -287,12 +326,13 @@ def forward(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
 
 def loss_fn(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
             n_recycle: int = 1, rng=None, deterministic: bool = True,
-            dtype=torch.bfloat16) -> tuple:
+            dtype=torch.bfloat16, block_fn=None, stack_io=None) -> tuple:
     """(total, metrics) of one protein: 0.5 FAPE + 0.3 distogram + 2.0
     masked-MSA + 0.01 pLDDT.  The heads read the fp32 masters, as the
     reference's ``loss_fn`` does; mixed-type products promote to fp32."""
     out = forward(model, cfg, batch, n_recycle=n_recycle, rng=rng,
-                  deterministic=deterministic, dtype=dtype)
+                  deterministic=deterministic, dtype=dtype, block_fn=block_fn,
+                  stack_io=stack_io)
     batch = to_device(batch, out["z"].device)
     hp = model.heads
     res_mask = batch["res_mask"].float()
@@ -341,13 +381,15 @@ def fold_carry_init(cfg: AlphaFold2Config, bsz: int, r: int, dtype, device):
 
 
 def sample_cycle(params: AlphaFold2, cfg: AlphaFold2Config, sample: dict,
-                 prev: tuple, *, dtype=torch.bfloat16) -> tuple:
+                 prev: tuple, *, dtype=torch.bfloat16, block_fn=None,
+                 stack_io=None) -> tuple:
     """One recycling cycle of one sample, a function of tensors only:
     ``sample`` its (padded) features, ``prev`` its carry (msa0, z, x).
     Returns (msa0, z, trans, s_final).  The unit a serving engine captures
     as a CUDA graph (``serve/fold_steps.py``); the eager path calls it too."""
     msa, z, single = run_trunk(params, cfg, sample, prev, dtype=dtype,
-                               masks=trunk_masks(sample))
+                               masks=trunk_masks(sample), block_fn=block_fn,
+                               stack_io=stack_io)
     (_, trans), _, s_final = struct.structure_module(
         params.structure, cfg.structure, single, z, sample.get("res_mask"))
     return msa[0], z, trans, s_final
@@ -355,7 +397,8 @@ def sample_cycle(params: AlphaFold2, cfg: AlphaFold2Config, sample: dict,
 
 def fold_cycle(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, sf,
                conv, n_rec, *, tol: float, pair_mask, pair_count,
-               dtype=torch.bfloat16, active=None, cycle=None):
+               dtype=torch.bfloat16, active=None, cycle=None, block_fn=None,
+               stack_io=None):
     """ONE batched recycling cycle with per-sample freeze semantics.
 
     ``params`` is already cast to the compute dtype.  A converged sample, or
@@ -363,7 +406,8 @@ def fold_cycle(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, sf,
     its recycle count; the reference computes it and throws the result
     away, this loop skips it, which gives the same carry.  ``cycle(params,
     sample, prev)`` runs one sample's cycle (:func:`sample_cycle` by
-    default; a serving engine passes its captured graph of it).
+    default, with ``block_fn`` / ``stack_io``; a serving engine passes its
+    captured graph of it).
     """
     keep = conv if active is None else (conv | ~active)
     new_prev = [t.clone() for t in prev]
@@ -374,7 +418,8 @@ def fold_cycle(params: AlphaFold2, cfg: AlphaFold2Config, batch, prev, sf,
         sample = {k: v[b] for k, v in batch.items()}
         prev_b = tuple(t[b] for t in prev)
         if cycle is None:
-            out = sample_cycle(params, cfg, sample, prev_b, dtype=dtype)
+            out = sample_cycle(params, cfg, sample, prev_b, dtype=dtype,
+                               block_fn=block_fn, stack_io=stack_io)
         else:
             out = cycle(params, sample, prev_b)
         for dst, src in zip((*new_prev, new_sf), out):
@@ -402,7 +447,7 @@ def fold_heads(params: AlphaFold2, cfg: AlphaFold2Config, z, s_final) -> dict:
 @torch.no_grad()
 def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
             max_recycle: int, tol: float = 0.0, dtype=torch.bfloat16,
-            active=None, cycle=None) -> dict:
+            active=None, cycle=None, block_fn=None, stack_io=None) -> dict:
     """Batched inference with adaptive early-exit recycling.
 
     ``batch``: per-sample features with a leading batch axis (B, ...) —
@@ -416,7 +461,8 @@ def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
 
     Returns coords (B, r, 3) fp32, plddt (B, r), contact_probs (B, r, r),
     the plddt / distogram logits, n_recycles (B,) and converged (B,).
-    ``cycle`` goes to :func:`fold_cycle`.  A model already in ``dtype`` is
+    ``cycle``, ``block_fn`` and ``stack_io`` (an inference plan's) go to
+    :func:`fold_cycle`.  A model already in ``dtype`` is
     used as it is, not copied (a captured ``cycle`` reads its storage).
     """
     if max_recycle < 1:
@@ -437,7 +483,7 @@ def predict(model: AlphaFold2, cfg: AlphaFold2Config, batch: dict, *,
         prev, sf, conv, n_rec = fold_cycle(
             params, cfg, batch, prev, sf, conv, n_rec, tol=tol,
             pair_mask=pair_mask, pair_count=pair_count, dtype=dtype,
-            active=active, cycle=cycle)
+            active=active, cycle=cycle, block_fn=block_fn, stack_io=stack_io)
     _, z, coords = prev
     out = fold_heads(params, cfg, z, sf)
     out.update(coords=coords, n_recycles=n_rec, converged=conv)

@@ -32,10 +32,20 @@ import torch
 from repro_torch.kernels import ops
 
 
-def use_graphs(graphs: Optional[bool], device: torch.device) -> bool:
+def use_graphs(graphs: Optional[bool], device: torch.device,
+               collectives: Optional[str] = None) -> bool:
     """An engine's ``graphs=`` keyword resolved on its device: None means on
     for CUDA and off for the CPU; True on a device without CUDA graphs
-    raises ValueError."""
+    raises ValueError.  ``collectives``: the backend of the process groups
+    the step talks over (None: it talks to no other rank).  A CUDA graph
+    cannot capture a gloo collective, so under gloo on a card None means off
+    and True raises ValueError."""
+    if collectives == "gloo" and device.type == "cuda":
+        if graphs:
+            raise ValueError(
+                "CUDA graphs cannot capture gloo collectives (ranks that "
+                "share a card talk over gloo); pass graphs=False")
+        return False
     if graphs is None:
         return device.type == "cuda"
     if graphs and device.type != "cuda":

@@ -1,5 +1,6 @@
-"""Training launcher of the PyTorch port: ``TrainRunner`` on one device,
-every attention and triangle update on the hand-written kernels.
+"""Training launcher of the PyTorch port: ``TrainRunner`` on one device or
+over rank processes under a ``ParallelPlan``, every attention and triangle
+update on the hand-written kernels.
 
   # on the GPU (the default device)
   PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 3 --batch 1
@@ -9,10 +10,21 @@ every attention and triangle update on the hand-written kernels.
   # a checkpoint every step; then resume from the latest and train to step 4
   PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 3 --batch 1 --device cpu --data-source fasta --bucket-by-length --ckpt-dir runs/tiny --ckpt-every 1
   PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 4 --batch 1 --device cpu --data-source fasta --bucket-by-length --ckpt-dir runs/tiny --ckpt-every 1 --resume
+  # four CPU rank processes (gloo), BP 2 x DAP 2
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu --devices 4 --bp 2 --dap 2
+  # two rank processes on the card (gloo when they share one card, NCCL
+  # when each has its own), DAP 2 with the overlapped schedule
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 2 --batch 1 --devices 2 --dap 2
+  # or one process per rank started by torchrun (its environment is read)
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train --af2 initial --steps 2 --batch 2
+
+``--devices N`` spawns N rank processes (the reference's fake host
+devices); the backend and the route of every collective kind are printed.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 
 
@@ -58,18 +70,83 @@ def main(argv=None):
                          "different ParallelPlan")
     ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda, which must exist)")
+                    help="torch device type of every rank (default: cuda, "
+                         "which must exist)")
+    ap.add_argument("--variant", default="parallel",
+                    choices=["af2", "multimer", "parallel"])
+    ap.add_argument("--devices", type=int, default=1,
+                    help="rank processes to spawn (1: this process alone; "
+                         "ignored under torchrun)")
+    ap.add_argument("--bp", type=int, default=1)
+    ap.add_argument("--dap", type=int, default=1)
+    ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--auto-plan", action="store_true",
+                    help="pick the DP x BP x DAP split from the roofline "
+                         "cost model (overrides --bp/--dap)")
+    ap.add_argument("--overlap-dap", choices=["auto", "on", "off"],
+                    default="auto",
+                    help="communication-overlapped DAP schedule: 'auto' "
+                         "enables it for pure-DAP 'parallel' groups, "
+                         "'on'/'off' force it (on is rejected for hybrid / "
+                         "serial plans)")
+    ap.add_argument("--compress-pod-grads", action="store_true",
+                    help="int8 error-feedback compression of the cross-pod "
+                         "gradient sum (needs --pods > 1)")
+    ap.add_argument("--rank-timeout", type=float, default=3600.0,
+                    help="seconds a rank process may take, and the timeout "
+                         "of every collective")
     args = ap.parse_args(argv)
+    from repro_torch.device import resolve_device
+    from repro_torch.parallel import ranks
+    device_type = resolve_device(args.device).type
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, world, device, backend = ranks.from_env(device_type,
+                                                      args.rank_timeout)
+        if rank == 0:
+            print(ranks.describe_backend(device_type, backend, world))
+        return run_af2(args, rank=rank, world=world, device=device)
+    if args.devices > 1:
+        backend = ranks.choose_backend(device_type, args.devices)
+        print(ranks.describe_backend(device_type, backend, args.devices))
+        if device_type == "cuda":
+            from repro_torch.kernels import build
+            build.build_all()       # once, before the ranks start
+        return ranks.spawn(_rank_main, args.devices, args,
+                           device_type=device_type, backend=backend,
+                           timeout_s=args.rank_timeout,
+                           threads=max(1, (os.cpu_count() or 1) // args.devices)
+                           if device_type == "cpu" else 0)
     return run_af2(args)
 
 
-def run_af2(args):
+def _rank_main(rank, world, device, args):
+    runner = run_af2(args, rank=rank, world=world, device=device)
+    return {"loss": runner.history["loss"],
+            "n_recycle": runner.history["n_recycle"]}
+
+
+def make_plan(args, cfg, world: int):
+    from repro_torch.parallel.plan import ParallelPlan, auto_plan
+    overlap = {"auto": None, "on": True, "off": False}[args.overlap_dap]
+    kw = dict(variant=args.variant, overlap_dap=overlap,
+              compress_pod_grads=args.compress_pod_grads)
+    if args.auto_plan:
+        return auto_plan(world, cfg, global_batch=args.batch, pod=args.pods,
+                         **kw)
+    return ParallelPlan.from_flags(world, bp=args.bp, dap=args.dap,
+                                   pod=args.pods, **kw)
+
+
+def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     from repro_torch.core.config import PRESETS
     from repro_torch.nn.layers import count_params
     from repro_torch.train.optim import adamw, af2_lr_schedule
     from repro_torch.train.trainer import TrainRunner
 
     cfg = PRESETS[args.af2]()
+    plan = make_plan(args, cfg, world)
+    device = device if device is not None else args.device
+    print_ = print if rank == 0 else (lambda *a, **k: None)
     source = None
     if args.data_source == "fasta":
         from repro_torch.data.ingest import FastaSource, demo_fasta
@@ -78,8 +155,8 @@ def run_af2(args):
         else:
             source = FastaSource(demo_fasta(cfg, seed=args.seed), cfg,
                                  is_path=False)
-        print(f"data: fasta source, {len(source)} records"
-              + (f" from {args.fasta}" if args.fasta else " (bundled demo)"))
+        print_(f"data: fasta source, {len(source)} records"
+               + (f" from {args.fasta}" if args.fasta else " (bundled demo)"))
     if args.bucket_by_length and source is None:
         raise SystemExit("--bucket-by-length needs --data-source fasta "
                          "(the synthetic stream is fixed-shape)")
@@ -87,42 +164,46 @@ def run_af2(args):
     opt = adamw(af2_lr_schedule(args.lr, warmup_steps=100),
                 per_sample_clip=0.1)
     runner = TrainRunner(
-        cfg, optimizer=opt, batch_size=args.batch, seed=args.seed,
+        cfg, plan, optimizer=opt, batch_size=args.batch, seed=args.seed,
         recycle_sample=args.recycle_sample,
         max_recycle=args.max_recycle or None, ema_decay=args.ema or None,
         eval_every=args.eval_every, ckpt_dir=args.ckpt_dir,
         ckpt_every=args.ckpt_every, install_sigterm=True,
-        deterministic=False, device=args.device, data_source=source,
+        deterministic=False, device=device, data_source=source,
         data_workers=args.data_workers,
         bucket_by_length=args.bucket_by_length,
-        on_straggler=lambda s, dt, ema: print(
+        on_straggler=lambda s, dt, ema: print_(
             f"  [watchdog] step {s} took {dt:.2f}s (EMA {ema:.2f}s)"))
-    print(f"train: {args.af2} cfg on {runner.device}, params "
-          f"{count_params(runner.model):,}, recycle_sample="
-          f"{args.recycle_sample} (max {runner.max_recycle}), ema="
-          f"{args.ema or 'off'}, graphs={runner.graphs}")
+    print_(f"train: {args.af2} cfg on {runner.device}, params "
+           f"{count_params(runner.model):,}, recycle_sample="
+           f"{args.recycle_sample} (max {runner.max_recycle}), ema="
+           f"{args.ema or 'off'}, graphs={runner.graphs}")
+    print_(f"plan: {runner.plan.describe()}")
+    for kind, route in runner.built.routes().items():
+        print_(f"  collective {kind}: {route}")
     if args.ckpt_dir and args.resume:
         try:
-            print(f"resumed from step "
-                  f"{runner.restore(adapt_plan=args.adapt_plan)}")
+            print_(f"resumed from step "
+                   f"{runner.restore(adapt_plan=args.adapt_plan)}")
         except FileNotFoundError:
             pass
     t0 = time.time()
-    runner.run(args.steps, log_every=args.log_every)
+    runner.run(args.steps, log_every=args.log_every if rank == 0 else 0,
+               log=print_)
     evals = runner.history["eval"]
-    print(f"done: {args.steps} steps in {time.time() - t0:.1f}s; last loss "
-          f"{runner.history['loss'][-1]:.4f}; train compiles: "
-          f"{runner.train_compiles}; stragglers flagged: "
-          f"{len(runner.watchdog.flagged)}"
-          + (f"; final lDDT-Cα {evals[-1]['lddt_ca']:.2f}" if evals else ""))
+    print_(f"done: {args.steps} steps in {time.time() - t0:.1f}s; last loss "
+           f"{runner.history['loss'][-1]:.4f}; train compiles: "
+           f"{runner.train_compiles}; stragglers flagged: "
+           f"{len(runner.watchdog.flagged)}"
+           + (f"; final lDDT-Cα {evals[-1]['lddt_ca']:.2f}" if evals else ""))
     data = runner.history["data"]
     if data:
         d = data[-1]
-        print(f"data ({args.data_workers} workers): stall "
-              f"{d['stall_ms_per_step']}ms/step "
-              f"({100 * d['stall_fraction']:.1f}% of loop), featurize "
-              f"{d['featurize_ms_per_step']}ms, transfer "
-              f"{d['transfer_ms_per_step']}ms, fill {d['mean_fill']:.2f}")
+        print_(f"data ({args.data_workers} workers): stall "
+               f"{d['stall_ms_per_step']}ms/step "
+               f"({100 * d['stall_fraction']:.1f}% of loop), featurize "
+               f"{d['featurize_ms_per_step']}ms, transfer "
+               f"{d['transfer_ms_per_step']}ms, fill {d['mean_fill']:.2f}")
     return runner
 
 

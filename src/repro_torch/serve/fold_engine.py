@@ -1,5 +1,7 @@
-"""FoldEngine: AF2 structure-prediction serving on one device (counterpart of
-``repro/serve/fold_engine.py:37-286``).
+"""FoldEngine: AF2 structure-prediction serving (counterpart of
+``repro/serve/fold_engine.py:37-286``), on one device or under an inference
+``ParallelPlan`` over rank processes (``plan``; the reference's
+``long_plan`` routing is not ported).
 
 Requests are padded onto a small bucket table; one fold step per bucket is
 built on first use and cached (``compile_misses`` counts the misses, so the
@@ -20,11 +22,13 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import graphs as graphs_lib
 from repro_torch.core.config import with_kernels
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import Policy
+from repro_torch.parallel.plan import BuiltPlan, ParallelPlan
 from repro_torch.serve import fold_steps as fs
 
 
@@ -48,7 +52,7 @@ class FoldResult:
 
 
 class FoldEngine:
-    """Queue-driven AF2 fold server over one model on one device.
+    """Queue-driven AF2 fold server over one model.
 
     ``device`` defaults to ``cuda`` (raising without a card); the model is
     moved there and cast to ``dtype`` once, into ``params`` (a copy of its
@@ -57,14 +61,31 @@ class FoldEngine:
     impls ``cfg`` names.  ``graphs``: capture each bucket's sample-cycle as a CUDA graph
     (``fold_steps.GraphedCycle``, all in one memory pool); None means on
     for a CUDA device and off on the CPU, True on the CPU raises
-    ValueError.
+    ValueError (and off / raising under a gloo plan of several ranks on a
+    card, whose collectives a graph cannot capture).
+
+    ``plan``: a ``ParallelPlan`` (training-shaped plans are accepted:
+    ``for_inference()`` is applied) or a ``BuiltPlan``'s plan; None is one
+    device.  Every rank of the plan runs the engine on the same requests;
+    each data-parallel replica folds its rows of each micro-batch (rounded
+    up to the data extent) and every rank gets every result.  ``ranks``:
+    the global ranks the plan's mesh spans (None: the whole world).
     """
 
-    def __init__(self, cfg, model, *, buckets=None, micro_batch: int = 2,
-                 max_recycle: Optional[int] = None, tol: float = 0.0,
-                 dtype=None, device=None, graphs: Optional[bool] = None):
+    def __init__(self, cfg, model, *, buckets=None, plan=None, ranks=None,
+                 micro_batch: int = 2, max_recycle: Optional[int] = None,
+                 tol: float = 0.0, dtype=None, device=None,
+                 graphs: Optional[bool] = None):
         self.device = resolve_device(device)
-        self.graphs = graphs_lib.use_graphs(graphs, self.device)
+        self.ranks = ranks
+        if isinstance(plan, BuiltPlan):
+            plan = plan.plan
+        self.plan = (plan or ParallelPlan()).for_inference()
+        self._built: Dict[ParallelPlan, BuiltPlan] = {}
+        self.graphs = graphs_lib.use_graphs(
+            graphs, self.device,
+            collectives=(dist.get_backend() if self.plan.n_devices > 1
+                         else None))
         self.cfg = with_kernels(cfg)
         self.dtype = dtype or torch.bfloat16
         model = model.to(self.device)
@@ -86,16 +107,38 @@ class FoldEngine:
 
     _SCALAR_STATS = ("requests", "steps", "recycles_run", "recycles_budget")
 
+    def plan_for(self, bucket: fs.Bucket) -> ParallelPlan:
+        """The inference plan a bucket runs under (one plan: the reference's
+        ``long_plan`` routing is not ported)."""
+        return self.plan
+
+    def _built_for(self, plan: ParallelPlan, bcfg) -> BuiltPlan:
+        if plan not in self._built:
+            self._built[plan] = plan.build(self.ranks, cfg=bcfg,
+                                           device=self.device)
+        return self._built[plan]
+
     def step_for(self, bucket: fs.Bucket):
         """The fold step of this bucket, built once and cached (with graphs,
-        its first call captures the bucket's sample-cycle)."""
+        its first call captures the bucket's sample-cycle).  Under a plan of
+        several ranks every rank calls it together (the first call builds
+        the plan's process groups)."""
         if bucket not in self._steps:
             self.compile_misses += 1
+            plan = self.plan_for(bucket)
+            bcfg = plan.apply_to(fs.bucket_cfg(self.cfg, bucket))
+            built = self._built_for(plan, bcfg)
             self._steps[bucket] = fs.make_fold_step(
-                fs.bucket_cfg(self.cfg, bucket), max_recycle=self.max_recycle,
-                tol=self.tol, dtype=self.dtype, graphs=self.graphs,
-                pool=self._pool)
+                bcfg, built, max_recycle=self.max_recycle, tol=self.tol,
+                dtype=self.dtype, graphs=self.graphs, pool=self._pool)
         return self._steps[bucket]
+
+    def slots_for(self, bucket: fs.Bucket) -> int:
+        """The micro-batch of a bucket's step: ``micro_batch`` rounded up to
+        a multiple of the plan's data extent."""
+        plan = self.plan_for(bucket)
+        data = plan.pod * plan.data
+        return (self.micro_batch + data - 1) // data * data
 
     def load_weights(self, weights) -> None:
         """Serve ``weights`` from now on, a model or its parameters by key
@@ -143,8 +186,9 @@ class FoldEngine:
 
     def _run_group(self, bucket: fs.Bucket, group: List[FoldRequest]):
         padded = [fs.pad_to_bucket(r.features, bucket) for r in group]
-        batch = fs.stack_padded(padded, self.micro_batch)
-        active = np.arange(self.micro_batch) < len(group)
+        slots = self.slots_for(bucket)
+        batch = fs.stack_padded(padded, slots)
+        active = np.arange(slots) < len(group)
         step = self.step_for(bucket)
         t0 = time.perf_counter()
         out = step(self.params, batch, active)

@@ -1,5 +1,5 @@
 """Fold-serving substrate: bucket table, bucket padding, fold steps
-(counterpart of ``repro/serve/fold_steps.py:26-133``, one device).
+(counterpart of ``repro/serve/fold_steps.py:26-133``).
 
 * a ``Bucket`` names one padded shape (n_res, n_seq, n_extra_seq); requests
   map onto the smallest covering bucket, so the step cache is bounded by the
@@ -7,8 +7,10 @@
 * ``pad_to_bucket`` pads a request's features and attaches the validity
   masks that ``core.model.predict`` threads through every cross-position op;
 * ``make_fold_step`` builds the (model, batch) -> outputs step of one
-  bucket; with ``graphs`` its sample-cycle is a CUDA graph
-  (:class:`GraphedCycle`).
+  bucket, under an inference plan's ``BuiltPlan`` (each data-parallel
+  replica folds its rows, the trunk runs the plan's DAP ``block_fn``, the
+  outputs are gathered to every rank); with ``graphs`` its sample-cycle is
+  a CUDA graph (:class:`GraphedCycle`).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import torch
 
 from repro_torch import graphs as graphs_lib
 from repro_torch.core import model as af2
+from repro_torch.parallel import collectives as coll
 
 # keys predict() returns, all with a leading batch axis
 PREDICT_OUTPUT_KEYS = ("coords", "plddt", "contact_probs", "plddt_logits",
@@ -121,8 +124,9 @@ class GraphedCycle:
     after.  The graph reads that module's storage: a later call with
     another module raises (load new weights into it with ``copy_``)."""
 
-    def __init__(self, cfg, *, dtype, pool=None):
+    def __init__(self, cfg, *, dtype, pool=None, block_fn=None, stack_io=None):
         self.cfg, self.dtype = cfg, dtype
+        self.block_fn, self.stack_io = block_fn, stack_io
         self.step = graphs_lib.CapturedStep(self._cycle, pool=pool)
         self.params = self.keys = None
 
@@ -130,7 +134,9 @@ class GraphedCycle:
         n = len(self.keys)
         return af2.sample_cycle(self.params, self.cfg,
                                 dict(zip(self.keys, tensors[:n])),
-                                tuple(tensors[n:]), dtype=self.dtype)
+                                tuple(tensors[n:]), dtype=self.dtype,
+                                block_fn=self.block_fn,
+                                stack_io=self.stack_io)
 
     def __call__(self, params, sample: dict, prev: tuple):
         if self.params is None:
@@ -141,20 +147,40 @@ class GraphedCycle:
         return self.step(*(sample[k] for k in self.keys), *prev)
 
 
-def make_fold_step(cfg, *, max_recycle: int, tol: float, dtype=None,
-                   graphs: bool = False, pool=None):
+def make_fold_step(cfg, built=None, *, max_recycle: int, tol: float,
+                   dtype=None, graphs: bool = False, pool=None):
     """The (model, batch, active) -> outputs step of one bucket-shaped
     ``cfg``: the whole fold (``predict``'s recycling loop) on the model's
     device; slots with ``active`` False (micro-batch filler) are skipped.
-    With ``graphs`` every sample-cycle replays one :class:`GraphedCycle`
+    ``built``: an inference plan's ``BuiltPlan`` (None: one device) — each
+    data-parallel replica folds its rows of the batch (a multiple of the
+    data extent), through the plan's ``block_fn`` / ``stack_io``, and every
+    output is gathered back to the whole batch on every rank.  With
+    ``graphs`` every sample-cycle replays one :class:`GraphedCycle`
     (captured into ``pool``), and the model must already be in ``dtype``
     and the same module at every call; the freeze logic, the convergence
     test and the heads stay on the host's eager path."""
     dtype = dtype or torch.bfloat16
-    cycle = GraphedCycle(cfg, dtype=dtype, pool=pool) if graphs else None
+    block_fn = built.block_fn if built is not None else None
+    stack_io = built.stack_io if built is not None else None
+    cycle = (GraphedCycle(cfg, dtype=dtype, pool=pool, block_fn=block_fn,
+                          stack_io=stack_io) if graphs else None)
+    dps = [built.axis(a) for a in built.dp_axes] if built is not None else []
+
+    def fold(model, batch, active):
+        return af2.predict(model, cfg, batch, max_recycle=max_recycle,
+                           tol=tol, dtype=dtype, active=active, cycle=cycle,
+                           block_fn=block_fn, stack_io=stack_io)
 
     def step(model, batch, active=None):
-        return af2.predict(model, cfg, batch, max_recycle=max_recycle,
-                           tol=tol, dtype=dtype, active=active, cycle=cycle)
+        if coll.axes_size(dps) == 1:
+            return fold(model, batch, active)
+        rows = built.local_rows(batch["target_feat"].shape[0])
+        out = fold(model, {k: v[rows] for k, v in batch.items()},
+                   None if active is None else active[rows])
+        # gloo gathers no bool tensors: converged travels as uint8
+        return {k: (coll.gather_rows(v.to(torch.uint8), dps).bool()
+                    if v.dtype == torch.bool else coll.gather_rows(v, dps))
+                for k, v in out.items()}
 
     return step

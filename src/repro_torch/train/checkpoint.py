@@ -26,8 +26,11 @@ checkpoint written by either package restores in the other.
   replay overwrites them in place; the worker thread only writes numpy.
 * ``StepWatchdog``: straggler detection on an EMA of step walls.
 
-The port has no ``ParallelPlan`` yet: its runs stamp ``meta={}``, and
-``check_plan_meta`` passes an empty meta, as the reference's does.
+A training run stamps its plan's metadata (``BuiltPlan.metadata()``: the
+plan and the mesh fingerprint) into every manifest, and a restore under a
+different plan raises :class:`PlanMismatchError` unless ``adapt_plan``.
+Under a plan of several ranks only the writer (global rank 0) saves; every
+rank restores.
 """
 from __future__ import annotations
 
@@ -103,7 +106,8 @@ class _OptState(NamedTuple):
 def train_state_tree(state: dict, *, stacked=bridge.STACKED) -> dict:
     """The port's train state (``trainstep.init_state``) as the reference's
     tree: ``params`` (the model's parameters), ``opt`` (``step`` as an int32
-    array, ``mu``, ``nu``) and ``ema`` when kept; leaves are the live
+    array, ``mu``, ``nu``), ``ema`` when kept and ``err`` (the int8 error
+    feedback of ``compress_pod_grads``) when kept; leaves are the live
     tensors (stack blocks as :class:`Stacked`), so a restore into this tree
     writes the training state itself."""
     opt = state["opt"]
@@ -112,8 +116,9 @@ def train_state_tree(state: dict, *, stacked=bridge.STACKED) -> dict:
             "opt": _OptState(np.asarray(opt.step, np.int32),
                              bridge.nest(opt.mu, stacked=stacked),
                              bridge.nest(opt.nu, stacked=stacked))}
-    if "ema" in state:
-        tree["ema"] = bridge.nest(state["ema"], stacked=stacked)
+    for key in ("ema", "err"):
+        if key in state:
+            tree[key] = bridge.nest(state[key], stacked=stacked)
     return tree
 
 
@@ -219,8 +224,8 @@ def check_plan_meta(stored: Optional[dict], current: Optional[dict], *,
     """Compare stored vs current plan metadata.
 
     Plan field mismatches are fatal unless ``adapt=True``; an empty meta on
-    either side passes (the port's runs stamp ``{}``), and mesh-fingerprint
-    differences alone are always allowed (the format is mesh-agnostic)."""
+    either side passes, and mesh-fingerprint differences alone are always
+    allowed (the format is mesh-agnostic)."""
     if not stored or not current or adapt:
         return
     diffs = _diff_meta(stored.get("plan", {}), current.get("plan", {}))
@@ -360,14 +365,17 @@ def checkpoint_bytes(directory, step: Optional[int] = None) -> int:
 class CheckpointManager:
     """Keep-N asynchronous checkpoint manager with a final save on SIGTERM.
 
+    ``write=False`` (a rank other than the writer of a plan of several
+    ranks) makes :meth:`save` a no-op; restores read the writer's files.
     ``stats`` lists the seconds of each ``snapshot_s`` (on the caller's
     thread: device to pinned host memory), ``save_s`` (on the worker: npz
     write, fsync, rename and garbage collection) and ``restore_s``."""
 
     def __init__(self, directory, *, keep: int = 3, async_save: bool = True,
                  install_sigterm: bool = False,
-                 plan_meta: Optional[dict] = None):
+                 plan_meta: Optional[dict] = None, write: bool = True):
         self.directory = pathlib.Path(directory)
+        self.write = write
         self.keep = keep
         self.async_save = async_save
         self.plan_meta = plan_meta
@@ -390,6 +398,8 @@ class CheckpointManager:
     def save(self, step: int, tree):
         """Snapshot ``tree`` to host memory now (the caller may overwrite its
         tensors as soon as this returns), then write it on the worker."""
+        if not self.write:
+            return
         t0 = time.perf_counter()
         host_tree = snapshot(tree)
         self.stats["snapshot_s"].append(time.perf_counter() - t0)

@@ -1,5 +1,6 @@
-"""``TrainRunner``: the AlphaFold2 training loop on one device (counterpart
-of the core of ``repro/train/trainer.py``).
+"""``TrainRunner``: the AlphaFold2 training loop (counterpart of the core of
+``repro/train/trainer.py``), on one device or on this rank's share of a
+``ParallelPlan`` over rank processes.
 
 Defaults as the reference's: AdamW on ``af2_lr_schedule(1e-3,
 warmup_steps=100)`` with per-sample clipping at 0.1, EMA 0.999, stochastic
@@ -28,6 +29,16 @@ card each batch is copied to the device one step ahead, on a copy stream.
 tensors, which the captured graphs go on reading.  A ``StepWatchdog``
 flags steps slower than twice its EMA of step walls.  Telemetry (the
 reference's metric registry) is not ported yet.
+
+Under a plan (``plan=``, built by every rank together): the plan's
+implementation choices are applied to the config, every rank builds the
+same global batch from the seed and takes its data-parallel rows, every
+rank draws the same ``n_recycle``, the gradients are completed and reduced
+by the plan, ``state["err"]`` carries the int8 error feedback of
+``compress_pod_grads``, evaluation runs under ``plan.for_inference()``,
+and only the mesh's first rank writes checkpoints (every rank restores).  CUDA
+graphs cannot capture gloo collectives: under a gloo plan of several ranks
+``graphs=True`` raises and ``graphs=None`` means off.
 """
 from __future__ import annotations
 
@@ -46,17 +57,20 @@ from repro_torch.data.bucketing import train_bucket
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.protein import protein_batch
 from repro_torch.device import resolve_device
+from repro_torch.parallel.plan import BuiltPlan
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.fold_engine import FoldEngine
 from repro_torch.train import optim as optim_lib
 from repro_torch.train.checkpoint import (CheckpointManager, StepWatchdog,
                                           train_state_tree)
-from repro_torch.train.trainstep import (METRICS, init_state, make_step_body,
-                                         step_inputs)
+from repro_torch.train.trainstep import (METRICS, build_plan, init_state,
+                                         make_step_body, step_inputs)
 
 
 class TrainRunner:
-    """Drive AF2 training for a config on one device.
+    """Drive AF2 training for a config on one device, or on this rank's
+    share of ``plan`` (a ``ParallelPlan`` or ``BuiltPlan``; None: one
+    device).
 
     ``ema_decay=None`` keeps no EMA copy (evaluation then uses the raw
     parameters); ``recycle_sample=False`` runs the fixed ``n_recycle`` every
@@ -89,7 +103,7 @@ class TrainRunner:
     step's ``trainstep.METRICS`` as floats.
     """
 
-    def __init__(self, cfg, *, optimizer=None, batch_size: int = 1,
+    def __init__(self, cfg, plan=None, *, optimizer=None, batch_size: int = 1,
                  seed: int = 0, n_recycle: int = 1, recycle_sample: bool = True,
                  max_recycle: Optional[int] = None,
                  ema_decay: Optional[float] = 0.999,
@@ -102,8 +116,13 @@ class TrainRunner:
                  on_straggler=None, data_source=None, data_workers: int = 1,
                  data_prefetch: int = 2, bucket_by_length: bool = False):
         self.device = resolve_device(device)
-        self.graphs = graphs_lib.use_graphs(graphs, self.device)
+        if not isinstance(plan, BuiltPlan) and plan is not None:
+            cfg = plan.apply_to(cfg)
         self.cfg = with_kernels(cfg)
+        self.built = build_plan(plan, self.cfg, self.device)
+        self.plan = self.built.plan
+        self.graphs = graphs_lib.use_graphs(
+            graphs, self.device, collectives=self.built.backend)
         self.seed = seed
         self.batch_size = batch_size
         self.n_recycle = n_recycle
@@ -123,21 +142,22 @@ class TrainRunner:
             optim_lib.af2_lr_schedule(1e-3, warmup_steps=100),
             per_sample_clip=0.1)
         self.ema = optim_lib.ema(ema_decay) if ema_decay else None
-        self._body = make_step_body(self.cfg, self.optimizer,
+        self._body = make_step_body(self.cfg, self.optimizer, self.built,
                                     deterministic=deterministic, ema=self.ema,
                                     dtype=dtype)
         if model is None:
             model = AlphaFold2(self.cfg, seed=seed, device=self.device)
-        self.state = init_state(model, self.optimizer, self.ema)
+        self.state = init_state(model, self.optimizer, self.ema,
+                                compress_err=self.plan.compress_pod_grads)
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self._steps: dict = {}          # n_recycle -> its step
         self._batch_keys: Optional[list] = None
         self._eval_eng: Optional[FoldEngine] = None
         self.step = 0
-        # the port has no ParallelPlan yet: its checkpoints carry meta {}
         self.mgr = (CheckpointManager(ckpt_dir, keep=keep,
                                       install_sigterm=install_sigterm,
-                                      plan_meta={})
+                                      plan_meta=self.built.metadata(),
+                                      write=self.built.is_writer)
                     if ckpt_dir else None)
         self.watchdog = StepWatchdog(on_straggler=on_straggler)
         self.history = {"loss": [], "n_recycle": [], "step_s": [], "eval": [],
@@ -197,6 +217,8 @@ class TrainRunner:
                           *tensors[n:], n_recycle)
 
     def _train_step(self, step: int, batch: dict, nr: int) -> dict:
+        rows = self.built.local_rows(batch["target_feat"].shape[0])
+        batch = {k: v[rows] for k, v in batch.items()}
         batch, key, opt_step = step_inputs(batch, (self.seed, step),
                                            self.state["opt"].step + 1,
                                            self.device)
@@ -303,6 +325,7 @@ class TrainRunner:
         if self.mgr is None:
             raise ValueError("TrainRunner has no ckpt_dir; nothing to restore")
         self.mgr.wait()
+        self.built.barrier()    # the writer's last save is on disk
         tree, step = self.mgr.restore(self.checkpoint_tree(), step=step,
                                       adapt_plan=adapt_plan)
         self.state["opt"] = self.state["opt"]._replace(
@@ -320,9 +343,11 @@ class TrainRunner:
     def _eval_engine(self) -> FoldEngine:
         """The serving engine evaluation runs through, built once: one
         full-shape bucket, ``eval_batch_size`` proteins a step, exactly
-        ``eval_n_recycle`` cycles (tol 0), graphed as training is.  It holds
-        its own weights in the compute dtype, which :meth:`evaluate` loads
-        before each use; its graphs keep their addresses."""
+        ``eval_n_recycle`` cycles (tol 0), graphed as training is, under
+        the training plan's inference layout (``for_inference``: branch
+        folds into data, dap stays).  It holds its own weights in the
+        compute dtype, which :meth:`evaluate` loads before each use; its
+        graphs keep their addresses."""
         if self._eval_eng is None:
             cfg = self.cfg
             self._eval_eng = FoldEngine(
@@ -330,7 +355,8 @@ class TrainRunner:
                 buckets=[fs.Bucket(cfg.n_res, cfg.n_seq, cfg.n_extra_seq)],
                 micro_batch=self.eval_batch_size,
                 max_recycle=self.eval_n_recycle, tol=0.0, dtype=self.dtype,
-                device=self.device, graphs=self.graphs)
+                device=self.device, graphs=self.graphs, plan=self.plan,
+                ranks=self.built.ranks)
         return self._eval_eng
 
     @torch.no_grad()
@@ -343,14 +369,21 @@ class TrainRunner:
         from (numpy)."""
         eng = self._eval_engine()
         eng.load_weights(self.eval_params())
-        step = eng.step_for(eng.buckets[0])
+        bucket = eng.buckets[0]
+        step = eng.step_for(bucket)
+        ext = eng.slots_for(bucket)
         keys = fs.REQUEST_FEATURE_KEYS + ("res_mask",)
         lddts, coords, truths, masks = [], [], [], []
         for b in range(self.eval_batches):
             batch = protein_batch(self.seed, b, self.eval_batch_size,
                                   self.cfg, split="val")
-            out = step(eng.params, {k: batch[k] for k in keys})
-            c = out["coords"].float()
+            fb = {k: batch[k] for k in keys}
+            if ext > self.eval_batch_size:      # round up to the plan's data
+                fb = {k: np.concatenate(        # extent; the extras dropped
+                    [v, np.repeat(v[-1:], ext - self.eval_batch_size, 0)])
+                    for k, v in fb.items()}
+            out = step(eng.params, fb)
+            c = out["coords"][:self.eval_batch_size].float()
             truth = to_device({k: batch[k] for k in ("true_trans", "res_mask")},
                               c.device)
             lddts.append(torch.stack([

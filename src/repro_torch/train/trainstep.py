@@ -1,6 +1,10 @@
-"""The AlphaFold2 training step on one device (counterpart of
-``repro/train/trainstep.py::make_af2_train_step``, without its
-``ParallelPlan``: Branch Parallelism and DAP come with their own slice).
+"""The AlphaFold2 training step (counterpart of
+``repro/train/trainstep.py::make_af2_train_step``), laid out by a
+``parallel.plan.ParallelPlan``: on one device by default, or on this rank's
+share of a plan over rank processes — its data-parallel rows of the batch,
+its branch (BP) or activation shard (DAP) of each protein through the
+plan's ``block_fn`` / ``stack_io``, and the plan's gradient completion and
+reduction (``grad_sync``).
 
 The step's body (:func:`make_step_body`) is a function of tensors only:
 the batch, the dropout key and the optimizer's step count come in as
@@ -17,6 +21,9 @@ import torch
 from repro_torch.core import evoformer as evo
 from repro_torch.core import model as af2
 from repro_torch.device import resolve_device
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel.plan import (BuiltPlan, ParallelPlan,
+                                       complete_partial_grads)
 from repro_torch.train.optim import (Ema, Optimizer, clip_by_global_norm,
                                     global_norm)
 
@@ -30,16 +37,37 @@ def param_dict(model: torch.nn.Module) -> dict:
     return dict(model.named_parameters())
 
 
-def init_state(model: af2.AlphaFold2, optimizer: Optimizer, ema: Ema = None
-               ) -> dict:
+def init_state(model: af2.AlphaFold2, optimizer: Optimizer, ema: Ema = None,
+               *, compress_err: bool = False) -> dict:
     """Train state: ``params`` (the model: its parameters are the fp32
-    masters), ``opt`` (an ``OptState`` over them by key path) and, with an
-    EMA, ``ema`` (fp32 copies by key path)."""
+    masters), ``opt`` (an ``OptState`` over them by key path), with an EMA
+    ``ema`` (fp32 copies by key path), and with ``compress_err`` (a plan's
+    ``compress_pod_grads``) ``err``, the int8 error-feedback residuals
+    (``parallel.grad_sync``)."""
     params = param_dict(model)
     state = {"params": model, "opt": optimizer.init(params)}
     if ema is not None:
         state["ema"] = ema.init(params)
+    if compress_err:
+        from repro_torch.parallel.grad_sync import zeros_error_state
+        state["err"] = zeros_error_state(params)
     return state
+
+
+def build_plan(plan, cfg, device) -> BuiltPlan:
+    """``plan`` as a ``BuiltPlan`` on ``device``: None is the one-device
+    plan, a ``ParallelPlan`` is built (every rank calls this together), a
+    ``BuiltPlan`` is taken as it is."""
+    if plan is None:
+        plan = ParallelPlan()
+    if isinstance(plan, ParallelPlan):
+        return plan.build(cfg=cfg, device=device)
+    if isinstance(plan, BuiltPlan):
+        return plan
+    raise TypeError(
+        f"expected a ParallelPlan or BuiltPlan, got {type(plan).__name__}: "
+        "construct one with ParallelPlan(...), ParallelPlan.from_flags(...) "
+        "or auto_plan(...)")
 
 
 def step_inputs(batch: dict, rng, opt_step: int, device) -> tuple:
@@ -53,31 +81,41 @@ def step_inputs(batch: dict, rng, opt_step: int, device) -> tuple:
             torch.tensor(float(opt_step), dtype=torch.float32, device=device))
 
 
-def make_step_body(cfg, optimizer: Optimizer, *, deterministic: bool = True,
-                   ema: Ema = None, dtype=torch.bfloat16):
+def make_step_body(cfg, optimizer: Optimizer, built: BuiltPlan = None, *,
+                   deterministic: bool = True, ema: Ema = None,
+                   dtype=torch.bfloat16):
     """Returns ``body(state, batch, key, opt_step, n_recycle) -> metrics``.
 
-    ``batch`` holds the proteins' features as tensors on the model's device,
-    with a leading batch axis; ``key`` the (2,) int64 dropout key lanes
-    (protein b draws from ``evo.Key(key, (b,))``); ``opt_step`` a 0-d fp32
-    tensor holding ``state["opt"].step + 1``; ``n_recycle`` a host int.
+    ``batch`` holds this rank's proteins as tensors on the model's device,
+    with a leading batch axis (its data-parallel rows); ``key`` the (2,)
+    int64 dropout key lanes (protein b draws from ``evo.Key(key, (b,))``,
+    and under data parallelism from ``evo.Key(key, (replica, b))``);
+    ``opt_step`` a 0-d fp32 tensor holding ``state["opt"].step + 1``;
+    ``n_recycle`` a host int, the same on every rank.
 
     The proteins go through ``loss_fn`` and its backward one after the
-    other (the reference scans over them).  With
-    ``optimizer.per_sample_clip`` each protein's gradient is clipped to that
-    global norm before the gradients are averaged (AF2 suppl. 1.11.3);
+    other (the reference scans over them), with the plan's ``block_fn`` and
+    ``stack_io``.  Under BP / DAP each protein's gradient is completed over
+    the plan's sync axes (``complete_partial_grads``) before its norm is
+    taken; with ``optimizer.per_sample_clip`` it is then clipped to that
+    global norm (AF2 suppl. 1.11.3) before the gradients are averaged,
     otherwise the batch gradient is the plain average (and the optimizer's
-    own ``clip_norm``, if any, clips it).  Then ``optimizer.apply`` updates
-    the masters and moments in place, then the EMA; ``state["opt"].step``
-    is left to the caller.  Returns the :data:`METRICS` as 0-d fp32
-    tensors: the loss and the four terms averaged over the batch, the
-    global norm of the applied batch gradient ``grad_norm`` and the mean
-    global norm of the proteins' gradients before clipping
-    ``sample_grad_norm``.  Every gradient is set to None before each
-    protein and at the end, so under a graph capture backward allocates
-    them from the graph's pool.
+    own ``clip_norm``, if any, clips it).  The plan's ``grad_sync`` then
+    averages it over the data-parallel axes (int8-compressed on the pod hop
+    with ``state["err"]``), ``optimizer.apply`` updates the masters and
+    moments in place, then the EMA; ``state["opt"].step`` is left to the
+    caller.  Returns the :data:`METRICS` as 0-d fp32 tensors, averaged over
+    the global batch: the loss and the four terms, the global norm of the
+    applied gradient ``grad_norm`` and the mean global norm of the
+    proteins' gradients before clipping ``sample_grad_norm``.  Every
+    gradient is set to None before each protein and at the end, so under a
+    graph capture backward allocates them from the graph's pool.
     """
+    built = built if built is not None else ParallelPlan().build()
     clip = optimizer.per_sample_clip
+    sync = tuple(built.axis(a) for a in built.sync_axes)
+    dps = tuple(built.axis(a) for a in built.dp_axes)
+    dp_size, dp_rank = built.dp_size, built.dp_rank
 
     def body(state, batch, key, opt_step, n_recycle: int):
         model = state["params"]
@@ -89,14 +127,20 @@ def make_step_body(cfg, optimizer: Optimizer, *, deterministic: bool = True,
             sample = {k: v[b] for k, v in batch.items()}
             for p in params.values():
                 p.grad = None
+            # decorrelate dropout across data-parallel replicas
+            path = (dp_rank, b) if dp_size > 1 else (b,)
             loss, metrics = af2.loss_fn(model, cfg, sample,
                                         n_recycle=n_recycle,
-                                        rng=evo.Key(key, (b,)),
+                                        rng=evo.Key(key, path),
                                         deterministic=deterministic,
-                                        dtype=dtype)
+                                        dtype=dtype, block_fn=built.block_fn,
+                                        stack_io=built.stack_io)
             loss.backward()
             grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                      for k, p in params.items()}
+            # a shard's gradient is partial, and its norm is not the
+            # protein's: complete it before the norm and the clip
+            grads = complete_partial_grads(grads, sync)
             if clip is not None:
                 grads, norm = clip_by_global_norm(grads, clip)
             else:
@@ -109,7 +153,11 @@ def make_step_body(cfg, optimizer: Optimizer, *, deterministic: bool = True,
         for p in params.values():
             p.grad = None
         grads = {k: g / n for k, g in acc.items()}
-        out = {k: v / n for k, v in sums.items()}
+        grads, err = built.grad_sync(grads, state.get("err"), completed=True)
+        if err is not None:
+            for k, e in err.items():
+                state["err"][k].copy_(e)
+        out = coll.pmean_tree({k: v / n for k, v in sums.items()}, dps)
         out["grad_norm"] = global_norm(grads)
         optimizer.apply(grads, state["opt"], params, opt_step)
         if ema is not None:
@@ -119,27 +167,34 @@ def make_step_body(cfg, optimizer: Optimizer, *, deterministic: bool = True,
     return body
 
 
-def make_af2_train_step(cfg, optimizer: Optimizer, *, n_recycle: int = 1,
-                        deterministic: bool = True, device=None,
-                        ema: Ema = None, dtype=torch.bfloat16):
+def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *,
+                        n_recycle: int = 1, deterministic: bool = True,
+                        device=None, ema: Ema = None, dtype=torch.bfloat16):
     """Returns ``train_step(state, batch, rng, n_recycle=None)``: one eager
-    step of :func:`make_step_body`.
+    step of :func:`make_step_body` under ``plan`` (a ``ParallelPlan``,
+    built here on ``device`` by every rank together, or a ``BuiltPlan``;
+    None: one device).
 
-    ``batch`` holds the proteins' features with a leading batch axis
-    (``data.protein.protein_batch``); ``rng`` is an int or a tuple of ints
-    (the trainer passes ``(seed, step)``): its words make the dropout key.
-    ``n_recycle`` overrides the factory's recycle count for this step
-    (stochastic recycling).  Returns ``(state, metrics)``, the
-    :data:`METRICS` as floats, with ``state["opt"].step`` advanced.
+    ``batch`` holds the global batch's proteins with a leading batch axis
+    (``data.protein.protein_batch``), the same on every rank; each
+    data-parallel replica takes its rows (``BuiltPlan.local_rows``).
+    ``rng`` is an int or a tuple of ints (the trainer passes ``(seed,
+    step)``): its words make the dropout key.  ``n_recycle`` overrides the
+    factory's recycle count for this step (stochastic recycling).  Returns
+    ``(state, metrics)``, the :data:`METRICS` as floats, with
+    ``state["opt"].step`` advanced.
     """
     device = resolve_device(device)
-    body = make_step_body(cfg, optimizer, deterministic=deterministic,
+    built = build_plan(plan, cfg, device)
+    body = make_step_body(cfg, optimizer, built, deterministic=deterministic,
                           ema=ema, dtype=dtype)
 
     def train_step(state, batch, rng, n_recycle_t=None):
         if next(state["params"].parameters()).device != device:
             raise ValueError(f"model is not on {device}")
         nr = n_recycle if n_recycle_t is None else int(n_recycle_t)
+        rows = built.local_rows(next(iter(batch.values())).shape[0])
+        batch = {k: v[rows] for k, v in batch.items()}
         opt = state["opt"]
         out = body(state, *step_inputs(batch, rng, opt.step + 1, device), nr)
         state["opt"] = opt._replace(step=opt.step + 1)

@@ -42,11 +42,21 @@ LM_MODULES = ("repro_torch.models", "repro_torch.models.lmconfig",
               "repro_torch.serve.engine", "repro_torch.serve.steps")
 
 
+PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",
+                    "repro_torch.parallel.branch", "repro_torch.parallel.dap",
+                    "repro_torch.parallel.grad_sync",
+                    "repro_torch.parallel.mesh_utils",
+                    "repro_torch.parallel.collectives",
+                    "repro_torch.parallel.ranks", "repro_torch.analysis",
+                    "repro_torch.analysis.roofline")
+
+
 def test_no_jax_or_reference_imports_in_source():
     files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert set(TRAINING_MODULES) <= {m for m, _ in _modules()}
     assert set(LM_MODULES) <= {m for m, _ in _modules()}
+    assert set(PARALLEL_MODULES) <= {m for m, _ in _modules()}
     bad = []
     for path in files:
         for name in _imported_names(path):
