@@ -1265,11 +1265,15 @@ PAR_PLANS = (("bp2", {"branch": 2}, (0, 1), None),
              ("dap2", {"dap": 2}, (2, 3), None),
              ("bp2_dap2", {"branch": 2, "dap": 2}, (0, 1, 2, 3), (16, 4)))
 PAR_STEPS = 2
-PAR_LR = 1.0
+# plain SGD, no clip: the update is the learning rate times the gradient,
+# so a gradient off by a factor (the group size, the data extent) moves
+# the parameters by that factor.  af2_initial's gradient norm at the seeded
+# start is ~4.5e2 (this phase's one-device run), so an update of ~0.2 in L2
+PAR_LR = 5e-4
 # a plan's step may differ from the one-device step by the order of its
 # sums (partial gradients summed across ranks, shards' reductions): the
-# losses within 2e-3 relative, and the parameter update within 5e-2 of the
-# one-device update's L2 norm (bf16 compute)
+# losses within 2e-3 relative, and the gradient norms and the parameter
+# update within 5e-2 of the one-device ones (bf16 compute)
 PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 2e-3, 5e-2
 
 
@@ -1280,18 +1284,28 @@ def par_cfg(cfg, depth):
                                n_extra_msa_blocks=depth[1])
 
 
-def par_runner(cfg, plan, dev):
-    """The parallel phase's TrainRunner: the seeded model, batch 1, one
-    cycle a step, SGD with the trainer's per-sample clip at 0.1 (so the
-    parameters' change is the clipped gradient, whose scale SGD keeps
-    visible), dropout on, no EMA, eager."""
+def par_runner(cfg, dev, plan=None, ranks=None):
+    """The parallel phase's TrainRunner under ``plan`` over ``ranks`` (None:
+    one device): the seeded model, batch 1, one cycle a step, plain SGD at
+    PAR_LR with no clip (the update scales with the gradient), dropout on,
+    no EMA, eager."""
     from repro_torch.train.optim import sgd
     from repro_torch.train.trainer import TrainRunner
-    return TrainRunner(cfg, plan, optimizer=sgd(PAR_LR, per_sample_clip=0.1),
+    return TrainRunner(cfg, plan, ranks=ranks, optimizer=sgd(PAR_LR),
                        batch_size=1, seed=TRAIN_SEED, recycle_sample=False,
                        n_recycle=1, ema_decay=None, deterministic=False,
                        device=dev, model=seeded_model(cfg, seed=0).to(dev),
                        graphs=False)
+
+
+def par_run(runner) -> list:
+    """PAR_STEPS steps of ``runner``; returns each step's ``grad_norm``
+    (the applied gradient's global norm)."""
+    norms = []
+    for s in range(PAR_STEPS):
+        runner.run(s + 1)
+        norms.append(runner.last_metrics["grad_norm"])
+    return norms
 
 
 def par_launches(cfg, role: str) -> dict:
@@ -1372,17 +1386,18 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
     out = {}
     for name, kw, ranks_of, depth in plans:
         pcfg = par_cfg(cfg, depth)
-        built = ParallelPlan(**kw).build(list(ranks_of), cfg=pcfg, device=dev)
-        if not built.in_mesh:
+        if rank not in ranks_of:    # the plan's mesh: built by every rank
+            ParallelPlan(**kw).build(list(ranks_of), cfg=pcfg, device=dev)
             continue
-        runner = par_runner(pcfg, built, dev)
+        runner = par_runner(pcfg, dev, ParallelPlan(**kw), list(ranks_of))
+        built = runner.built
         init = {k: p.detach().clone() for k, p in runner.model.named_parameters()}
         _sync(dev)
         if cuda:
             torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
         coll.reset_counts()
-        runner.run(PAR_STEPS)
+        grad_norms = par_run(runner)
         _sync(dev)
         counts, colls = ops.launch_counts(), coll.counts()
         serial = torch.load(f"{serial_dir}/{name}.pt", map_location=dev)
@@ -1398,6 +1413,7 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
             role = ("msa", "pair")[built.axis("branch").index]
         out[name] = {"rank": rank, "coord": coord, "role": role,
                      "losses": runner.history["loss"],
+                     "grad_norms": grad_norms,
                      "step_s": runner.history["step_s"],
                      "launches": counts, "want": par_launches(pcfg, role),
                      "collectives": colls, "max_param_diff": d_max,
@@ -1425,19 +1441,21 @@ def parallel_phase(cfg, dev):
             pcfg = par_cfg(cfg, depth)
             key = depth or (pcfg.n_evoformer, pcfg.n_extra_msa_blocks)
             if key not in serial:
-                runner = par_runner(pcfg, None, dev)
-                runner.run(PAR_STEPS)
+                runner = par_runner(pcfg, dev)
+                grad_norms = par_run(runner)
                 serial[key] = (runner.history["loss"],
                                runner.history["step_s"],
                                {k: p.detach().cpu() for k, p in
-                                runner.model.named_parameters()})
+                                runner.model.named_parameters()},
+                               grad_norms)
                 del runner
                 if dev.type == "cuda":
                     torch.cuda.empty_cache()
             torch.save(serial[key][2], f"{tmp}/{name}.pt")
             print(f"[parallel serial] {name}: af2_initial "
                   f"{pcfg.n_evoformer}+{pcfg.n_extra_msa_blocks} blocks, one "
-                  f"device, losses {serial[key][0]}, step walls "
+                  f"device, losses {serial[key][0]}, gradient norms "
+                  f"{serial[key][3]}, step walls "
                   f"{[round(x, 3) for x in serial[key][1]]} s", flush=True)
         print(f"[parallel] {ranks_lib.describe_backend(dev.type, 'gloo', 4)}",
               flush=True)
@@ -1451,13 +1469,15 @@ def parallel_phase(cfg, dev):
     summary = {}
     for name, kw, ranks_of, depth in PAR_PLANS:
         pcfg = par_cfg(cfg, depth)
-        want_losses = serial[depth or (pcfg.n_evoformer,
-                                       pcfg.n_extra_msa_blocks)][0]
+        want_losses, _, _, want_norms = serial[
+            depth or (pcfg.n_evoformer, pcfg.n_extra_msa_blocks)]
         rows = [res[r][name] for r in ranks_of]
         for row in rows:
             print(f"[parallel {name}] rank {row['rank']} mesh coordinate "
                   f"{row['coord']} ({row['role']} branch): losses "
-                  f"{row['losses']} (one device {want_losses}), step walls "
+                  f"{row['losses']} (one device {want_losses}), gradient "
+                  f"norms {row['grad_norms']} (one device {want_norms}), "
+                  f"step walls "
                   f"{[round(x, 3) for x in row['step_s']]} s, peak "
                   f"{row['peak_gib']:.2f} GiB, max |param diff| "
                   f"{row['max_param_diff']:.3g}, update rel L2 diff "
@@ -1470,6 +1490,10 @@ def parallel_phase(cfg, dev):
             for a, b in zip(row["losses"], want_losses):
                 if not abs(a - b) <= PAR_LOSS_RTOL * abs(b):
                     raise AssertionError(f"{name}: loss {a} vs one device {b}")
+            for a, b in zip(row["grad_norms"], want_norms):
+                if not abs(a - b) <= PAR_UPDATE_RTOL * abs(b):
+                    raise AssertionError(f"{name}: gradient norm {a} vs one "
+                                         f"device {b}")
             if not row["update_rel_diff"] <= PAR_UPDATE_RTOL:
                 raise AssertionError(f"{name}: update differs by "
                                      f"{row['update_rel_diff']} of its norm")

@@ -106,6 +106,7 @@ def main(argv=None):
             print(ranks.describe_backend(device_type, backend, world))
         return run_af2(args, rank=rank, world=world, device=device)
     if args.devices > 1:
+        import torch
         backend = ranks.choose_backend(device_type, args.devices)
         print(ranks.describe_backend(device_type, backend, args.devices))
         if device_type == "cuda":
@@ -114,7 +115,8 @@ def main(argv=None):
         return ranks.spawn(_rank_main, args.devices, args,
                            device_type=device_type, backend=backend,
                            timeout_s=args.rank_timeout,
-                           threads=max(1, (os.cpu_count() or 1) // args.devices)
+                           # CPU ranks split this process's intra-op threads
+                           threads=max(1, torch.get_num_threads() // args.devices)
                            if device_type == "cpu" else 0)
     return run_af2(args)
 

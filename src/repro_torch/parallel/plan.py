@@ -331,6 +331,19 @@ class ParallelPlan:
                 "platform": torch.device(device).type}
 
 
+def as_plan(plan) -> ParallelPlan:
+    """What the port's entry points take as their plan: a ``ParallelPlan``,
+    or None for the one-device plan; anything else raises TypeError."""
+    if plan is None:
+        return ParallelPlan()
+    if not isinstance(plan, ParallelPlan):
+        raise TypeError(
+            f"expected a ParallelPlan or None, got {type(plan).__name__}: "
+            "construct one with ParallelPlan(...), "
+            "ParallelPlan.from_flags(...) or auto_plan(...)")
+    return plan
+
+
 # ---------------------------------------------------------------------------
 # BuiltPlan: what the train step consumes
 # ---------------------------------------------------------------------------

@@ -21,6 +21,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from repro_torch.device import resolve_device
+
 DEFAULT_TIMEOUT_S = 600.0
 
 
@@ -68,13 +70,22 @@ def init_rank(rank: int, world: int, *, backend: str, port: int,
         world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
 
 
-def from_env(device_type: str = "cuda",
+def resolve_device_type(device_type: Optional[str]) -> str:
+    """``device_type`` as given, or ``cuda`` for None (raising without a
+    card, as ``device.resolve_device`` does): ranks run on the CPU only
+    when the caller asks for it."""
+    return device_type or resolve_device(None).type
+
+
+def from_env(device_type: Optional[str] = None,
              timeout_s: float = DEFAULT_TIMEOUT_S) -> tuple:
     """Join the world ``torchrun`` started (``RANK``, ``WORLD_SIZE``,
     ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``); returns (rank, world,
-    device, backend), or None outside such a world."""
+    device, backend), or None outside such a world.  ``device_type``:
+    None is ``cuda`` (:func:`resolve_device_type`)."""
     if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
         return None
+    device_type = resolve_device_type(device_type)
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_RANK", rank))
     backend = choose_backend(device_type, world)
@@ -101,16 +112,19 @@ def _rank_main(rank, fn, world, port, backend, device_type, timeout_s,
         dist.destroy_process_group()
 
 
-def spawn(fn: Callable, world: int, *args, device_type: str = "cpu",
+def spawn(fn: Callable, world: int, *args, device_type: Optional[str] = None,
           backend: Optional[str] = None, timeout_s: float = DEFAULT_TIMEOUT_S,
           threads: int = 0) -> list:
     """Run ``fn(rank, world, device, *args)`` in ``world`` new processes
-    (start method ``spawn``; ``fn`` must be importable), each rank in a
-    process group of ``backend`` (default :func:`choose_backend`) with
+    (start method ``spawn``; ``fn`` must be importable), each rank on
+    ``device_type`` (None: ``cuda``, raising without a card; the CPU only
+    when ``"cpu"`` is passed) in a process group of ``backend`` (default
+    :func:`choose_backend`) with
     ``timeout_s`` on its collectives.  ``threads``: torch intra-op threads
     per rank (0: torch's default).  Returns the ranks' return values in
     rank order.  Raises the first rank failure, or TimeoutError when the
     ranks are not all done within ``timeout_s``; no rank outlives the call."""
+    device_type = resolve_device_type(device_type)
     backend = backend or choose_backend(device_type, world)
     queue = mp.get_context("spawn").SimpleQueue()
     ctx = mp.start_processes(

@@ -28,7 +28,7 @@ from repro_torch import graphs as graphs_lib
 from repro_torch.core.config import with_kernels
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import Policy
-from repro_torch.parallel.plan import BuiltPlan, ParallelPlan
+from repro_torch.parallel.plan import BuiltPlan, ParallelPlan, as_plan
 from repro_torch.serve import fold_steps as fs
 
 
@@ -65,10 +65,10 @@ class FoldEngine:
     card, whose collectives a graph cannot capture).
 
     ``plan``: a ``ParallelPlan`` (training-shaped plans are accepted:
-    ``for_inference()`` is applied) or a ``BuiltPlan``'s plan; None is one
-    device.  Every rank of the plan runs the engine on the same requests;
-    each data-parallel replica folds its rows of each micro-batch (rounded
-    up to the data extent) and every rank gets every result.  ``ranks``:
+    ``for_inference()`` is applied); None is one device.  Every rank of the
+    plan runs the engine on the same requests; each data-parallel replica
+    folds its rows of each micro-batch (rounded up to the data extent) and
+    every rank gets every result.  ``ranks``:
     the global ranks the plan's mesh spans (None: the whole world).
     """
 
@@ -78,9 +78,7 @@ class FoldEngine:
                  graphs: Optional[bool] = None):
         self.device = resolve_device(device)
         self.ranks = ranks
-        if isinstance(plan, BuiltPlan):
-            plan = plan.plan
-        self.plan = (plan or ParallelPlan()).for_inference()
+        self.plan = as_plan(plan).for_inference()
         self._built: Dict[ParallelPlan, BuiltPlan] = {}
         self.graphs = graphs_lib.use_graphs(
             graphs, self.device,

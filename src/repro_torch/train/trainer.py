@@ -57,7 +57,7 @@ from repro_torch.data.bucketing import train_bucket
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.protein import protein_batch
 from repro_torch.device import resolve_device
-from repro_torch.parallel.plan import BuiltPlan
+from repro_torch.parallel.plan import as_plan
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.fold_engine import FoldEngine
 from repro_torch.train import optim as optim_lib
@@ -69,8 +69,9 @@ from repro_torch.train.trainstep import (METRICS, build_plan, init_state,
 
 class TrainRunner:
     """Drive AF2 training for a config on one device, or on this rank's
-    share of ``plan`` (a ``ParallelPlan`` or ``BuiltPlan``; None: one
-    device).
+    share of ``plan`` (a ``ParallelPlan``; None: one device), built here
+    over the global ``ranks`` (None: the whole world) by every rank of the
+    world together.
 
     ``ema_decay=None`` keeps no EMA copy (evaluation then uses the raw
     parameters); ``recycle_sample=False`` runs the fixed ``n_recycle`` every
@@ -103,7 +104,8 @@ class TrainRunner:
     step's ``trainstep.METRICS`` as floats.
     """
 
-    def __init__(self, cfg, plan=None, *, optimizer=None, batch_size: int = 1,
+    def __init__(self, cfg, plan=None, *, ranks=None, optimizer=None,
+                 batch_size: int = 1,
                  seed: int = 0, n_recycle: int = 1, recycle_sample: bool = True,
                  max_recycle: Optional[int] = None,
                  ema_decay: Optional[float] = 0.999,
@@ -116,10 +118,9 @@ class TrainRunner:
                  on_straggler=None, data_source=None, data_workers: int = 1,
                  data_prefetch: int = 2, bucket_by_length: bool = False):
         self.device = resolve_device(device)
-        if not isinstance(plan, BuiltPlan) and plan is not None:
-            cfg = plan.apply_to(cfg)
-        self.cfg = with_kernels(cfg)
-        self.built = build_plan(plan, self.cfg, self.device)
+        plan = as_plan(plan)
+        self.cfg = with_kernels(plan.apply_to(cfg))
+        self.built = build_plan(plan, self.cfg, self.device, ranks)
         self.plan = self.built.plan
         self.graphs = graphs_lib.use_graphs(
             graphs, self.device, collectives=self.built.backend)
@@ -217,11 +218,9 @@ class TrainRunner:
                           *tensors[n:], n_recycle)
 
     def _train_step(self, step: int, batch: dict, nr: int) -> dict:
-        rows = self.built.local_rows(batch["target_feat"].shape[0])
-        batch = {k: v[rows] for k, v in batch.items()}
         batch, key, opt_step = step_inputs(batch, (self.seed, step),
                                            self.state["opt"].step + 1,
-                                           self.device)
+                                           self.device, self.built)
         if self._batch_keys is None:
             self._batch_keys = sorted(batch)
         elif sorted(batch) != self._batch_keys:

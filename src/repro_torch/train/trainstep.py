@@ -22,7 +22,7 @@ from repro_torch.core import evoformer as evo
 from repro_torch.core import model as af2
 from repro_torch.device import resolve_device
 from repro_torch.parallel import collectives as coll
-from repro_torch.parallel.plan import (BuiltPlan, ParallelPlan,
+from repro_torch.parallel.plan import (BuiltPlan, ParallelPlan, as_plan,
                                        complete_partial_grads)
 from repro_torch.train.optim import (Ema, Optimizer, clip_by_global_norm,
                                     global_norm)
@@ -54,27 +54,24 @@ def init_state(model: af2.AlphaFold2, optimizer: Optimizer, ema: Ema = None,
     return state
 
 
-def build_plan(plan, cfg, device) -> BuiltPlan:
-    """``plan`` as a ``BuiltPlan`` on ``device``: None is the one-device
-    plan, a ``ParallelPlan`` is built (every rank calls this together), a
-    ``BuiltPlan`` is taken as it is."""
-    if plan is None:
-        plan = ParallelPlan()
-    if isinstance(plan, ParallelPlan):
-        return plan.build(cfg=cfg, device=device)
-    if isinstance(plan, BuiltPlan):
-        return plan
-    raise TypeError(
-        f"expected a ParallelPlan or BuiltPlan, got {type(plan).__name__}: "
-        "construct one with ParallelPlan(...), ParallelPlan.from_flags(...) "
-        "or auto_plan(...)")
+def build_plan(plan, cfg, device, ranks=None) -> BuiltPlan:
+    """``plan`` (a ``ParallelPlan``; None: one device) built on ``device``
+    over the global ``ranks`` (None: the whole world).  A plan of several
+    ranks creates process groups: every rank of the world calls this
+    together, also a rank outside ``ranks``."""
+    return as_plan(plan).build(ranks, cfg=cfg, device=device)
 
 
-def step_inputs(batch: dict, rng, opt_step: int, device) -> tuple:
-    """The step body's tensor inputs on ``device``: the batch (numpy or
-    torch, leading batch axis), the dropout key lanes of ``rng`` (an int or
+def step_inputs(batch: dict, rng, opt_step: int, device,
+                built: BuiltPlan = None) -> tuple:
+    """The step body's tensor inputs on ``device``: this data-parallel
+    replica's rows of the global batch (numpy or torch, leading batch axis;
+    ``built`` None: all of it), the dropout key lanes of ``rng`` (an int or
     a tuple of ints, e.g. (seed, step)) and the optimizer's new step count
     as a 0-d fp32 tensor."""
+    if built is not None:
+        rows = built.local_rows(next(iter(batch.values())).shape[0])
+        batch = {k: v[rows] for k, v in batch.items()}
     words = (rng,) if isinstance(rng, int) else tuple(rng)
     return (af2.to_device(batch, device),
             evo.dropout_key(words, device).lanes,
@@ -95,21 +92,25 @@ def make_step_body(cfg, optimizer: Optimizer, built: BuiltPlan = None, *,
 
     The proteins go through ``loss_fn`` and its backward one after the
     other (the reference scans over them), with the plan's ``block_fn`` and
-    ``stack_io``.  Under BP / DAP each protein's gradient is completed over
-    the plan's sync axes (``complete_partial_grads``) before its norm is
-    taken; with ``optimizer.per_sample_clip`` it is then clipped to that
-    global norm (AF2 suppl. 1.11.3) before the gradients are averaged,
-    otherwise the batch gradient is the plain average (and the optimizer's
-    own ``clip_norm``, if any, clips it).  The plan's ``grad_sync`` then
-    averages it over the data-parallel axes (int8-compressed on the pod hop
-    with ``state["err"]``), ``optimizer.apply`` updates the masters and
-    moments in place, then the EMA; ``state["opt"].step`` is left to the
-    caller.  Returns the :data:`METRICS` as 0-d fp32 tensors, averaged over
-    the global batch: the loss and the four terms, the global norm of the
-    applied gradient ``grad_norm`` and the mean global norm of the
-    proteins' gradients before clipping ``sample_grad_norm``.  Every
-    gradient is set to None before each protein and at the end, so under a
-    graph capture backward allocates them from the graph's pool.
+    ``stack_io``.  Under BP / DAP a rank's gradient is partial: with
+    ``optimizer.per_sample_clip`` each protein's gradient is completed over
+    the plan's sync axes (``complete_partial_grads``), so that its norm is
+    the protein's, and clipped to that global norm (AF2 suppl. 1.11.3)
+    before the gradients are averaged; without it the average of the
+    partial gradients is completed once, as the reference does (and the
+    optimizer's own ``clip_norm``, if any, clips it).  The plan's
+    ``grad_sync`` then averages the gradient over the data-parallel axes
+    (int8-compressed on the pod hop with ``state["err"]``),
+    ``optimizer.apply`` updates the masters and moments in place, then the
+    EMA; ``state["opt"].step`` is left to the caller.  Returns the
+    :data:`METRICS` as 0-d fp32 tensors, averaged over the global batch:
+    the loss and the four terms, the global norm of the applied gradient
+    ``grad_norm``, and ``sample_grad_norm``: with the per-sample clip the
+    mean global norm of the proteins' gradients before clipping, without
+    it the global norm of the replica's completed mean gradient (the same
+    when a replica holds one protein).  Every gradient is set to None
+    before each protein and at the end, so under a graph capture backward
+    allocates them from the graph's pool.
     """
     built = built if built is not None else ParallelPlan().build()
     clip = optimizer.per_sample_clip
@@ -138,14 +139,12 @@ def make_step_body(cfg, optimizer: Optimizer, built: BuiltPlan = None, *,
             loss.backward()
             grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
                      for k, p in params.items()}
-            # a shard's gradient is partial, and its norm is not the
-            # protein's: complete it before the norm and the clip
-            grads = complete_partial_grads(grads, sync)
             if clip is not None:
-                grads, norm = clip_by_global_norm(grads, clip)
-            else:
-                norm = global_norm(grads)
-            metrics["sample_grad_norm"] = norm
+                # a shard's gradient is partial, and its norm is not the
+                # protein's: complete it before the norm and the clip
+                grads = complete_partial_grads(grads, sync)
+                grads, metrics["sample_grad_norm"] = clip_by_global_norm(
+                    grads, clip)
             for k, g in grads.items():
                 acc[k].add_(g.float())
             for k, v in metrics.items():
@@ -153,11 +152,15 @@ def make_step_body(cfg, optimizer: Optimizer, built: BuiltPlan = None, *,
         for p in params.values():
             p.grad = None
         grads = {k: g / n for k, g in acc.items()}
+        out = {k: v / n for k, v in sums.items()}
+        if clip is None:
+            grads = complete_partial_grads(grads, sync)
+            out["sample_grad_norm"] = global_norm(grads)
         grads, err = built.grad_sync(grads, state.get("err"), completed=True)
         if err is not None:
             for k, e in err.items():
                 state["err"][k].copy_(e)
-        out = coll.pmean_tree({k: v / n for k, v in sums.items()}, dps)
+        out = coll.pmean_tree(out, dps)
         out["grad_norm"] = global_norm(grads)
         optimizer.apply(grads, state["opt"], params, opt_step)
         if ema is not None:
@@ -167,17 +170,17 @@ def make_step_body(cfg, optimizer: Optimizer, built: BuiltPlan = None, *,
     return body
 
 
-def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *,
+def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *, ranks=None,
                         n_recycle: int = 1, deterministic: bool = True,
                         device=None, ema: Ema = None, dtype=torch.bfloat16):
     """Returns ``train_step(state, batch, rng, n_recycle=None)``: one eager
-    step of :func:`make_step_body` under ``plan`` (a ``ParallelPlan``,
-    built here on ``device`` by every rank together, or a ``BuiltPlan``;
-    None: one device).
+    step of :func:`make_step_body` under ``plan`` (a ``ParallelPlan``; None:
+    one device), built here on ``device`` over the global ``ranks`` (None:
+    the whole world) by every rank of the world together.
 
     ``batch`` holds the global batch's proteins with a leading batch axis
     (``data.protein.protein_batch``), the same on every rank; each
-    data-parallel replica takes its rows (``BuiltPlan.local_rows``).
+    data-parallel replica takes its rows (:func:`step_inputs`).
     ``rng`` is an int or a tuple of ints (the trainer passes ``(seed,
     step)``): its words make the dropout key.  ``n_recycle`` overrides the
     factory's recycle count for this step (stochastic recycling).  Returns
@@ -185,7 +188,7 @@ def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *,
     ``state["opt"].step`` advanced.
     """
     device = resolve_device(device)
-    built = build_plan(plan, cfg, device)
+    built = build_plan(plan, cfg, device, ranks)
     body = make_step_body(cfg, optimizer, built, deterministic=deterministic,
                           ema=ema, dtype=dtype)
 
@@ -193,10 +196,9 @@ def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *,
         if next(state["params"].parameters()).device != device:
             raise ValueError(f"model is not on {device}")
         nr = n_recycle if n_recycle_t is None else int(n_recycle_t)
-        rows = built.local_rows(next(iter(batch.values())).shape[0])
-        batch = {k: v[rows] for k, v in batch.items()}
         opt = state["opt"]
-        out = body(state, *step_inputs(batch, rng, opt.step + 1, device), nr)
+        out = body(state, *step_inputs(batch, rng, opt.step + 1, device,
+                                       built), nr)
         state["opt"] = opt._replace(step=opt.step + 1)
         return state, {k: float(v) for k, v in zip(METRICS, out)}
 

@@ -155,3 +155,41 @@ def test_graphs_refuse_gloo_collectives_on_a_card():
     assert graphs.use_graphs(None, card, collectives="gloo") is False
     assert graphs.use_graphs(None, card, collectives="nccl") is True
     assert graphs.use_graphs(None, torch.device("cpu"), collectives="gloo") is False
+
+
+def test_rank_processes_default_to_the_card(monkeypatch):
+    """``spawn`` and ``from_env`` put their ranks on the card unless the
+    caller names the CPU: without a card they raise before any process
+    starts, as ``resolve_device`` does."""
+    import torch
+    from repro_torch.parallel import ranks
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.spawn(print, 2)
+    monkeypatch.setenv("RANK", "0")
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ranks.from_env()
+    assert ranks.resolve_device_type("cpu") == "cpu"
+
+
+@pytest.mark.parametrize("entry", ["train_step", "runner", "engine"])
+def test_entry_points_take_a_parallel_plan(entry):
+    """``make_af2_train_step``, ``TrainRunner`` and ``FoldEngine`` take a
+    ``ParallelPlan`` or None and build it themselves (over ``ranks=``); a
+    ``BuiltPlan`` is refused with the way to make a plan."""
+    from repro_torch.core.model import AlphaFold2
+    from repro_torch.serve.fold_engine import FoldEngine
+    from repro_torch.train import optim
+    from repro_torch.train.trainer import TrainRunner
+    from repro_torch.train.trainstep import make_af2_train_step
+    cfg = tconfig.af2_tiny()
+    built = tplan.ParallelPlan().build(cfg=cfg)
+    with pytest.raises(TypeError, match="ParallelPlan"):
+        if entry == "train_step":
+            make_af2_train_step(cfg, optim.sgd(0.1), built, device="cpu")
+        elif entry == "runner":
+            TrainRunner(cfg, built, device="cpu")
+        else:
+            FoldEngine(cfg, AlphaFold2(cfg, device="cpu"), plan=built,
+                       device="cpu")

@@ -152,8 +152,8 @@ def world(tmp_path_factory):
 
     def spawn():
         try:
-            box["ranks"] = ranks.spawn(worker.run, 4, inp, timeout_s=TIMEOUT_S,
-                                       threads=1)
+            box["ranks"] = ranks.spawn(worker.run, 4, inp, device_type="cpu",
+                                       timeout_s=TIMEOUT_S, threads=1)
         except BaseException as e:      # re-raised in the test process
             box["error"] = e
 

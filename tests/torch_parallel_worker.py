@@ -66,13 +66,16 @@ def _partial_grads(built, block, ev, msa, z):
     return out
 
 
-def _sgd_step(built, cfg, params, batch):
-    model = _model(cfg, params)
+def _sgd_step(rank, plan, ranks, cfg, params, batch):
+    """One SGD step of the whole model under ``plan`` over ``ranks`` (every
+    rank builds it; the plan's ranks run it), or None off the plan."""
     opt = sgd(0.1)
-    step = make_af2_train_step(cfg, opt, built, device="cpu",
+    step = make_af2_train_step(cfg, opt, plan, ranks=ranks, device="cpu",
                                dtype=torch.float32)
-    state = init_state(model, opt,
-                       compress_err=built.plan.compress_pod_grads)
+    if ranks is not None and rank not in ranks:
+        return None
+    model = _model(cfg, params)
+    state = init_state(model, opt, compress_err=plan.compress_pod_grads)
     state, metrics = step(state, batch, 0)
     out = {"loss": metrics["loss"],
            "params": {k: _np(p) for k, p in model.named_parameters()}}
@@ -97,7 +100,6 @@ def run(rank, world, device, inp):
         "dap_overlap": ParallelPlan(dap=2).build([2, 3], cfg=cfg),
         "hybrid": ParallelPlan(branch=2, dap=2).build(cfg=cfg),
         "data2_bp2": ParallelPlan(data=2, branch=2).build(cfg=cfg),
-        "dp2_late": ParallelPlan(data=2).build([2, 3], cfg=cfg),
         "pod": ParallelPlan(pod=4).build(cfg=cfg),
     }
     mine = {k: b for k, b in plans.items() if b.in_mesh}
@@ -158,18 +160,18 @@ def run(rank, world, device, inp):
     # one SGD step of the whole model under each plan (global batch 2)
     batch = protein_batch(0, 0, 2, cfg_sgd)
     if rank == 0:
-        res["sgd.serial"] = _sgd_step(ParallelPlan().build(cfg=cfg_sgd),
-                                      cfg_sgd, inp["params_sgd"], batch)
-    sgd_plans = {n: ParallelPlan(**kw).build(r, cfg=cfg_sgd) for n, kw, r in (
-        ("bp2", {"branch": 2}, [0, 1]), ("dap2", {"dap": 2}, [2, 3]),
-        ("bp2_dap2", {"branch": 2, "dap": 2}, None),
-        ("data2_bp2", {"data": 2, "branch": 2}, None),
-        ("pod2_bp2_compressed", {"pod": 2, "branch": 2,
-                                 "compress_pod_grads": True}, None))}
-    for name, built in sgd_plans.items():
-        if built.in_mesh:
-            res[f"sgd.{name}"] = _sgd_step(built, cfg_sgd, inp["params_sgd"],
-                                           batch)
+        res["sgd.serial"] = _sgd_step(rank, ParallelPlan(), None, cfg_sgd,
+                                      inp["params_sgd"], batch)
+    for name, kw, r in (
+            ("bp2", {"branch": 2}, [0, 1]), ("dap2", {"dap": 2}, [2, 3]),
+            ("bp2_dap2", {"branch": 2, "dap": 2}, None),
+            ("data2_bp2", {"data": 2, "branch": 2}, None),
+            ("pod2_bp2_compressed", {"pod": 2, "branch": 2,
+                                     "compress_pod_grads": True}, None)):
+        out = _sgd_step(rank, ParallelPlan(**kw), r, cfg_sgd,
+                        inp["params_sgd"], batch)
+        if out is not None:
+            res[f"sgd.{name}"] = out
 
     # int8 error-feedback pod sum, two rounds
     pod = plans["pod"].axis("pod")
@@ -182,15 +184,16 @@ def run(rank, world, device, inp):
 
     # checkpoint metadata: written under DAP 2 by the mesh's first rank,
     # refused under data parallelism 2 on the same ranks
+    # (each TrainRunner builds its plan's mesh: the other ranks build the
+    # same meshes in the same order)
     if "dap_sync" in mine:
         kw = dict(device="cpu", ckpt_dir=inp["ckpt_dir"], seed=3,
                   recycle_sample=False)
-        a = TrainRunner(cfg_sgd, ParallelPlan(dap=2).build([2, 3],
-                                                           cfg=cfg_sgd), **kw)
+        a = TrainRunner(cfg_sgd, ParallelPlan(dap=2), ranks=[2, 3], **kw)
         a.save()
         a.mgr.wait()
         ck = {"writer": a.built.is_writer, "restored": a.restore()}
-        b = TrainRunner(cfg_sgd, mine["dp2_late"], **kw)
+        b = TrainRunner(cfg_sgd, ParallelPlan(data=2), ranks=[2, 3], **kw)
         try:
             b.restore()
             ck["refused"] = False
@@ -199,15 +202,15 @@ def run(rank, world, device, inp):
         ck["adapted"] = b.restore(adapt_plan=True)
         res["ckpt"] = ck
     else:
-        ParallelPlan(dap=2).build([2, 3], cfg=cfg_sgd)   # the same meshes
+        ParallelPlan(dap=2).build([2, 3], cfg=cfg_sgd)
+        ParallelPlan(data=2).build([2, 3], cfg=cfg_sgd)
         res["ckpt"] = None
 
     # TrainRunner: one step and one evaluation under BP 2 x DAP 2 against
     # the one-device runner (dropout on: BP and DAP draw the serial masks)
     kw = dict(device="cpu", seed=5, recycle_sample=False, eval_batch_size=2,
               dtype=torch.float32)
-    hy = TrainRunner(cfg_sgd, ParallelPlan(branch=2, dap=2).build(cfg=cfg_sgd),
-                     **kw)
+    hy = TrainRunner(cfg_sgd, ParallelPlan(branch=2, dap=2), **kw)
     hy.run(1)
     res["runner.hybrid"] = {"loss": hy.history["loss"][0],
                             "lddt": hy.evaluate()["lddt_ca"]}
