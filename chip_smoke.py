@@ -27,6 +27,31 @@ Phases, each raising on failure (exit code != 0, no result line):
      graphed, plain and under torch.profiler (device busy time, idle share,
      host launch calls, time by kernel family; K1 and K3 must show in
      both).
+  5b. continuous serving: FoldEngine.serve on phase 5's graphed engine (its
+     recycle steps replay the sample-cycle graphs phase 5 captured), 10
+     requests (8 of seed 1, Poisson arrivals at 4 a virtual second,
+     deadlines at arrival + 3 s, every third at priority 1, and two repeats
+     of requests 0 and 1 ten virtual seconds after the others), 2
+     featurize threads, starvation bound 4, a result cache of 64, measured
+     step costs; served continuously, then FIFO.  Every request served,
+     the repeats from the cache; continuous, FIFO and engine.run agree bit
+     for bit; K1 and K3 launches equal the per-sample-cycle counts times
+     the sample-cycles run (none for a cache hit, no backward kernel); a
+     request's fold, recycles and finish time do not move when a second is
+     admitted into its lane mid-flight (injected costs); compile_misses <=
+     2 x the bucket table.  Prints latency percentiles, goodput, on-time
+     fraction, utilization, stage ms, steps, forced admissions, hit rate,
+     median step wall by bucket, host <-> device bytes a step beside the
+     reference's host-carry bytes, memory: smoke readings, which at 10
+     requests and light load compare no policies.  Then long_plan routing at
+     16 + 4 blocks, eager, 2 recycles, injected costs: a one-device engine
+     here, then two gloo rank processes on the card (plan data=2, long_plan
+     dap=2 from r 256); the r-256 request's K1 launches at half the lead
+     rows, every fold within 2e-3 relative L2 of the one device's, an
+     indivisible bucket raising PlanError before any collective, and
+     graphs=True raising under gloo; then plan None (the short buckets on
+     one device per rank) with measured step costs, which the ranks agree
+     every step, so both ranks' schedules must be equal.
   7. training kernels: K1 with its log-sum-exp, K2, K3 with its fp32 s, K4
      and K5 against their plain versions at every shape the af2_initial
      training step gives them, plus ragged shapes (S 100, r 100) and K2 at
@@ -97,6 +122,7 @@ kernel figures, the nvidia-smi line, and the result line ``{"ok": true,
 "device": {...}}`` last.
 """
 import collections
+import contextlib
 import copy
 import dataclasses
 import json
@@ -454,6 +480,14 @@ def fold_report(tag, cfg, done, engine, counts, wall, step_s, peak, reserved,
           f"{reserved:.2f} GiB reserved; launches {counts}", flush=True)
 
 
+def serve_per_cycle(cfg) -> dict:
+    """K1 and K3 launches of one serving sample-cycle."""
+    return {"evo_attention_fwd": 4 * cfg.n_evoformer
+            + 3 * cfg.n_extra_msa_blocks,
+            "triangle_mult_fwd": 2 * (cfg.n_evoformer
+                                      + cfg.n_extra_msa_blocks)}
+
+
 def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
     from repro_torch.serve import fold_steps as fs
     assert sorted(done) == [r.rid for r in reqs], sorted(done)
@@ -468,11 +502,9 @@ def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
         assert res.plddt.min() >= 0.0 and res.plddt.max() <= 100.0
         assert res.n_recycles == max_recycle
         sample_cycles += res.n_recycles
-    k1 = 4 * cfg.n_evoformer + 3 * cfg.n_extra_msa_blocks
-    k3 = 2 * (cfg.n_evoformer + cfg.n_extra_msa_blocks)
     want = {k: 0 for k in counts}     # serving launches no backward kernel
-    want.update(evo_attention_fwd=k1 * sample_cycles,
-                triangle_mult_fwd=k3 * sample_cycles)
+    want.update({k: n * sample_cycles
+                 for k, n in serve_per_cycle(cfg).items()})
     assert counts == want, f"launches {counts} != path's {want}"
     return sample_cycles
 
@@ -604,6 +636,396 @@ def profile_run(work, tag: str, what: str) -> dict:
         print(f"[profile {tag} kernel] {ms:10.2f} ms  {n:6d}  {name[:110]}")
     return by_family
 
+
+# ---------------------------------------------------------------------------
+# Phase 5b: continuous serving (FoldEngine.serve)
+# ---------------------------------------------------------------------------
+
+# the traffic: Poisson arrivals at SERVE_RATE a virtual second from seed 1,
+# deadlines SERVE_SLACK virtual seconds after arrival, every third request
+# at priority 1; two requests repeat requests 0 and 1 SERVE_REPEAT_AFTER
+# virtual seconds after the last of the others, so both are cache hits
+SERVE_RATE, SERVE_SLACK, SERVE_REPEAT_AFTER = 4.0, 3.0, 10.0
+SERVE_OPTS = dict(featurize_workers=2, starvation_steps=4)
+SERVE_CACHE = 64
+
+
+def serve_traffic(cfg) -> list:
+    """Phase 5b's 10 requests: ``make_fold_requests(cfg, 8, seed=1)`` plus
+    repeats of requests 0 and 1, stamped as SERVE_* says."""
+    from repro_torch.data.synthetic import make_fold_requests
+    reqs = make_fold_requests(cfg, 8, seed=1)
+    rng = np.random.default_rng(1)
+    t, out = 0.0, []
+    for r in reqs:
+        t += float(rng.exponential(1.0 / SERVE_RATE))
+        out.append(dataclasses.replace(r, arrival_s=t,
+                                       deadline_s=t + SERVE_SLACK,
+                                       priority=int(r.rid % 3 == 0)))
+    for rid, src in ((8, out[0]), (9, out[1])):
+        at = t + SERVE_REPEAT_AFTER
+        out.append(dataclasses.replace(src, rid=rid, arrival_s=at,
+                                       deadline_s=at + SERVE_SLACK,
+                                       priority=int(rid % 3 == 0)))
+    return out
+
+
+def serve_run(engine, traffic, policy: str) -> dict:
+    """One ``engine.serve`` of ``traffic`` (a fresh clock and cache,
+    measured step costs) with the launch counters set to 0 just before and
+    read just after; its results, report, launches, wall and memory."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve.result_cache import ResultCache
+    from repro_torch.serve.scheduler import VirtualClock
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.serve([dataclasses.replace(r) for r in traffic],
+                        policy=policy, clock=VirtualClock(),
+                        cache=ResultCache(SERVE_CACHE), **SERVE_OPTS)
+    torch.cuda.synchronize()
+    return {"done": done, "report": engine.last_report,
+            "launches": ops.launch_counts(),
+            "wall": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+
+
+def host_carry_bytes(cfg, bucket, slots: int) -> int:
+    """Bytes the reference moves between host and device in one recycle
+    step of ``bucket`` (``repro/serve/scheduler.py:244-247``): the lane's
+    features and its fp32 carry in, the carry and every output out."""
+    r, s, se = bucket.n_res, bucket.n_seq, bucket.n_extra_seq
+    feats = 4 * (s * r * cfg.msa_feat_dim + se * r * cfg.msa_feat_dim
+                 + r * cfg.target_feat_dim + r + r + s + se)
+    carry = 4 * (r * cfg.c_m + r * r * cfg.c_z + r * 3
+                 + r * cfg.structure.c_s) + 1 + 4 + 1
+    outs = 4 * (r * 3 + r + r * r + r * cfg.n_plddt_bins
+                + r * r * cfg.n_distogram_bins + 1) + 1
+    return slots * (feats + 2 * carry + outs)
+
+
+def check_serve_results(cfg, traffic, run, per_cycle: dict) -> int:
+    """Every request served, the repeats (rids 8, 9) from the cache, each
+    fold finite; the launches equal ``per_cycle`` times the sample-cycles
+    the served requests ran, no other kernel launched.  Returns those
+    sample-cycles."""
+    from repro_torch.serve import fold_steps as fs
+    done = run["done"]
+    if sorted(done) != [r.rid for r in traffic]:
+        raise AssertionError(f"served {sorted(done)}")
+    hits = sorted(rid for rid, res in done.items() if res.cache_hit)
+    if hits != [8, 9]:
+        raise AssertionError(f"cache hits {hits}, not the repeats [8, 9]")
+    cycles = 0
+    for r in traffic:
+        res = done[r.rid]
+        n = fs.request_shapes(r.features)[0]
+        if not (res.coords.shape == (n, 3) and np.isfinite(res.coords).all()
+                and 0.0 <= res.plddt.min() <= res.plddt.max() <= 100.0):
+            raise AssertionError(f"request {r.rid}: malformed fold")
+        if not res.cache_hit:
+            cycles += res.n_recycles
+    want = {k: 0 for k in run["launches"]}
+    want.update({k: n * cycles for k, n in per_cycle.items()})
+    if run["launches"] != want:
+        raise AssertionError(f"launches {run['launches']} != the path's "
+                             f"{want}")
+    return cycles
+
+
+def same_folds(a: dict, b: dict, what: str, src=None) -> None:
+    """``a``'s folds equal ``b``'s bit for bit (coordinates, pLDDT,
+    recycles); ``src`` maps a rid of ``a`` to the rid of ``b`` it
+    repeats."""
+    for rid, res in a.items():
+        other = b[(src or {}).get(rid, rid)]
+        if not (np.array_equal(res.coords, other.coords)
+                and np.array_equal(res.plddt, other.plddt)
+                and res.n_recycles == other.n_recycles):
+            raise AssertionError(f"{what}: request {rid} differs")
+
+
+def admission_invariant(engine, traffic) -> dict:
+    """A request served alone against the same request with a second one
+    of its bucket admitted into its lane after its second step, under
+    injected costs of 1 virtual second a step: its fold, recycles and
+    finish time must not move."""
+    from repro_torch.serve.scheduler import VirtualClock
+    a = next(r for r in traffic if r.rid == 0)
+    b = next(r for r in traffic if r.rid == 3)
+    a = dataclasses.replace(a, arrival_s=0.0, deadline_s=None)
+    b = dataclasses.replace(b, arrival_s=1.5, deadline_s=None)
+    cost = {bk: 1.0 for bk in engine.buckets}
+    solo = engine.serve([a], clock=VirtualClock(), step_cost=cost)[0]
+    both = engine.serve([a, b], clock=VirtualClock(), step_cost=cost)
+    admitted = [t["admitted"] for t in engine.last_report["trace"]]
+    if admitted[:3] != [[0], [], [3]] or both[0].bucket != both[3].bucket:
+        raise AssertionError(f"request 3 was not admitted mid-flight into "
+                             f"request 0's lane: {admitted}")
+    same_folds({0: both[0]}, {0: solo}, "mid-flight admission")
+    if not (solo.finish_s == both[0].finish_s
+            and solo.n_recycles == both[0].n_recycles):
+        raise AssertionError("a mid-flight admission moved the request in "
+                             "flight")
+    return {"finish_s": solo.finish_s, "n_recycles": solo.n_recycles}
+
+
+def serve_report(tag: str, cfg, engine, run, cycles: int) -> dict:
+    rep = run["report"]
+    steps = max(rep["steps"], 1)
+    walls = {b.n_res: round(float(np.median(w)), 4)
+             for b, w in sorted(rep["step_wall_s"].items())}
+    by_bucket = collections.Counter(t["bucket"] for t in rep["trace"])
+    ref_bytes = sum(n * host_carry_bytes(cfg, b, engine.slots_for(b))
+                    for b, n in by_bucket.items())
+    tb = rep["transfer_bytes"]
+    row = {"p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+           "mean_ms": rep["mean_ms"], "goodput_rps": rep["goodput_rps"],
+           "on_time_frac": rep["on_time_frac"],
+           "utilization": rep["utilization"], "stage_ms": rep["stage_ms"],
+           "steps": rep["steps"], "forced_admissions":
+           rep["forced_admissions"], "hit_rate": rep["hit_rate"],
+           "median_step_wall_s_by_bucket_r": walls,
+           "steps_by_bucket_r": {b.n_res: n
+                                 for b, n in sorted(by_bucket.items())},
+           "h2d_bytes_per_step": tb["h2d"] / steps,
+           "d2h_bytes_per_step": tb["d2h"] / steps,
+           "host_carry_bytes_per_step": ref_bytes / steps,
+           "sample_cycles": cycles, "wall_s": run["wall"],
+           "peak_gib": run["peak_gib"], "reserved_gib": run["reserved_gib"],
+           "featurize_stats": rep["featurize_stats"]}
+    print(f"[serve {tag}] af2_initial ({cfg.n_evoformer}+"
+          f"{cfg.n_extra_msa_blocks} blocks), {rep['requests']} "
+          f"requests at {SERVE_RATE} req/s (virtual), measured step costs "
+          f"(smoke readings: too few requests at too light a load to "
+          f"compare policies): {json.dumps(row)}; launches "
+          f"{run['launches']}", flush=True)
+    return row
+
+
+# phase 5b (d): long_plan routing over two gloo ranks sharing the card
+LONG_DEPTH = (16, 4)
+LONG_MAX_RECYCLE = 2
+# the DAP results against the one-device engine's: relative L2 difference
+# of coordinates and of pLDDT (phase 9c's bound on losses)
+LONG_RTOL = 2e-3
+
+
+def long_plan_cfg(cfg):
+    return dataclasses.replace(cfg, n_evoformer=LONG_DEPTH[0],
+                               n_extra_msa_blocks=LONG_DEPTH[1])
+
+
+def long_plan_setup(cfg):
+    """(requests, bucket table, injected step costs, the indivisible
+    bucket): one request in each default bucket, all arriving at 0; the
+    table adds an r-257 bucket no request fits first."""
+    from repro_torch.data.synthetic import make_fold_requests
+    from repro_torch.serve import fold_steps as fs
+    buckets = fs.default_buckets(cfg)
+    bad = fs.Bucket(cfg.n_res + 1, cfg.n_seq, cfg.n_extra_seq)
+    reqs = make_fold_requests(cfg, 3, seed=2, fracs=(0.2, 0.4, 1.0))
+    cost = {b: 0.1 * (i + 1) for i, b in enumerate(buckets + [bad])}
+    return reqs, buckets + [bad], cost, bad
+
+
+@contextlib.contextmanager
+def record_k1_shapes(engine):
+    """Within the block, count K1's (bucket r, lead rows, keys) at every
+    launch of ``engine``'s recycle steps (the K1 wrapper and the engine's
+    ``recycle_step_for`` are wrapped, and restored after)."""
+    from repro_torch.kernels import evo_attention as ka
+    seen, cur = collections.Counter(), {}
+    launch = ka.evo_attention_fwd
+
+    def counted(q, *args, **kw):
+        seen[cur["r"], q.shape[0], q.shape[1]] += 1
+        return launch(q, *args, **kw)
+
+    make = engine.recycle_step_for
+
+    def tagged(bucket):
+        step = make(bucket)
+
+        def run(*args):
+            cur["r"] = bucket.n_res
+            return step(*args)
+        return run
+
+    ka.evo_attention_fwd = counted
+    engine.recycle_step_for = tagged
+    try:
+        yield seen
+    finally:
+        ka.evo_attention_fwd = launch
+        del engine.recycle_step_for
+
+
+def long_plan_engine(cfg, dev, buckets, **kw):
+    from repro_torch.serve.fold_engine import FoldEngine
+    return FoldEngine(cfg, seeded_model(cfg, seed=0), buckets=buckets,
+                      micro_batch=2, max_recycle=LONG_MAX_RECYCLE, tol=0.0,
+                      device=dev, graphs=False, **kw)
+
+
+def long_plan_serve(engine, reqs, cost) -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serve.scheduler import VirtualClock
+    _sync(engine.device)
+    ops.reset_launch_counts()
+    coll.reset_counts()
+    t0 = time.perf_counter()
+    with record_k1_shapes(engine) as shapes:
+        done = engine.serve(reqs, clock=VirtualClock(), step_cost=cost)
+        _sync(engine.device)
+    wall = time.perf_counter() - t0
+    return {"results": {rid: (r.coords, r.plddt, r.n_recycles, r.finish_s)
+                        for rid, r in done.items()},
+            "k1_shapes": dict(shapes), "launches": ops.launch_counts(),
+            "collectives": coll.counts(), "wall": wall,
+            "step_wall_s": {b.n_res: w for b, w in
+                            engine.last_report["step_wall_s"].items()},
+            "trace": [(t["t"], t["bucket"].n_res, t["active"], t["admitted"])
+                      for t in engine.last_report["trace"]]}
+
+
+def long_plan_rank(rank, world, dev, cfg):
+    """One rank of phase 5b (d): the 3 requests through an engine whose
+    short buckets run data=2 and whose r-256 bucket runs dap=2; then the
+    indivisible bucket must raise PlanError before any collective, and
+    graphs=True must raise under gloo."""
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.plan import ParallelPlan, PlanError
+    from repro_torch.serve.fold_engine import FoldEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    reqs, buckets, cost, bad = long_plan_setup(cfg)
+    kw = dict(plan=ParallelPlan(data=2), long_plan=ParallelPlan(dap=2),
+              long_threshold=cfg.n_res)
+    engine = long_plan_engine(cfg, dev, buckets, **kw)
+    out = long_plan_serve(engine, reqs, cost)
+    before = coll.counts()
+    for make in (engine.recycle_step_for, engine.step_for):
+        try:
+            make(bad)
+        except PlanError as e:
+            out.setdefault("plan_errors", []).append(str(e))
+    out["collectives_at_error"] = coll.counts() == before
+    try:
+        FoldEngine(cfg, engine.params, buckets=buckets, device=dev,
+                   graphs=True, **kw)
+    except ValueError as e:
+        out["graphs_error"] = str(e)
+    # the short buckets on one device per rank, measured step costs: the
+    # ranks agree every step's wall, so their schedules stay equal
+    out["replicated"] = long_plan_serve(
+        long_plan_engine(cfg, dev, buckets[:-1], long_plan=kw["long_plan"],
+                         long_threshold=cfg.n_res), reqs, None)
+    return out
+
+
+def long_plan_phase(cfg, dev) -> dict:
+    """Phase 5b (d).  A one-device eager engine of the same depth serves
+    the requests here; then two rank processes on this card over gloo,
+    held to it."""
+    from repro_torch.parallel import ranks as ranks_lib
+    from repro_torch.serve import fold_steps as fs
+    lcfg = long_plan_cfg(cfg)
+    reqs, buckets, cost, bad = long_plan_setup(lcfg)
+    ref = long_plan_serve(long_plan_engine(lcfg, dev, buckets), reqs, cost)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = ranks_lib.spawn(long_plan_rank, 2, lcfg, device_type=dev.type,
+                            backend="gloo", timeout_s=600)
+    spawn_s = time.perf_counter() - t0
+    top = lcfg.n_res
+    want_shapes = collections.Counter()
+    for (r, lead, keys), n in ref["k1_shapes"].items():
+        if r == top:
+            want_shapes[r, lead // 2, keys] += n
+    d_max, rel = 0.0, 0.0
+    for rank, got in enumerate(ranks):
+        shapes = {k: n for k, n in got["k1_shapes"].items() if k[0] == top}
+        if shapes != dict(want_shapes):
+            raise AssertionError(f"rank {rank}: K1 shapes of the r-{top} "
+                                 f"bucket {shapes}, not the one-device "
+                                 f"shapes at half the lead rows "
+                                 f"{dict(want_shapes)}")
+        if len(got.get("plan_errors", [])) != 2 \
+                or not got["collectives_at_error"]:
+            raise AssertionError(f"rank {rank}: the indivisible bucket "
+                                 f"{bad} did not raise PlanError before any "
+                                 f"collective: {got.get('plan_errors')}")
+        if "graphs_error" not in got:
+            raise AssertionError("graphs=True under gloo ranks did not raise")
+        for run in (got, got["replicated"]):
+            for rid, (xyz, plddt, n_rec, _) in ref["results"].items():
+                gx, gp, gn, _ = run["results"][rid]
+                if gn != n_rec:
+                    raise AssertionError(f"rank {rank} request {rid}: {gn} "
+                                         f"recycles, one device {n_rec}")
+                for a, b in ((gx, xyz), (gp, plddt)):
+                    d_max = max(d_max, float(np.abs(a - b).max()))
+                    rel = max(rel, float(np.linalg.norm(a - b)
+                                         / max(np.linalg.norm(b), 1e-30)))
+    rep0, rep1 = (g["replicated"] for g in ranks)
+    if rep0["trace"] != rep1["trace"] or \
+            rep0["step_wall_s"] != rep1["step_wall_s"]:
+        raise AssertionError("under measured costs the ranks' schedules "
+                             "differ with the short buckets on one device")
+    if not rel <= LONG_RTOL:
+        raise AssertionError(f"long_plan folds differ from one device's by "
+                             f"{rel} relative L2")
+    row = {"depth": list(LONG_DEPTH), "max_recycle": LONG_MAX_RECYCLE,
+           "max_abs_diff": d_max, "max_rel_l2": rel,
+           "bit_equal": d_max == 0.0, "spawn_s": spawn_s,
+           "one_device": {"wall_s": ref["wall"],
+                          "step_wall_s": ref["step_wall_s"]},
+           "ranks": [{"wall_s": g["wall"], "step_wall_s": g["step_wall_s"],
+                      "launches": g["launches"],
+                      "collectives": g["collectives"]} for g in ranks],
+           "plan_error": ranks[0]["plan_errors"][0],
+           "replicated_measured": {
+               "steps": len(rep0["trace"]),
+               "step_wall_s": rep0["step_wall_s"],
+               "wall_s": [g["replicated"]["wall"] for g in ranks]}}
+    lengths = [fs.request_shapes(r.features)[0] for r in reqs]
+    print(f"[serve long_plan] af2_initial {LONG_DEPTH[0]}+{LONG_DEPTH[1]} "
+          f"blocks, 3 requests (r {lengths}), plan data=2, "
+          f"long_plan dap=2 from r {top}, two gloo ranks on {dev.type}, "
+          f"injected costs; then plan None with measured costs, the ranks' "
+          f"schedules equal: {json.dumps(row)}", flush=True)
+    return row
+
+
+def continuous_phase(cfg, dev, engine, per_cycle: dict) -> dict:
+    """Phase 5b (a)-(c) on phase 5's graphed engine, then (d)."""
+    traffic = serve_traffic(cfg)
+    rows, runs = {}, {}
+    for policy in ("continuous", "fifo"):
+        runs[policy] = serve_run(engine, traffic, policy)
+        cycles = check_serve_results(cfg, traffic, runs[policy], per_cycle)
+        rows[policy] = serve_report(policy, cfg, engine, runs[policy],
+                                    cycles)
+    same_folds(runs["continuous"]["done"], runs["fifo"]["done"],
+               "continuous vs fifo")
+    done = engine.run([r for r in traffic if r.rid < 8])
+    same_folds(runs["continuous"]["done"], done, "serve vs run",
+               src={8: 0, 9: 1})
+    inv = admission_invariant(engine, traffic)
+    if engine.compile_misses > 2 * len(engine.buckets):
+        raise AssertionError(f"compile_misses {engine.compile_misses} over "
+                             f"twice the {len(engine.buckets)} buckets")
+    print(f"[serve] continuous vs fifo vs run: bit for bit; mid-flight "
+          f"admission leaves the request in flight unchanged "
+          f"({json.dumps(inv)}); compile_misses {engine.compile_misses} "
+          f"(table {len(engine.buckets)})", flush=True)
+    rows["long_plan"] = long_plan_phase(cfg, dev)
+    rows["launches"] = runs["continuous"]["launches"]
+    return rows
 
 # ---------------------------------------------------------------------------
 # Phase 7: the training kernels against their plain versions
@@ -2091,10 +2513,14 @@ def main() -> int:
           f"{graphed[2]:.3f} s", flush=True)
     profile_step(engine, reqs, graphed[0], "fold_graphed")
     counts = graphed[1]
+    stamp("phases 5-6")
+    # phase 5b: continuous serving on the same graphed engine (its recycle
+    # steps replay the sample-cycle graphs phase 5 captured), then
+    # long_plan routing over two gloo ranks
+    continuous = continuous_phase(cfg, dev, engine, serve_per_cycle(cfg))
     del engine, eager, graphed
     torch.cuda.empty_cache()
-
-    stamp("phases 5-6")
+    stamp("phase 5b")
     att_shapes, tri_shapes = train_shapes(cfg)
     att_rows, att_tot = check_attention_train(
         dev, att_shapes, torch.bfloat16, ("msa_row", (16, 256, 8, 32)))
@@ -2287,12 +2713,16 @@ def main() -> int:
     serve_per = "one sample-cycle of af2_initial serving, bucket r 256"
     train_per = "the backward of one af2_initial training sample-cycle"
     kernels = [
-        entry("evo_attention_fwd", "src/repro_torch/csrc/evo_attention_fwd.cu",
-              "src/repro/kernels/flash_attention.py:181", k1_tot, k1_err,
-              counts["evo_attention_fwd"], serve_per),
-        entry("triangle_mult_fwd", "src/repro_torch/csrc/triangle_mult_fwd.cu",
-              "src/repro/kernels/triangle.py:128", k3_tot, k3_err,
-              counts["triangle_mult_fwd"], serve_per),
+        {**entry("evo_attention_fwd",
+                 "src/repro_torch/csrc/evo_attention_fwd.cu",
+                 "src/repro/kernels/flash_attention.py:181", k1_tot, k1_err,
+                 counts["evo_attention_fwd"], serve_per),
+         "continuous_launches": continuous["launches"]["evo_attention_fwd"]},
+        {**entry("triangle_mult_fwd",
+                 "src/repro_torch/csrc/triangle_mult_fwd.cu",
+                 "src/repro/kernels/triangle.py:128", k3_tot, k3_err,
+                 counts["triangle_mult_fwd"], serve_per),
+         "continuous_launches": continuous["launches"]["triangle_mult_fwd"]},
         entry("evo_attention_bwd", "src/repro_torch/csrc/evo_attention_bwd.cu",
               "src/repro/kernels/flash_attention.py:347", att_tot["k2"],
               att_tot["k2"]["err"], t_counts["evo_attention_bwd"], train_per),

@@ -41,7 +41,7 @@ import threading
 import time
 import traceback
 from collections import deque
-from typing import Callable, Iterator, Optional
+from typing import Callable, Iterator, Optional, Union
 
 import numpy as np
 
@@ -67,20 +67,23 @@ class HostWorkerPool:
     """Bounded-in-flight thread pool: backlog -> workers -> ready queue.
 
     ``submit`` enqueues an item, workers apply ``fn``, ``poll`` drains the
-    results.  ``cap`` bounds the work in flight (None: no bound; the
-    reference's serving stage also takes a callable, not ported with it).
-    Exceptions come back as :class:`WorkerFailure`
+    results.  ``cap`` bounds the work in flight: None (no bound), an int, or
+    ``cap(head_item) -> int``, an item-aware bound (the serving featurize
+    stage's per-bucket depth).  Exceptions come back as :class:`WorkerFailure`
     results (``poll(raise_failures=True)`` re-raises), so a failed item never
     strands the consumer on an empty queue.  ``workers=0`` applies ``fn``
     inline in ``submit``.  ``close`` waits for the item a worker is running
-    and drops those not started.
+    and drops those not started.  ``stats``: items done, seconds in ``fn``
+    and the most items ever in flight.
     """
 
     def __init__(self, fn: Callable, *, workers: int = 0,
-                 cap: Optional[int] = None, name: str = "host-stage"):
+                 cap: Union[None, int, Callable] = None,
+                 name: str = "host-stage"):
         self.fn = fn
         self.workers = workers
-        self.cap = (1 << 30) if cap is None else int(cap)
+        self.cap = cap
+        self.stats = {"done": 0, "busy_s": 0.0, "max_inflight": 0}
         self._ready: "queue.Queue" = queue.Queue()
         self._backlog: deque = deque()
         self._inflight = 0
@@ -91,11 +94,22 @@ class HostWorkerPool:
             self._pool = ThreadPoolExecutor(max_workers=workers,
                                             thread_name_prefix=name)
 
+    def _cap_for(self, item) -> int:
+        if self.cap is None:
+            return 1 << 30
+        return self.cap(item) if callable(self.cap) else int(self.cap)
+
     def _run(self, item):
+        t0 = time.perf_counter()
         try:
-            return self.fn(item)
+            out = self.fn(item)
         except BaseException as e:  # noqa: BLE001 — carried to the consumer
-            return WorkerFailure(e, item=item)
+            out = WorkerFailure(e, item=item)
+        dt = time.perf_counter() - t0
+        with self._lock:
+            self.stats["done"] += 1
+            self.stats["busy_s"] += dt
+        return out
 
     def _worker(self, item):
         try:
@@ -110,10 +124,12 @@ class HostWorkerPool:
             with self._lock:
                 if not self._backlog:
                     return
-                if self._inflight >= self.cap:
+                if self._inflight >= self._cap_for(self._backlog[0]):
                     return
                 head = self._backlog.popleft()
                 self._inflight += 1
+                self.stats["max_inflight"] = max(
+                    self.stats["max_inflight"], self._inflight)
             try:
                 self._pool.submit(self._worker, head)
             except RuntimeError:      # shut down: the item is dropped

@@ -13,11 +13,20 @@ hand-written kernels).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke \
       --device cpu --requests 3 --slots 2 --max-new 4 --prompt-len 8 --max-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu
+  # sustained traffic (--arrival-rate > 0): FoldEngine.serve, Poisson
+  # arrivals on a virtual clock, continuous batching and the result cache
+  PYTHONPATH=src python -m repro_torch.launch.serve --fold initial \
+      --requests 8 --arrival-rate 4 --deadline-slack 3 --featurize-workers 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu \
+      --arrival-rate 2 --cache-capacity 8 --duplicates 0.3
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+
+import numpy as np
 
 
 def main(argv=None):
@@ -40,6 +49,27 @@ def main(argv=None):
                     help="early-exit recycling tolerance (fraction of "
                          "changed CA-distance bins; 0 = fixed recycling)")
     ap.add_argument("--seed", type=int, default=0)
+    # sustained traffic: --arrival-rate > 0 serves Poisson arrivals through
+    # FoldEngine.serve instead of draining a queue through run
+    ap.add_argument("--arrival-rate", type=float, default=0.0,
+                    help="offered load in requests per virtual second; > 0 "
+                         "serves through the continuous-batching serve()")
+    ap.add_argument("--policy", choices=["continuous", "fifo"],
+                    default="continuous",
+                    help="admission policy (fifo: run()'s drain order)")
+    ap.add_argument("--cache-capacity", type=int, default=64,
+                    help="result cache entries (0: no cache)")
+    ap.add_argument("--deadline-slack", type=float, default=0.0,
+                    help="deadline = arrival + this many virtual seconds "
+                         "(0: no deadlines)")
+    ap.add_argument("--duplicates", type=float, default=0.3,
+                    help="fraction of requests repeating an earlier "
+                         "request's features (cache hits)")
+    ap.add_argument("--featurize-workers", type=int, default=0,
+                    help="featurize-stage threads (0: inline)")
+    ap.add_argument("--starvation-steps", type=int, default=16,
+                    help="steps a lane with work waiting may be passed "
+                         "over before it runs next")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
     args = ap.parse_args(argv)
@@ -108,6 +138,8 @@ def run_fold(args):
     print(f"fold engine: {args.fold} cfg on {engine.device}, buckets "
           f"{[b.describe() for b in engine.buckets]}")
     reqs = make_fold_requests(cfg, args.requests, args.seed)
+    if args.arrival_rate > 0:
+        return run_fold_traffic(args, engine, reqs)
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
@@ -122,6 +154,47 @@ def run_fold(args):
         print(f"  req {rid}: len={r.coords.shape[0]} bucket<= "
               f"{r.bucket.n_res} plddt={r.plddt.mean():.1f} "
               f"recycles={r.n_recycles} converged={r.converged}")
+    return done
+
+
+def run_fold_traffic(args, engine, reqs):
+    """Sustained traffic through ``FoldEngine.serve``: ``reqs`` as Poisson
+    arrivals at ``--arrival-rate`` drawn from ``--seed``, a
+    ``--duplicates`` fraction repeating an earlier request's features,
+    deadlines ``--deadline-slack`` after arrival; step costs the measured
+    walls."""
+    from repro_torch.serve.result_cache import ResultCache
+    from repro_torch.serve.scheduler import VirtualClock
+
+    rng = np.random.default_rng(args.seed)
+    t, traffic = 0.0, []
+    for r in reqs:
+        feats = (traffic[rng.integers(0, len(traffic))].features
+                 if traffic and rng.random() < args.duplicates
+                 else r.features)
+        t += float(rng.exponential(1.0 / args.arrival_rate))
+        traffic.append(dataclasses.replace(
+            r, features=feats, arrival_s=t,
+            deadline_s=(t + args.deadline_slack
+                        if args.deadline_slack > 0 else None)))
+    cache = ResultCache(args.cache_capacity) if args.cache_capacity else None
+    done = engine.serve(traffic, policy=args.policy, clock=VirtualClock(),
+                        cache=cache,
+                        featurize_workers=args.featurize_workers,
+                        starvation_steps=args.starvation_steps)
+    rep = engine.last_report
+    print(f"served {len(done)}/{rep['requests']} folds under "
+          f"{args.arrival_rate:.2f} req/s ({args.policy}): "
+          f"p50 {rep['p50_ms']:.0f}ms p99 {rep['p99_ms']:.0f}ms, "
+          f"goodput {rep['goodput_rps']:.2f} req/s, "
+          f"on-time {rep['on_time_frac']:.0%}")
+    sm = rep["stage_ms"]
+    print(f"  stages: featurize {sm['featurize']:.2f}ms | queue "
+          f"{sm['queue']:.0f}ms | service {sm['service']:.0f}ms; "
+          f"utilization {rep['utilization']:.0%}, "
+          f"{rep['steps']} steps, {engine.compile_misses} compiles, "
+          f"cache hit rate {rep['hit_rate']:.0%}, "
+          f"{rep['forced_admissions']} forced admissions")
     return done
 
 

@@ -51,12 +51,20 @@ PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",
                     "repro_torch.analysis.roofline")
 
 
+SERVING_MODULES = ("repro_torch.serve.fold_engine",
+                   "repro_torch.serve.fold_steps",
+                   "repro_torch.serve.scheduler",
+                   "repro_torch.serve.result_cache",
+                   "repro_torch.data.featurize", "repro_torch.launch.serve")
+
+
 def test_no_jax_or_reference_imports_in_source():
     files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     assert set(TRAINING_MODULES) <= {m for m, _ in _modules()}
     assert set(LM_MODULES) <= {m for m, _ in _modules()}
     assert set(PARALLEL_MODULES) <= {m for m, _ in _modules()}
+    assert set(SERVING_MODULES) <= {m for m, _ in _modules()}
     bad = []
     for path in files:
         for name in _imported_names(path):

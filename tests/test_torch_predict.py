@@ -15,6 +15,7 @@ Recycle counts and convergence flags must match exactly.
 import copy
 import dataclasses
 import os
+import re
 import subprocess
 import sys
 
@@ -247,12 +248,20 @@ def test_fold_engine_skips_filler_slots(models, monkeypatch):
     assert eng.last_stats["steps"] == 1
 
 
-def test_launcher_serves_on_cpu():
+@pytest.mark.parametrize("args,summary", [
+    (["--requests", "3"], r"served 3 folds in "),
+    # sustained traffic through FoldEngine.serve: the reference's summary
+    (["--arrival-rate", "2", "--cache-capacity", "8", "--duplicates", "0.3"],
+     r"served 6/6 folds under 2\.00 req/s \(continuous\): p50 \d+ms p99 "
+     r"\d+ms, goodput [\d.]+ req/s, on-time \d+%\n  stages: featurize "
+     r"[\d.]+ms \| queue \d+ms \| service \d+ms; utilization \d+%, \d+ "
+     r"steps, \d+ compiles, cache hit rate \d+%, \d+ forced admissions")])
+def test_launcher_serves_on_cpu(args, summary):
     proc = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--fold", "tiny",
-         "--device", "cpu", "--requests", "3"],
+         "--device", "cpu", *args],
         capture_output=True, text=True, timeout=300,
         # one thread, as the suite's other processes (tests/torch_threads.py)
         env={**os.environ, "PYTHONPATH": "src", "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert "served 3 folds" in proc.stdout
+    assert re.search(summary, proc.stdout), proc.stdout
