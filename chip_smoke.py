@@ -22,7 +22,13 @@ Phases, each raising on failure (exit code != 0, no result line):
      captures each bucket's sample-cycle, the second only replays (its
      launches counted through replay credits); walls, folds/s, per-step
      latency, peak memory, compile_misses, and the graphed-vs-eager max
-     |diff| of coordinates and pLDDT.
+     |diff| of coordinates and pLDDT.  The graphed engine keeps a
+     MetricRegistry and a SpanTracer: after phase 6 and again after phase
+     5b its serve/* counters must equal its stats, each bucket's
+     serve/bucket_steps counter and serve/bucket_step_s count its steps,
+     one serve/call event stand for each run / serve call, the fold_step
+     and recycle_step spans number run's and serve's steps, and the
+     serve/report/* gauges equal its last report.
   6. profile: one more largest-bucket step of each engine, eager and
      graphed, plain and under torch.profiler (device busy time, idle share,
      host launch calls, time by kernel family; K1 and K3 must show in
@@ -83,7 +89,21 @@ Phases, each raising on failure (exit code != 0, no result line):
      then lDDT-Cα of the EMA parameters on the held-out split through the
      eager runner's FoldEngine and twice through the graphed one's
      (eval_compiles must stay 1, the two graphed evaluations agree), with
-     train_compiles, eval_compiles and compile_misses.
+     train_compiles, eval_compiles and compile_misses.  Every step wall is
+     its runner's ``step`` span (here and in 9b, 9c).  Telemetry: the
+     graphed runner, built with a registry (MemorySink and a JSONL file)
+     and a SpanTracer, trains steps 9-14 with an evaluation, a checkpoint
+     and torch.profiler over step 12; its history must be the registry's
+     six series, the
+     sink's loss rows its losses, one step span per step with its draw,
+     featurize spans on worker threads, device_put / input_wait / eval /
+     checkpoint spans in order, ckpt/* series and data/* gauges, JSONL rows
+     in seq order, each of K1-K5 in the profiled step's trace as often as
+     its draw launches it, and an attribution row with 0 < MFU <= 1;
+     prints the attribution (model FLOPs, predicted and measured step,
+     MFU, goodput); then steps 15-29, one run call each, with the file
+     sinks and tracer at every other step of a draw and without them at
+     the rest, and prints each draw's step walls with and without.
   9b. training data and checkpoints, af2_initial at full width and depth,
      batch 1: (a) the record-path DataPipeline (8 demo FASTA records,
      length-bucketed, 2 workers) places 6 batches on the card, which must
@@ -114,8 +134,10 @@ Phases, each raising on failure (exit code != 0, no result line):
      eager engine, then by a graphed one (its decode step and each prompt
      length's prefill captured in a warm-up first), both held to the same
      checks, with compile_misses, whether every token id agrees and the
-     max |diff| of the checked logits; then one prefill (S 2048) and one
-     decode step under torch.profiler, eager and as graph replays.
+     max |diff| of the checked logits, and the model-FLOP share of the
+     bf16 peak of each prefill length and decode step (model_flops); then
+     one prefill (S 2048) and one decode step under torch.profiler, eager
+     and as graph replays.
 Kernel and library times are medians of 5 timed repeats, each after a
 warm-up call, printed with their min-max spread.  Then one JSON line of
 kernel figures, the nvidia-smi line, and the result line ``{"ok": true,
@@ -127,6 +149,7 @@ import copy
 import dataclasses
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -431,16 +454,73 @@ def small_fold_check(dev):
 
 
 def main_path(cfg, dev, *, graphs: bool, n_requests=4, micro_batch=2,
-              max_recycle=3):
-    """A FoldEngine (``graphs`` on or off) over the seeded model and the
-    main path's ``n_requests`` requests; returns (requests, engine)."""
+              max_recycle=3, obs=None, tracer=None):
+    """A FoldEngine (``graphs`` on or off; registry ``obs``, ``tracer``)
+    over the seeded model and the main path's ``n_requests`` requests;
+    returns (requests, engine)."""
     from repro_torch.data.synthetic import make_fold_requests
     from repro_torch.serve.fold_engine import FoldEngine
     model = seeded_model(cfg, seed=0)
     engine = FoldEngine(cfg, model, micro_batch=micro_batch,
                         max_recycle=max_recycle, tol=0.0, device=dev,
-                        graphs=graphs)
+                        graphs=graphs, obs=obs, tracer=tracer)
     return make_fold_requests(cfg, n_requests, seed=0), engine
+
+
+def count_calls(engine) -> collections.Counter:
+    """Count ``engine.run`` and ``engine.serve`` calls from now on, by
+    kind (the instance's methods wrapped)."""
+    calls = collections.Counter()
+    for kind in ("run", "serve"):
+        def counted(*a, _fn=getattr(engine, kind), _kind=kind, **kw):
+            calls[_kind] += 1
+            return _fn(*a, **kw)
+        setattr(engine, kind, counted)
+    return calls
+
+
+def check_serve_obs(engine, calls, tag: str) -> None:
+    """The engine's telemetry against its own books: every ``serve/*``
+    counter equals ``stats``; per bucket the ``serve/bucket_steps`` counter
+    and the ``serve/bucket_step_s`` histogram's count equal its steps; one
+    ``serve/call`` event per call; as many ``fold_step`` spans as ``run``'s
+    steps and ``recycle_step`` spans as ``serve``'s; the ``serve/report/*``
+    gauges equal ``last_report``."""
+    obs, tr = engine.obs, engine.tracer
+    bad = [k for k in engine._SCALAR_STATS
+           if obs.counter(f"serve/{k}").value != engine.stats[k]]
+    for b, pb in engine.stats["per_bucket"].items():
+        t = b.describe()
+        if not (obs.counter("serve/bucket_steps", bucket=t).value
+                == obs.histogram("serve/bucket_step_s", bucket=t).count
+                == pb["steps"]
+                and obs.counter("serve/bucket_requests", bucket=t).value
+                == pb["requests"]):
+            bad.append(t)
+    events = obs.series("serve/call")
+    kinds = collections.Counter(e["call"] for e in events)
+    steps = {k: sum(e["steps"] for e in events if e["call"] == k)
+             for k in ("run", "serve")}
+    spans = {"run": len(tr.spans("fold_step")),
+             "serve": len(tr.spans("recycle_step"))}
+    if kinds != calls or spans != steps:
+        bad.append(f"calls {dict(calls)} events {dict(kinds)}, steps "
+                   f"{steps} spans {spans}")
+    gauges = {k: obs.gauge(f"serve/report/{k}").value
+              for k in ("p50_ms", "p99_ms", "goodput_rps")}
+    if calls["serve"] and gauges != {k: float(engine.last_report[k])
+                                     for k in gauges}:
+        bad.append(f"report gauges {gauges}")
+    if bad:
+        raise AssertionError(f"[obs serve {tag}] telemetry disagrees with "
+                             f"the engine: {bad}")
+    print(f"[obs serve {tag}] serve/* counters equal stats "
+          f"({ {k: engine.stats[k] for k in engine._SCALAR_STATS} }); "
+          f"calls {dict(calls)}; spans fold_step {spans['run']}, "
+          f"recycle_step {spans['serve']}, admit "
+          f"{len(tr.spans('admit'))}, harvest {len(tr.spans('harvest'))}; "
+          f"report gauges {gauges if calls['serve'] else 'none yet'}",
+          flush=True)
 
 
 def serve_folds(engine, reqs):
@@ -513,47 +593,69 @@ def check_main_path(cfg, reqs, done, engine, counts, max_recycle=3):
 # Phase 6: where a main-path step's time goes
 # ---------------------------------------------------------------------------
 
-def kernel_family(name: str) -> str:
-    """Profile family of a device kernel, by its name: K2, K3, K4 and K5 by
-    stage, their fp32 CUDA-core kernels mapped to the same stages (K1 and K6
-    are one kernel each)."""
+_K2_PREP = "K2 prep (delta, do_raw, dgate; bias copy)"
+_K2_SUMS = "K2 partial sums (dbias; dq past one key window)"
+_K3_PROJ = "K3 gated projections"
+_K3_OUT = "K3 LayerNorm + out-projection + gate"
+_K4_ROWS = "K4 triangle_mult_bwd_epilogue (per-pair pass)"
+_K4_SUMS = "K4 dW_o / dW_g split-K products and partial sums"
+_K45_SUMS = "K4 / K5 fp32 gradient sums over rows and chunks"
+_K5_PROJ = "K5 ds split + gated projections"
+_K5_ROWS = "K5 dx / dW / db"
+_GEMM = "GEMM (cuBLAS)"
+# the device kernels by a substring of their names, the first match
+# deciding: (substring, profile family, the wrapper that launches this
+# kernel exactly once a call on its dtype's path, else None).  K2, K3, K4
+# and K5 are grouped by stage, their fp32 CUDA-core kernels with the same
+# stages; K1 and K6 are one kernel each.  A wrapper's launches in a
+# profiler trace are its signature kernels' count (``profiled_launches``).
+KERNEL_NAMES = (
+    ("flash_attention_fwd", "K6 flash_attention_fwd", "flash_attention_fwd"),
+    ("evo_attention_fwd", "K1 evo_attention_fwd", "evo_attention_fwd"),
+    ("evo_bwd_prep", _K2_PREP, None),
+    ("evo_bwd_bias_pack", _K2_PREP, None),
+    ("evo_bwd_dbias_sum", _K2_SUMS, None),
+    ("evo_bwd_dq_sum", _K2_SUMS, None),
+    ("evo_bwd_dq", "K2 dq + dbias", None),
+    ("evo_bwd_dkv", "K2 dk / dv", "evo_attention_bwd"),
+    ("tri_proj_f32", _K5_PROJ, None),
+    ("tri_dx_split", _K5_PROJ, None),
+    ("tri_dx_proj", _K5_PROJ, None),
+    ("tri_dx_contract", "K5 contraction (+ dh)", None),
+    ("tri_dx_rows", _K5_ROWS, "triangle_mult_bwd_dx"),        # fp32
+    ("tri_dx_sums", _K5_ROWS, "triangle_mult_bwd_dx"),        # bf16
+    ("tri_dx_out", _K5_ROWS, None),
+    ("tri_dx_dw", _K5_ROWS, None),
+    ("tri_epi_dw", _K4_SUMS, None),
+    ("tri_epi_sums", _K4_SUMS, "triangle_mult_bwd_epilogue"),  # bf16
+    ("tri_epi_bwd_rows", _K4_ROWS, "triangle_mult_bwd_epilogue"),  # fp32
+    ("tri_epi", _K4_ROWS, None),
+    ("outer_acc", _K45_SUMS, None),
+    ("col_sum", _K45_SUMS, None),
+    ("sum_chunks", _K45_SUMS, None),
+    ("tri_fwd_proj", _K3_PROJ, None),
+    ("tri_proj", _K3_PROJ, None),
+    ("tri_fwd_contract", "K3 contraction", None),
+    ("tri_contract", "K3 contraction + epilogue (fp32)", "triangle_mult_fwd"),
+    ("tri_fwd_out", _K3_OUT, "triangle_mult_fwd"),            # bf16
+    ("gemm", _GEMM, None),
+    ("cutlass", _GEMM, None),
+    ("nvjet", _GEMM, None),
+    ("xmma", _GEMM, None))
+
+
+def kernel_entry(name: str) -> tuple:
+    """The KERNEL_NAMES entry of a device kernel, by its name."""
     n = name.lower()
-    if "flash_attention_fwd" in n:
-        return "K6 flash_attention_fwd"
-    if "evo_attention_fwd" in n:
-        return "K1 evo_attention_fwd"
-    if "evo_bwd_prep" in n or "evo_bwd_bias_pack" in n:
-        return "K2 prep (delta, do_raw, dgate; bias copy)"
-    if "evo_bwd_dbias_sum" in n or "evo_bwd_dq_sum" in n:
-        return "K2 partial sums (dbias; dq past one key window)"
-    if "evo_bwd_dq" in n:
-        return "K2 dq + dbias"
-    if "evo_bwd_dkv" in n:
-        return "K2 dk / dv"
-    if "tri_proj_f32" in n or "tri_dx_split" in n or "tri_dx_proj" in n:
-        return "K5 ds split + gated projections"
-    if "tri_dx_contract" in n:
-        return "K5 contraction (+ dh)"
-    if ("tri_dx_rows" in n or "tri_dx_out" in n or "tri_dx_dw" in n
-            or "tri_dx_sums" in n):
-        return "K5 dx / dW / db"
-    if "tri_epi_dw" in n or "tri_epi_sums" in n:
-        return "K4 dW_o / dW_g split-K products and partial sums"
-    if "tri_epi" in n:
-        return "K4 triangle_mult_bwd_epilogue (per-pair pass)"
-    if "outer_acc" in n or "col_sum" in n or "sum_chunks" in n:
-        return "K4 / K5 fp32 gradient sums over rows and chunks"
-    if "tri_fwd_proj" in n or "tri_proj" in n:
-        return "K3 gated projections"
-    if "tri_fwd_contract" in n:
-        return "K3 contraction"
-    if "tri_contract" in n:
-        return "K3 contraction + epilogue (fp32)"
-    if "tri_fwd_out" in n:
-        return "K3 LayerNorm + out-projection + gate"
-    if "gemm" in n or "cutlass" in n or "nvjet" in n or "xmma" in n:
-        return "GEMM (cuBLAS)"
-    return "other (elementwise, reductions, copies)"
+    for entry in KERNEL_NAMES:
+        if entry[0] in n:
+            return entry
+    return ("", "other (elementwise, reductions, copies)", None)
+
+
+def kernel_family(name: str) -> str:
+    """Profile family of a device kernel, by its name (KERNEL_NAMES)."""
+    return kernel_entry(name)[1]
 
 
 def union_ms(spans) -> float:
@@ -588,12 +690,12 @@ def profile_step(engine, reqs, done, tag):
 
 
 def profile_run(work, tag: str, what: str) -> dict:
-    """Run ``work`` once plain and once under torch.profiler.  Prints both
-    walls, the device's busy time (union of kernel intervals) and its idle
-    share of the profiled wall, device time by kernel family and the top
-    kernels; returns the device ms by family.  The Chrome trace goes to
-    build/profile/<tag>_trace.json."""
-    from torch.profiler import ProfilerActivity, profile
+    """Run ``work`` once plain and once under torch.profiler, armed by the
+    port's ``ProfileWindow``.  Prints both walls, the device's busy time
+    (union of kernel intervals) and its idle share of the profiled wall,
+    device time by kernel family and the top kernels; returns the device ms
+    by family.  The Chrome trace goes to build/profile/<tag>/."""
+    from repro_torch.obs import ProfileWindow
 
     def run():
         torch.cuda.synchronize()
@@ -603,13 +705,15 @@ def profile_run(work, tag: str, what: str) -> dict:
         return 1e3 * (time.perf_counter() - t0)
 
     wall_plain = run()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        wall_prof = run()
-    path = ROOT / "build" / "profile" / f"{tag}_trace.json"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    events = json.loads(path.read_text())["traceEvents"]
+    window = ProfileWindow(0, 1, str(ROOT / "build" / "profile" / tag),
+                           device="cuda")
+    window.maybe_start(0)
+    wall_prof = run()
+    window.maybe_stop(0)
+    if window.trace_path is None:
+        raise AssertionError(f"[profile {tag}] torch.profiler wrote no trace")
+    events = json.loads(pathlib.Path(window.trace_path).read_text())[
+        "traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
     if not kernels:
         raise AssertionError("profiler recorded no device kernels")
@@ -1445,26 +1549,35 @@ TRAIN_SEED = 1502
 TRAIN_WARMUP, TRAIN_STEPS = 4, 3
 
 
+def step_walls(tracer) -> list:
+    """Each training step's wall in seconds, in the order the steps ran:
+    its ``step`` span, which ends once the card has finished the step."""
+    return [e["dur"] / 1e6 for e in tracer.spans("step")]
+
+
 def train_main_path(cfg, dev, *, graphs: bool, warmup=TRAIN_WARMUP,
-                    steps=TRAIN_STEPS):
+                    steps=TRAIN_STEPS, obs=None):
     """TrainRunner at ``cfg`` with its defaults, batch 1, from the seeded
-    model (``graphs`` on or off): ``warmup`` steps (graphed: they must
+    model (``graphs`` on or off), with a SpanTracer and the registry
+    ``obs`` (None: the runner's own): ``warmup`` steps (graphed: they must
     capture every draw of 1..max_recycle), then ``steps`` steps with the
     launch counters set to 0 just before and read just after, each step
     checked.  Returns (runner, launch counts, gradient norms, peak
     allocated GiB of the measured steps, reserved GiB after them)."""
     from repro_torch.kernels import ops
+    from repro_torch.obs import SpanTracer
     from repro_torch.train.trainer import TrainRunner
     model = seeded_model(cfg, seed=0).to(dev)
     runner = TrainRunner(cfg, batch_size=1, seed=TRAIN_SEED, device=dev,
-                         model=model, graphs=graphs)
+                         model=model, graphs=graphs, obs=obs,
+                         tracer=SpanTracer())
     tag = "graphed" if graphs else "eager"
     for _ in range(warmup):
         built = runner.train_compiles
         runner.run(runner.step + 1)
         print(f"[train warm-up {tag}] step {runner.step - 1}, n_recycle "
               f"{runner.history['n_recycle'][-1]}: "
-              f"{runner.history['step_s'][-1]:.3f} s"
+              f"{step_walls(runner.tracer)[-1]:.3f} s"
               + (" (eager run + capture)" if graphs and
                  runner.train_compiles > built else ""), flush=True)
     if graphs and runner.train_compiles != runner.max_recycle:
@@ -1510,7 +1623,7 @@ def train_main_path(cfg, dev, *, graphs: bool, warmup=TRAIN_WARMUP,
 
 def train_report(tag, runner, counts, norms, peak, reserved,
                  warmup=TRAIN_WARMUP):
-    step_s = runner.history["step_s"][warmup:]
+    step_s = step_walls(runner.tracer)[warmup:]
     print(f"[train path {tag}] af2_initial (48+4 blocks) TrainRunner, batch "
           f"1: steps {list(range(warmup, runner.step))}, n_recycle "
           f"{runner.history['n_recycle'][warmup:]}, losses "
@@ -1553,6 +1666,231 @@ def check_evaluation(ev, runner) -> None:
             and np.isfinite(ev["coords"]).all()):
         raise AssertionError(f"evaluation: lDDT-Cα {per}, coords "
                              f"{ev['coords'].shape}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 9's telemetry part: registry, spans, torch.profiler, attribution
+# ---------------------------------------------------------------------------
+
+# the graphed runner's steps with its file sinks and tracer (an evaluation
+# after step OBS_EVAL_EVERY - 1, torch.profiler over step OBS_PROFILE, a
+# checkpoint at the end), TRAIN_SEED drawing 2, 4, 2, 2, 4, 3; then steps
+# OBS_MIX, one run call each, with the file sinks and tracer at every
+# other step of a draw and without them at the rest: draws 2, 2, 4, 1, 4,
+# 2, 2, 3, 4, 3, 1, 3, 2, 4, 3
+OBS_ON, OBS_MIX = (9, 15), (15, 30)
+OBS_EVAL_EVERY, OBS_PROFILE = 12, 12
+TRAIN_SPANS = ("featurize", "device_put", "input_wait", "step", "eval",
+               "checkpoint")
+
+
+def check_span_order(tracer) -> None:
+    """Spans nest: a span of depth d > 0 lies inside a span of depth d - 1
+    on its thread, spans of depth 0 on a thread do not overlap; and each
+    step's input (its ``input_wait`` and ``device_put`` spans) is in hand
+    before its ``step`` span starts."""
+    spans = tracer.spans()
+    by_tid = collections.defaultdict(list)
+    for e in spans:
+        by_tid[e["tid"]].append(e)
+    eps = 1e-3     # microseconds of float rounding
+    for evs in by_tid.values():
+        top = sorted((e for e in evs if e["args"]["depth"] == 0),
+                     key=lambda e: e["ts"])
+        for a, b in zip(top, top[1:]):
+            if b["ts"] < a["ts"] + a["dur"] - eps:
+                raise AssertionError(f"spans overlap: {a} {b}")
+        for e in evs:
+            d = e["args"]["depth"]
+            if d and not any(
+                    p["args"]["depth"] == d - 1 and p["ts"] <= e["ts"] + eps
+                    and e["ts"] + e["dur"] <= p["ts"] + p["dur"] + eps
+                    for p in evs):
+                raise AssertionError(f"span outside its parent: {e}")
+    start = {}
+    for e in tracer.spans("step"):
+        start.setdefault(e["args"]["step"], e["ts"])
+    for e in spans:
+        s = e["args"].get("step")
+        if e["name"] in ("input_wait", "device_put") and s in start and \
+                e["ts"] + e["dur"] > start[s] + eps:
+            raise AssertionError(f"{e['name']} of step {s} ends after the "
+                                 f"step starts")
+
+
+def profiled_launches(path, wrappers) -> dict:
+    """Launches of each of ``wrappers`` in a torch.profiler trace: the
+    count of its signature kernels in KERNEL_NAMES."""
+    events = json.loads(pathlib.Path(path).read_text())["traceEvents"]
+    seen = collections.Counter(kernel_entry(e["name"])[2] for e in events
+                               if e.get("cat") == "kernel")
+    return {k: seen[k] for k in wrappers}
+
+
+def obs_part(runner, mem, obs_dir, dev) -> dict:
+    """Phase 9's telemetry part on the graphed runner, which phase 9 built
+    with a registry (``mem`` and a JSONL file in ``obs_dir``) and a
+    SpanTracer: steps OBS_ON with one evaluation, one checkpoint and a
+    ProfileWindow over step OBS_PROFILE.  Checks the history views, the
+    sink rows, the spans, the ckpt/* series and data/* gauges, the JSONL
+    rows, the profiled step's K1-K5 launches and the attribution row;
+    prints the attribution.  Then steps OBS_MIX with and without the file
+    sinks and the tracer, interleaved within each draw (:func:`obs_mix`),
+    and prints their walls."""
+    from repro_torch.analysis.roofline import predict_step_time
+    from repro_torch.obs import ProfileWindow
+    from repro_torch.train.checkpoint import CheckpointManager
+    obs, tracer, hist = runner.obs, runner.tracer, runner.history
+    if runner.step != OBS_ON[0]:
+        raise AssertionError(f"the runner is at step {runner.step}")
+    runner.eval_every = OBS_EVAL_EVERY
+    runner.mgr = CheckpointManager(f"{obs_dir}/ckpt", keep=1,
+                                   plan_meta=runner.built.metadata(),
+                                   obs=obs)
+    runner.profile_window = ProfileWindow(OBS_PROFILE, OBS_PROFILE + 1,
+                                          f"{obs_dir}/profile", device=dev)
+    t0 = time.perf_counter()
+    runner.run(OBS_ON[1])
+    t_on = time.perf_counter() - t0
+    prof_path = runner.profile_window.trace_path
+    runner.profile_window, runner.mgr, runner.eval_every = None, None, 0
+    obs.flush()
+    t0 = time.perf_counter()
+
+    bad = []
+    keys = ("loss", "n_recycle", "step_s", "eval", "data", "attribution")
+    if any(hist[k] is not obs.series(f"train/{k}") for k in keys):
+        bad.append("history is not the registry's series")
+    n_on = OBS_ON[1]
+    if [r["value"] for r in mem.events("train/loss")] != hist["loss"][:n_on]:
+        bad.append("train/loss rows differ from history")
+    steps = [(e["args"]["step"], e["args"]["n_recycle"])
+             for e in tracer.spans("step")]
+    if steps != list(enumerate(hist["n_recycle"][:n_on])):
+        bad.append(f"step spans {steps}")
+    names = collections.Counter(e["name"] for e in tracer.spans())
+    main_tid = tracer.spans("step")[0]["tid"]
+    if not (all(names[k] for k in TRAIN_SPANS) and names["eval"] == 1
+            and names["checkpoint"] == 1
+            and all(e["tid"] != main_tid for e in tracer.spans("featurize"))):
+        bad.append(f"spans {dict(names)}")
+    check_span_order(tracer)
+    snap = obs.snapshot()
+    gauges = {k: snap[k]["value"] for k in snap if k.startswith("data/")}
+    ckpt = {k: list(obs.series(f"ckpt/{k}"))
+            for k in ("snapshot_s", "save_s")}
+    if len(gauges) != 6 or any(len(v) != 1 for v in ckpt.values()):
+        bad.append(f"data gauges {gauges}, ckpt series {ckpt}")
+    path = pathlib.Path(obs_dir) / "metrics.jsonl"
+    rows = [json.loads(ln) for ln in path.read_text().splitlines()]
+    seqs = [r["seq"] for r in rows]
+    if not all(b > a for a, b in zip(seqs, seqs[1:])) or \
+            len(rows) != len(mem.rows):
+        bad.append(f"JSONL: {len(rows)} rows against {len(mem.rows)}")
+    nr_prof = runner.recycle_draw(OBS_PROFILE)
+    want = train_launches(runner.cfg, nr_prof)
+    seen = profiled_launches(prof_path, want) if prof_path else {}
+    if seen != want:
+        bad.append(f"profiled step {OBS_PROFILE}: launches {seen} != {want}")
+    attr = hist["attribution"]
+    if not (len(attr) == 1 and 0.0 < attr[0]["mfu"] <= 1.0):
+        bad.append(f"attribution {attr}")
+    if bad:
+        raise AssertionError(f"[obs train] {bad}")
+    t_check = time.perf_counter() - t0
+
+    span_s = {e["args"]["step"]: e["dur"] / 1e6 for e in tracer.spans("step")}
+    two = [st for st in range(*OBS_ON)
+           if st != OBS_PROFILE and runner.recycle_draw(st) == 2]
+    measured = float(np.median([span_s[st] for st in two]))
+    pred = predict_step_time(runner.cfg, n_recycle=2)
+    flops = pred["model_flops_per_step"]
+    row = {"n_recycle": 2, "steps": two,
+           "model_flops_per_step": flops,
+           "predicted_ms": 1e3 * pred["predicted_step_s"],
+           "measured_ms": 1e3 * measured,
+           "measured_over_predicted": measured / pred["predicted_step_s"],
+           "mfu": flops / measured / PEAK_BF16_FLOPS,
+           "runner_row": {k: attr[0][k] for k in (
+               "step", "n_recycle", "measured_step_s", "predicted_step_s",
+               "measured_over_predicted", "mfu", "goodput", "stall_fraction",
+               "overhead_fraction")}}
+    print(f"[obs train] steps {OBS_ON[0]}-{OBS_ON[1] - 1} with MemorySink, "
+          f"JsonlSink and SpanTracer: history is six live series; "
+          f"{len(rows)} JSONL rows ({path.stat().st_size} bytes), seq "
+          f"increasing; spans {dict(names)}; ckpt s {json.dumps(ckpt)}; "
+          f"data gauges {json.dumps(gauges)}; seconds: steps "
+          f"{OBS_ON[0]}-{OBS_ON[1] - 1} with the evaluation, checkpoint and "
+          f"profile {t_on:.1f}, the checks {t_check:.1f}", flush=True)
+    print(f"[obs profile] step {OBS_PROFILE} (n_recycle {nr_prof}) under "
+          f"torch.profiler (CPU + CUDA): "
+          f"{pathlib.Path(prof_path).stat().st_size} bytes of trace; K1-K5 "
+          f"launches {json.dumps(seen)}, as the draw implies", flush=True)
+    print(f"[obs attribution] af2_initial graphed, batch 1: n_recycle 2 "
+          f"(steps {two}, span walls): {flops:.4g} model FLOPs a "
+          f"step, predicted {row['predicted_ms']:.2f} ms, measured "
+          f"{row['measured_ms']:.1f} ms, measured / predicted "
+          f"{row['measured_over_predicted']:.1f}, MFU {row['mfu']:.4f} of "
+          f"989 TFLOP/s; the runner's row at its evaluation (mean of the "
+          f"watchdog's EMA over steps {OBS_ON[0]}-{OBS_EVAL_EVERY - 1}, "
+          f"mean n_recycle): {json.dumps(row['runner_row'])}", flush=True)
+    over = obs_mix(runner)
+    return dict(row, overhead=over, profiled=seen)
+
+
+def obs_mix(runner) -> dict:
+    """Steps OBS_MIX of the graphed runner, one ``run`` call each: at the
+    1st, 3rd, ... step of each draw with the registry's file sinks and
+    the runner's tracer, at the 2nd, 4th, ... without them.  A step's wall
+    runs from its start (the watchdog's clock) to the end of its
+    ``obs.tick``, so it holds the span, the rows the sinks write and the
+    tick.  Prints each draw's walls with and without, their medians'
+    ratio, and the spread; returns them."""
+    obs, tracer = runner.obs, runner.tracer
+    sinks = list(obs.sinks)
+    walls = {}
+    tick = obs.tick
+
+    def timed_tick(step=None):
+        out = tick(step=step)
+        walls[step] = time.perf_counter() - runner.watchdog._t0
+        return out
+    obs.tick = timed_tick
+    seen = collections.Counter()
+    by_draw = collections.defaultdict(lambda: ([], []))
+    t0 = time.perf_counter()
+    try:
+        for st in range(*OBS_MIX):
+            nr = runner.recycle_draw(st)
+            on = seen[nr] % 2 == 0
+            seen[nr] += 1
+            obs.sinks = sinks if on else []
+            runner.tracer = tracer if on else None
+            runner.run(st + 1)
+            walls.pop(st + 1, None)     # run's closing tick, not a step's
+            by_draw[nr][0 if on else 1].append(st)
+    finally:
+        obs.sinks, runner.tracer = sinks, tracer
+        del obs.tick
+    t_mix = time.perf_counter() - t0
+    over = {}
+    for nr, (on, off) in sorted(by_draw.items()):
+        if on and off:
+            w_on = [walls[st] for st in on]
+            w_off = [walls[st] for st in off]
+            over[nr] = {"with": [round(w, 4) for w in w_on],
+                        "without": [round(w, 4) for w in w_off],
+                        "median_ratio": float(np.median(w_on)
+                                              / np.median(w_off)),
+                        "spread_with": round(max(w_on) - min(w_on), 4),
+                        "spread_without": round(max(w_off) - min(w_off), 4)}
+    print(f"[obs overhead] steps {OBS_MIX[0]}-{OBS_MIX[1] - 1}, graphed, one "
+          f"run call each, with the file sinks and tracer at every other "
+          f"step of a draw and without them at the rest; step walls (step "
+          f"start to the end of its tick) by draw: {json.dumps(over)}; "
+          f"{t_mix:.1f} s (the reference's budget: 2%; printed, not gated)",
+          flush=True)
+    return over
 
 
 # ---------------------------------------------------------------------------
@@ -1679,18 +2017,21 @@ def dap_totals(att_tots, tri_rows) -> dict:
     return {k: {"ms": ms, "bound_ms": b} for k, (ms, b) in out.items()}
 
 
-# plans of the parallel phase: name, ParallelPlan fields, ranks (of four),
-# (n_evoformer, n_extra_msa_blocks) or None for af2_initial's full depth.
+# plans of the parallel phase: name, ParallelPlan fields, ranks (of four).
 # BP 2 on ranks 0-1 and DAP 2 on ranks 2-3 run at the same time on the card
 # (each plan's walls include the other's load), then the hybrid on all four
-PAR_PLANS = (("bp2", {"branch": 2}, (0, 1), None),
-             ("dap2", {"dap": 2}, (2, 3), None),
-             ("bp2_dap2", {"branch": 2, "dap": 2}, (0, 1, 2, 3), (16, 4)))
+PAR_PLANS = (("bp2", {"branch": 2}, (0, 1)),
+             ("dap2", {"dap": 2}, (2, 3)),
+             ("bp2_dap2", {"branch": 2, "dap": 2}, (0, 1, 2, 3)))
+# (n_evoformer, n_extra_msa_blocks) of every plan, at af2_initial's widths:
+# a plan shards each block alike, so more depth adds time and no path
+PAR_DEPTH = (16, 4)
 PAR_STEPS = 2
 # plain SGD, no clip: the update is the learning rate times the gradient,
 # so a gradient off by a factor (the group size, the data extent) moves
-# the parameters by that factor.  af2_initial's gradient norm at the seeded
-# start is ~4.5e2 (this phase's one-device run), so an update of ~0.2 in L2
+# the parameters by that factor.  The gradient norm at the seeded start is
+# ~1.6e2 at 16 + 4 blocks (this phase's one-device run), so an update of
+# ~0.08 in L2
 PAR_LR = 5e-4
 # a plan's step may differ from the one-device step by the order of its
 # sums (partial gradients summed across ranks, shards' reductions): the
@@ -1699,25 +2040,24 @@ PAR_LR = 5e-4
 PAR_LOSS_RTOL, PAR_UPDATE_RTOL = 2e-3, 5e-2
 
 
-def par_cfg(cfg, depth):
-    if depth is None:
-        return cfg
-    return dataclasses.replace(cfg, n_evoformer=depth[0],
-                               n_extra_msa_blocks=depth[1])
+def par_cfg(cfg):
+    return dataclasses.replace(cfg, n_evoformer=PAR_DEPTH[0],
+                               n_extra_msa_blocks=PAR_DEPTH[1])
 
 
 def par_runner(cfg, dev, plan=None, ranks=None):
     """The parallel phase's TrainRunner under ``plan`` over ``ranks`` (None:
     one device): the seeded model, batch 1, one cycle a step, plain SGD at
     PAR_LR with no clip (the update scales with the gradient), dropout on,
-    no EMA, eager."""
+    no EMA, eager; its step walls are the spans of its SpanTracer."""
+    from repro_torch.obs import SpanTracer
     from repro_torch.train.optim import sgd
     from repro_torch.train.trainer import TrainRunner
     return TrainRunner(cfg, plan, ranks=ranks, optimizer=sgd(PAR_LR),
                        batch_size=1, seed=TRAIN_SEED, recycle_sample=False,
                        n_recycle=1, ema_decay=None, deterministic=False,
                        device=dev, model=seeded_model(cfg, seed=0).to(dev),
-                       graphs=False)
+                       graphs=False, tracer=SpanTracer())
 
 
 def par_run(runner) -> list:
@@ -1794,7 +2134,8 @@ def par_time_collectives(built, cfg, dev, n_params: int) -> dict:
 
 
 def par_rank(rank, world, dev, cfg, serial_dir, plans):
-    """One rank of the parallel phase: every plan of ``plans`` (its mesh
+    """One rank of the parallel phase at ``cfg`` (``par_cfg``'s depth):
+    every plan of ``plans`` (its mesh
     built by all four ranks; a plan runs on its ranks while the others
     wait at the next mesh), PAR_STEPS steps with the launch counters and
     collective counts set to 0 just before and read just after; then the
@@ -1806,12 +2147,11 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
     torch.backends.cuda.matmul.allow_tf32 = False
     cuda = dev.type == "cuda"
     out = {}
-    for name, kw, ranks_of, depth in plans:
-        pcfg = par_cfg(cfg, depth)
+    for name, kw, ranks_of in plans:
         if rank not in ranks_of:    # the plan's mesh: built by every rank
-            ParallelPlan(**kw).build(list(ranks_of), cfg=pcfg, device=dev)
+            ParallelPlan(**kw).build(list(ranks_of), cfg=cfg, device=dev)
             continue
-        runner = par_runner(pcfg, dev, ParallelPlan(**kw), list(ranks_of))
+        runner = par_runner(cfg, dev, ParallelPlan(**kw), list(ranks_of))
         built = runner.built
         init = {k: p.detach().clone() for k, p in runner.model.named_parameters()}
         _sync(dev)
@@ -1822,7 +2162,7 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
         grad_norms = par_run(runner)
         _sync(dev)
         counts, colls = ops.launch_counts(), coll.counts()
-        serial = torch.load(f"{serial_dir}/{name}.pt", map_location=dev)
+        serial = torch.load(f"{serial_dir}/serial.pt", map_location=dev)
         d_max = max((p - serial[k]).abs().max().item()
                     for k, p in runner.model.named_parameters())
         num = sum((p.float() - serial[k].float()).square().sum()
@@ -1836,15 +2176,15 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
         out[name] = {"rank": rank, "coord": coord, "role": role,
                      "losses": runner.history["loss"],
                      "grad_norms": grad_norms,
-                     "step_s": runner.history["step_s"],
-                     "launches": counts, "want": par_launches(pcfg, role),
+                     "step_s": step_walls(runner.tracer),
+                     "launches": counts, "want": par_launches(cfg, role),
                      "collectives": colls, "max_param_diff": d_max,
                      "update_rel_diff": num / den,
                      "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                                   if cuda else 0.0)}
         # every rank of the plan takes part in each timed collective
         out[name]["collective_s"] = par_time_collectives(
-            built, pcfg, dev, sum(t.numel() for t in init.values()))
+            built, cfg, dev, sum(t.numel() for t in init.values()))
         del runner, init, serial
         if cuda:
             torch.cuda.empty_cache()
@@ -1852,47 +2192,38 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
 
 
 def parallel_phase(cfg, dev):
-    """Phase 9c.  The one-device runs first, in this process (their
-    parameters saved for the ranks), then four rank processes on this card
-    over gloo (the backend of ranks sharing a card), each plan's steps
-    held to the one-device steps' losses and parameters."""
+    """Phase 9c at ``par_cfg(cfg)``.  The one-device run first, in this
+    process (its parameters saved for the ranks), then four rank processes
+    on this card over gloo (the backend of ranks sharing a card), each
+    plan's steps held to the one-device steps' losses and parameters."""
     from repro_torch.parallel import ranks as ranks_lib
-    serial = {}
+    pcfg = par_cfg(cfg)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, _, _, depth in PAR_PLANS:
-            pcfg = par_cfg(cfg, depth)
-            key = depth or (pcfg.n_evoformer, pcfg.n_extra_msa_blocks)
-            if key not in serial:
-                runner = par_runner(pcfg, dev)
-                grad_norms = par_run(runner)
-                serial[key] = (runner.history["loss"],
-                               runner.history["step_s"],
-                               {k: p.detach().cpu() for k, p in
-                                runner.model.named_parameters()},
-                               grad_norms)
-                del runner
-                if dev.type == "cuda":
-                    torch.cuda.empty_cache()
-            torch.save(serial[key][2], f"{tmp}/{name}.pt")
-            print(f"[parallel serial] {name}: af2_initial "
-                  f"{pcfg.n_evoformer}+{pcfg.n_extra_msa_blocks} blocks, one "
-                  f"device, losses {serial[key][0]}, gradient norms "
-                  f"{serial[key][3]}, step walls "
-                  f"{[round(x, 3) for x in serial[key][1]]} s", flush=True)
+        runner = par_runner(pcfg, dev)
+        want_norms = par_run(runner)
+        want_losses = runner.history["loss"]
+        torch.save({k: p.detach().cpu()
+                    for k, p in runner.model.named_parameters()},
+                   f"{tmp}/serial.pt")
+        print(f"[parallel serial] af2_initial {pcfg.n_evoformer}+"
+              f"{pcfg.n_extra_msa_blocks} blocks, one device, losses "
+              f"{want_losses}, gradient norms {want_norms}, step walls "
+              f"{[round(x, 3) for x in step_walls(runner.tracer)]} s",
+              flush=True)
+        del runner
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
         print(f"[parallel] {ranks_lib.describe_backend(dev.type, 'gloo', 4)}",
               flush=True)
         t0 = time.perf_counter()
-        res = ranks_lib.spawn(par_rank, 4, cfg, tmp, PAR_PLANS,
+        res = ranks_lib.spawn(par_rank, 4, pcfg, tmp, PAR_PLANS,
                               device_type=dev.type, backend="gloo",
                               timeout_s=900)
         wall = time.perf_counter() - t0
     print(f"[parallel] four rank processes on {dev.type} over gloo: "
           f"{wall:.1f} s with their start-up", flush=True)
     summary = {}
-    for name, kw, ranks_of, depth in PAR_PLANS:
-        pcfg = par_cfg(cfg, depth)
-        want_losses, _, _, want_norms = serial[
-            depth or (pcfg.n_evoformer, pcfg.n_extra_msa_blocks)]
+    for name, _, ranks_of in PAR_PLANS:
         rows = [res[r][name] for r in ranks_of]
         for row in rows:
             print(f"[parallel {name}] rank {row['rank']} mesh coordinate "
@@ -1997,9 +2328,12 @@ def check_pipeline_on_card(cfg, dev):
 
 def resume_runner(cfg, dev, ckpt_dir, model_seed: int):
     """A graphed TrainRunner on the FASTA records, one draw (n_recycle 1,
-    one capture), checkpoints every RESUME_AT steps, the newest 2 kept."""
+    one capture), checkpoints every RESUME_AT steps, the newest 2 kept,
+    with a SpanTracer."""
+    from repro_torch.obs import SpanTracer
     from repro_torch.train.trainer import TrainRunner
     return TrainRunner(cfg, batch_size=1, seed=TRAIN_SEED, device=dev,
+                       tracer=SpanTracer(),
                        model=seeded_model(cfg, seed=model_seed).to(dev),
                        graphs=True, recycle_sample=False, n_recycle=1,
                        data_source=fasta_source(cfg), bucket_by_length=True,
@@ -2061,7 +2395,7 @@ def check_resume(cfg, dev, bound: float) -> dict:
         a_losses = a.history["loss"][RESUME_AT:]
         out["bytes"] = ck.checkpoint_bytes(d, RESUME_AT)
         out["a_data"] = a.history["data"][-1]
-        out["a_step_s"] = a.history["step_s"]
+        out["a_step_s"] = step_walls(a.tracer)
 
         b = resume_runner(cfg, dev, d, model_seed=1)
         if b.restore(step=RESUME_AT) != RESUME_AT or b.train_compiles != 0:
@@ -2069,7 +2403,7 @@ def check_resume(cfg, dev, bound: float) -> dict:
         run_counted(b, RESUME_STEPS, RESUME_STEPS - RESUME_AT, "run B")
         out["b"] = state_diff(a_losses, b.history["loss"], final,
                               train_state(b))
-        out["b_step_s"] = b.history["step_s"]
+        out["b_step_s"] = step_walls(b.tracer)
 
         ptrs = {k: t.data_ptr() for k, t in train_state(a).items()}
         if a.restore(step=RESUME_AT) != RESUME_AT or a.train_compiles != 1:
@@ -2083,7 +2417,7 @@ def check_resume(cfg, dev, bound: float) -> dict:
                                  f"{a.train_compiles}")
         out["c"] = state_diff(a_losses, a.history["loss"][RESUME_STEPS:],
                               final, train_state(a))
-        out["c_step_s"] = a.history["step_s"][RESUME_STEPS:]
+        out["c_step_s"] = step_walls(a.tracer)[RESUME_STEPS:]
         out["stats"] = {"A": a.mgr.stats, "B": b.mgr.stats}
         del a, b, final
     torch.cuda.empty_cache()
@@ -2099,13 +2433,15 @@ def check_remat_dots(cfg, dev, bound: float) -> dict:
     at remat="dots" from the same seeded model: losses, parameters,
     moments and EMA within ``bound``; peak allocated memory (the capture's
     eager run included) and step walls of each."""
+    from repro_torch.obs import SpanTracer
     from repro_torch.train.trainer import TrainRunner
     runs = {}
     for remat in ("block", "dots"):
         c = dataclasses.replace(cfg, remat=remat)
         runner = TrainRunner(c, batch_size=1, seed=TRAIN_SEED, device=dev,
                              model=seeded_model(c, seed=0).to(dev),
-                             graphs=True, recycle_sample=False, n_recycle=1)
+                             graphs=True, recycle_sample=False, n_recycle=1,
+                             tracer=SpanTracer())
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         run_counted(runner, 2, 2, f"remat={remat}")
@@ -2114,7 +2450,7 @@ def check_remat_dots(cfg, dev, bound: float) -> dict:
             "state": {k: t.clone() for k, t in train_state(runner).items()},
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30,
-            "step_s": list(runner.history["step_s"])}
+            "step_s": step_walls(runner.tracer)}
         del runner
         torch.cuda.empty_cache()
     diff = state_diff(runs["block"]["losses"], runs["dots"]["losses"],
@@ -2420,6 +2756,32 @@ def lm_report(tag, cfg, engine, done, wall, peak_gib, reserved_gib, warm_s,
           flush=True)
 
 
+def lm_flop_shares(tag, cfg, engine) -> dict:
+    """Model-FLOP shares of the H100's bf16 peak (``model_flops``, 2 x the
+    active parameters a token) of the run's prefills, by prompt length
+    (median prefill seconds), and of its decode steps (each step's tokens
+    over its seconds; the median)."""
+    from repro_torch.analysis.roofline import active_params, model_flops
+    st = engine.last_stats
+    secs = collections.defaultdict(list)
+    for p in st["prefill"]:
+        secs[p["prompt_len"]].append(p["seconds"])
+    prefill = {}
+    for n, ss in sorted(secs.items()):
+        f, t = model_flops(cfg, "prefill", n, 1), float(np.median(ss))
+        prefill[n] = {"model_flops": f, "median_s": round(t, 5),
+                      "share": round(f / t / PEAK_BF16_FLOPS, 4)}
+    dec = [model_flops(cfg, "decode", 1, k) / t / PEAK_BF16_FLOPS
+           for k, t in zip(st["decode_tokens"], st["decode_step_s"])]
+    row = {"active_params": active_params(cfg), "prefill": prefill,
+           "decode_share_median": round(float(np.median(dec)), 5),
+           "decode_share_range": [round(min(dec), 5), round(max(dec), 5)]}
+    print(f"[lm model flops {tag}] {LM_ARCH}, 2 x {row['active_params']:.4g} "
+          f"active parameters a token, shares of {PEAK_BF16_FLOPS:.4g} "
+          f"FLOP/s: {json.dumps(row)}", flush=True)
+    return row
+
+
 def profile_lm(cfg, engine):
     """One prefill at S 2048 (batch 1) and one decode step of the engine's
     4 slots, each plain and under torch.profiler: eagerly through
@@ -2496,8 +2858,11 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
     # phases 5 and 6, graphed: the first run captures each bucket's
-    # sample-cycle, the second replays only
-    reqs, engine = main_path(cfg, dev, graphs=True)
+    # sample-cycle, the second replays only; with a registry and a tracer
+    from repro_torch.obs import MetricRegistry, SpanTracer
+    reqs, engine = main_path(cfg, dev, graphs=True, obs=MetricRegistry(),
+                             tracer=SpanTracer())
+    serve_calls = count_calls(engine)
     for tag in ("graphed, with captures", "graphed"):
         graphed = serve_folds(engine, reqs)
         check_main_path(cfg, reqs, graphed[0], engine, graphed[1])
@@ -2513,11 +2878,13 @@ def main() -> int:
           f"{graphed[2]:.3f} s", flush=True)
     profile_step(engine, reqs, graphed[0], "fold_graphed")
     counts = graphed[1]
+    check_serve_obs(engine, serve_calls, "phases 5-6")
     stamp("phases 5-6")
     # phase 5b: continuous serving on the same graphed engine (its recycle
     # steps replay the sample-cycle graphs phase 5 captured), then
     # long_plan routing over two gloo ranks
     continuous = continuous_phase(cfg, dev, engine, serve_per_cycle(cfg))
+    check_serve_obs(engine, serve_calls, "phase 5b")
     del engine, eager, graphed
     torch.cuda.empty_cache()
     stamp("phase 5b")
@@ -2541,10 +2908,17 @@ def main() -> int:
     stamp("phases 7-8")
     # phase 9: eagerly twice (the second run is the yardstick of how far two
     # eager runs of the same steps agree), then graphed
+    # the graphed runner keeps its telemetry in a registry with file sinks
+    from repro_torch.obs import JsonlSink, MemorySink
+    obs_dir = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    train_mem = MemorySink()
+    train_obs = MetricRegistry(
+        sinks=[train_mem, JsonlSink(f"{obs_dir}/metrics.jsonl")])
     runs = {}
     for tag, use in (("eager", False), ("eager again", False),
                      ("graphed", True)):
-        runs[tag] = train_main_path(cfg, dev, graphs=use)
+        runs[tag] = train_main_path(cfg, dev, graphs=use,
+                                    obs=train_obs if use else None)
         train_report(tag, *runs[tag])
         if tag == "eager again":
             d_eager = train_diff(runs["eager"][0], runs.pop(tag)[0])
@@ -2562,7 +2936,7 @@ def main() -> int:
         raise AssertionError("graphed training strays farther from eager "
                              "than a second eager run does")
     nrs = eager_runner.history["n_recycle"]
-    e_s, g_s = (r.history["step_s"] for r in (eager_runner, graphed_runner))
+    e_s, g_s = (step_walls(r.tracer) for r in (eager_runner, graphed_runner))
     warm = TRAIN_WARMUP
     print(f"[train path] step walls by draw, (n_recycle, eager s, graphed s): "
           f"{[(n, round(a, 3), round(b, 3)) for n, a, b in zip(nrs[warm:], e_s[warm:], g_s[warm:])]}; "
@@ -2601,6 +2975,11 @@ def main() -> int:
           f"{graphed_runner.train_compiles}, eval_compiles "
           f"{graphed_runner.eval_compiles}, compile_misses "
           f"{graphed_runner.compile_misses}", flush=True)
+    try:
+        obs_part(graphed_runner, train_mem, obs_dir, dev)
+    finally:
+        train_obs.close()
+        shutil.rmtree(obs_dir, ignore_errors=True)
     del runs, eager_runner, graphed_runner, runner
     torch.cuda.empty_cache()
 
@@ -2685,6 +3064,7 @@ def main() -> int:
         lm_report(tag, lm_cfg, lm_engine, lm_done, lm_wall, lm_peak,
                   lm_reserved, lm_warm_s, lm_init_s, n_params, lm_errs)
         print(f"[lm path {tag}] launches {lm_counts}", flush=True)
+        lm_flop_shares(tag, lm_cfg, lm_engine)
         served[tag] = lm_done, {rid: lm_rec.logits(rid) for rid in LM_CHECKED}
         lm_rec.restore()
         if not use:
@@ -2700,6 +3080,7 @@ def main() -> int:
           f"|logits diff| of requests {list(LM_CHECKED)} {d_logits:.6g}",
           flush=True)
     profile_lm(lm_cfg, lm_engine)
+    stamp("phase 11's profiles")
 
     def entry(name, source, replaces, tot, err, launches, per):
         by = tot["flops"] / PEAK_BF16_FLOPS >= tot["bytes"] / PEAK_BYTES

@@ -11,9 +11,16 @@ process of its own.  Per checkout: ``TrainRunner`` at af2_initial, batch
 1, seed 1502, eager, from the port's seeded init with N(0, 0.02) added to
 every parameter; 4 warm-up steps, steps 4-8 timed, step 9 under
 torch.profiler.  Prints the card's name and power limit, then one
-``RESULT`` JSON line per checkout: the draws, the wall of each step from
-step 4 on (host clock ending in a synchronize), the losses and the number
-of device events (kernels and copies) of the profiled step.
+``RESULT`` JSON line per checkout: the draws, the raw wall of each step
+from step 4 on, the losses and the number of device events (kernels and
+copies) of the profiled step.
+
+A step's raw wall is its ``step`` span (host clock, ending after the
+step's synchronize) where the checkout has ``repro_torch.obs``; there
+``history["step_s"]`` holds the step watchdog's EMA instead.  A checkout
+without telemetry records the raw wall in ``history["step_s"]`` itself,
+and that is what is read there, so every checkout reports the same
+quantity.
 """
 import json
 import subprocess
@@ -40,6 +47,11 @@ def measure(root: str) -> None:
             p.add_(0.02 * torch.randn(p.shape, generator=g))
     kw = dict(batch_size=1, seed=1502, device="cuda", model=model.cuda())
     try:
+        from repro_torch.obs import SpanTracer
+        kw["tracer"] = tracer = SpanTracer()
+    except ImportError:         # a checkout without telemetry
+        tracer = None
+    try:
         runner = TrainRunner(cfg, graphs=False, **kw)
     except TypeError:           # a checkout whose TrainRunner has no graphs
         runner = TrainRunner(cfg, **kw)
@@ -51,9 +63,11 @@ def measure(root: str) -> None:
         torch.cuda.synchronize()
     events = sum(e.count for e in prof.key_averages()
                  if e.device_type.name == "CUDA")
+    walls = (runner.history["step_s"] if tracer is None
+             else [e["dur"] / 1e6 for e in tracer.spans("step")])
     print("RESULT", json.dumps({
         "root": root, "n_recycle": runner.history["n_recycle"][4:],
-        "step_s": [round(x, 4) for x in runner.history["step_s"][4:]],
+        "step_s": [round(x, 4) for x in walls[4:]],
         "losses": [round(x, 4) for x in runner.history["loss"][4:]],
         "profiled_step_device_events": events}), flush=True)
 

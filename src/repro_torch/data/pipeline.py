@@ -23,6 +23,13 @@ Stages, each accounted in :class:`StageReport`:
    after its copy's event has completed.  With ``device=None`` or the CPU
    the stage does nothing and batches stay numpy.
 
+Telemetry (``obs`` / ``tracer``, as the reference's): ``featurize`` spans
+on the worker threads, a ``device_put`` span around each batch's placement
+(issuing the pinned copy on the copy stream; on the CPU the stage places
+nothing and its span only marks the hand-over), ``input_wait`` around the
+consumer's wait for a batch, and the stage report mirrored into ``data/*``
+gauges at each yield.
+
 Worker exceptions never hang the consumer: a failure is carried to the
 consumer and re-raised from ``__next__`` at its step, after the steps before
 it have been yielded.
@@ -46,6 +53,7 @@ from typing import Callable, Iterator, Optional, Union
 import numpy as np
 
 from repro_torch.data import bucketing as bk
+from repro_torch.obs import trace_span
 
 
 class WorkerFailure:
@@ -280,14 +288,20 @@ class DataPipeline:
     ``device``: a CUDA device turns the device stage on (see the module
     docstring); the yielded batches are then dicts of tensors on it.  None
     or the CPU yields the host batches (numpy).
+
+    ``obs`` (a ``MetricRegistry``) and ``tracer`` (a ``SpanTracer``; None:
+    the process's, if any) turn telemetry on (module docstring).
     """
 
     def __init__(self, cfg, *, source=None, batch_size: int = 1,
                  seed: int = 0, start_step: int = 0, workers: int = 1,
                  prefetch: int = 2, bucket_by_length: bool = False,
                  pad_to: Optional[bk.Bucket] = None, device=None,
-                 make_batch: Optional[Callable] = None):
+                 make_batch: Optional[Callable] = None, obs=None,
+                 tracer=None):
         self.cfg = cfg
+        self.obs = obs
+        self.tracer = tracer
         self.source = source
         self.batch_size = batch_size
         self.seed = seed
@@ -322,6 +336,10 @@ class DataPipeline:
     # -- batch synthesis (pure in (seed, step)) ------------------------------
 
     def _make_batch(self, step: int) -> _HostBatch:
+        with trace_span("featurize", tracer=self.tracer, step=step):
+            return self._make_batch_inner(step)
+
+    def _make_batch_inner(self, step: int) -> _HostBatch:
         t0 = time.perf_counter()
         if self._custom_make_batch is not None:
             batch, fill, bucket = self._custom_make_batch(step), 1.0, None
@@ -353,6 +371,10 @@ class DataPipeline:
     def _place(self, hb: _HostBatch):
         """Issue ``hb``'s host-to-device copy on the copy stream; returns a
         :class:`_Placed`, or the host batch when the stage is off."""
+        with trace_span("device_put", tracer=self.tracer, step=hb.step):
+            return self._place_inner(hb)
+
+    def _place_inner(self, hb: _HostBatch):
         if self.device is None:
             return hb.batch
         import torch
@@ -454,7 +476,8 @@ class DataPipeline:
                 placed = pending[1]
                 pending = None
             else:
-                hb = host_batch(step, block=True)
+                with trace_span("input_wait", tracer=self.tracer, step=step):
+                    hb = host_batch(step, block=True)
                 if isinstance(hb, WorkerFailure):
                     raise RuntimeError(
                         f"DataPipeline worker failed at step {step} "
@@ -479,8 +502,21 @@ class DataPipeline:
             out = self._deliver(placed)
             self.report.steps += 1
             self.report.wall_s = time.perf_counter() - t_loop
+            if self.obs is not None:
+                self._mirror_report()
             yield step, out
             step += 1
+
+    def _mirror_report(self) -> None:
+        """The stage report into ``data/*`` gauges; the consumer's registry
+        tick writes them to the sinks, so the stall report shows mid-run."""
+        r, obs = self.report, self.obs
+        obs.gauge("data/stall_fraction").set(r.stall_fraction)
+        obs.gauge("data/featurize_s").set(r.featurize_s)
+        obs.gauge("data/queue_s").set(r.queue_s)
+        obs.gauge("data/transfer_s").set(r.transfer_s)
+        obs.gauge("data/stall_s").set(r.stall_s)
+        obs.gauge("data/mean_fill").set(r.mean_fill)
 
     def _account(self, hb: _HostBatch) -> None:
         self.report.batches += 1

@@ -19,6 +19,11 @@ hand-written kernels).
       --requests 8 --arrival-rate 4 --deadline-slack 3 --featurize-workers 2
   PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu \
       --arrival-rate 2 --cache-capacity 8 --duplicates 0.3
+  # telemetry of the fold path: serve/* counters, per-call deltas and the
+  # report as JSONL; admit / recycle_step / harvest / fold_step spans as a
+  # Chrome trace (open in ui.perfetto.dev)
+  PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu \
+      --arrival-rate 2 --metrics-out serve.jsonl --trace-out serve_trace.json
 """
 from __future__ import annotations
 
@@ -72,6 +77,14 @@ def main(argv=None):
                          "over before it runs next")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda, which must exist)")
+    ap.add_argument("--metrics-out", default="",
+                    help="--fold: write the metric stream (serve/* "
+                         "counters, per-call deltas, report gauges) as JSONL "
+                         "to this path")
+    ap.add_argument("--trace-out", default="",
+                    help="--fold: write the host spans (admit, "
+                         "recycle_step, harvest, fold_step) as Chrome-trace "
+                         "JSON to this path")
     args = ap.parse_args(argv)
     if bool(args.arch) == bool(args.fold):
         raise SystemExit("pass one of --arch <lm-arch> (decode) and --fold "
@@ -128,18 +141,24 @@ def run_fold(args):
     from repro_torch.core.config import PRESETS
     from repro_torch.core.model import AlphaFold2
     from repro_torch.data.synthetic import make_fold_requests
+    from repro_torch.obs import JsonlSink, MetricRegistry, SpanTracer
     from repro_torch.serve.fold_engine import FoldEngine
 
     cfg = PRESETS[args.fold]()
     model = AlphaFold2(cfg, seed=args.seed, device=args.device)
+    obs = MetricRegistry(
+        sinks=[JsonlSink(args.metrics_out)] if args.metrics_out else [])
+    tracer = SpanTracer(process_name="fold-serve") if args.trace_out else None
     engine = FoldEngine(cfg, model, micro_batch=args.micro_batch,
                         max_recycle=args.max_recycle, tol=args.tol,
-                        device=args.device)
+                        device=args.device, obs=obs, tracer=tracer)
     print(f"fold engine: {args.fold} cfg on {engine.device}, buckets "
           f"{[b.describe() for b in engine.buckets]}")
     reqs = make_fold_requests(cfg, args.requests, args.seed)
     if args.arrival_rate > 0:
-        return run_fold_traffic(args, engine, reqs)
+        done = run_fold_traffic(args, engine, reqs)
+        finish_fold_obs(args, engine)
+        return done
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
@@ -154,7 +173,20 @@ def run_fold(args):
         print(f"  req {rid}: len={r.coords.shape[0]} bucket<= "
               f"{r.bucket.n_res} plddt={r.plddt.mean():.1f} "
               f"recycles={r.n_recycles} converged={r.converged}")
+    finish_fold_obs(args, engine)
     return done
+
+
+def finish_fold_obs(args, engine):
+    """Write the fold engine's metric stream and host trace to disk."""
+    engine.obs.tick()
+    if engine.tracer is not None and args.trace_out:
+        engine.tracer.save(args.trace_out)
+        print(f"trace: {len(engine.tracer.spans())} spans -> "
+              f"{args.trace_out}")
+    engine.obs.close()
+    if args.metrics_out:
+        print(f"metrics: JSONL stream -> {args.metrics_out}")
 
 
 def run_fold_traffic(args, engine, reqs):

@@ -17,9 +17,16 @@ update on the hand-written kernels.
   PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 2 --batch 1 --devices 2 --dap 2
   # or one process per rank started by torchrun (its environment is read)
   torchrun --nproc-per-node 2 -m repro_torch.launch.train --af2 initial --steps 2 --batch 2
+  # telemetry: the metric stream as JSONL, host spans as a Chrome trace
+  # (open in ui.perfetto.dev), torch.profiler over steps [2, 3) into
+  # trace.json.profile/, a console summary every 2 steps
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 4 --batch 1 --device cpu --eval-every 2 --metrics-out metrics.jsonl --trace-out trace.json --profile-steps 2:3 --obs-every 2
 
 ``--devices N`` spawns N rank processes (the reference's fake host
 devices); the backend and the route of every collective kind are printed.
+Under rank processes every rank keeps its own registry, and only the
+writer rank (the one that writes checkpoints) writes the telemetry files
+and prints.
 """
 from __future__ import annotations
 
@@ -95,6 +102,22 @@ def main(argv=None):
     ap.add_argument("--rank-timeout", type=float, default=3600.0,
                     help="seconds a rank process may take, and the timeout "
                          "of every collective")
+    ap.add_argument("--metrics-out", default="",
+                    help="write the metric stream (loss, step_s, data "
+                         "stalls, attribution, checkpoint timings) as JSONL "
+                         "to this path")
+    ap.add_argument("--trace-out", default="",
+                    help="write the host spans (featurize, device_put, "
+                         "input_wait, step, eval, checkpoint) as Chrome-trace "
+                         "JSON to this path; open it in ui.perfetto.dev or "
+                         "chrome://tracing")
+    ap.add_argument("--profile-steps", default="",
+                    help="'A:B': capture steps [A, B) with torch.profiler, "
+                         "aligned to the spans' step ids; the trace goes to "
+                         "<trace-out>.profile/ (or ./torch_profile)")
+    ap.add_argument("--obs-every", type=int, default=0,
+                    help="print a summary of the latest data/, train/ and "
+                         "ckpt/ metrics every N steps (0: off)")
     args = ap.parse_args(argv)
     from repro_torch.device import resolve_device
     from repro_torch.parallel import ranks
@@ -142,6 +165,9 @@ def make_plan(args, cfg, world: int):
 def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     from repro_torch.core.config import PRESETS
     from repro_torch.nn.layers import count_params
+    from repro_torch.obs import (ConsoleSink, JsonlSink, MetricRegistry,
+                                 ProfileWindow, SpanTracer,
+                                 describe_attribution, parse_profile_steps)
     from repro_torch.train.optim import adamw, af2_lr_schedule
     from repro_torch.train.trainer import TrainRunner
 
@@ -162,6 +188,9 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     if args.bucket_by_length and source is None:
         raise SystemExit("--bucket-by-length needs --data-source fasta "
                          "(the synthetic stream is fixed-shape)")
+    profile_steps = (parse_profile_steps(args.profile_steps)
+                     if args.profile_steps else None)
+    obs = MetricRegistry()
     # paper §5.2 / AF2 suppl. 1.11.3: clip each SAMPLE's gradient at 0.1
     opt = adamw(af2_lr_schedule(args.lr, warmup_steps=100),
                 per_sample_clip=0.1)
@@ -173,9 +202,23 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
         ckpt_every=args.ckpt_every, install_sigterm=True,
         deterministic=False, device=device, data_source=source,
         data_workers=args.data_workers,
-        bucket_by_length=args.bucket_by_length,
+        bucket_by_length=args.bucket_by_length, obs=obs,
         on_straggler=lambda s, dt, ema: print_(
             f"  [watchdog] step {s} took {dt:.2f}s (EMA {ema:.2f}s)"))
+    # telemetry files: the writer rank's only, as checkpoints
+    writer = runner.built.is_writer
+    if writer and args.metrics_out:
+        obs.add_sink(JsonlSink(args.metrics_out))
+    if writer and args.obs_every:
+        obs.add_sink(ConsoleSink(every=args.obs_every, log=print_,
+                                 prefixes=("data/", "train/", "ckpt/")))
+    if writer and args.trace_out:
+        runner.tracer = SpanTracer()
+    if writer and profile_steps:
+        runner.profile_window = ProfileWindow(
+            *profile_steps, (f"{args.trace_out}.profile" if args.trace_out
+                             else "torch_profile"),
+            log=print_, device=runner.device)
     print_(f"train: {args.af2} cfg on {runner.device}, params "
            f"{count_params(runner.model):,}, recycle_sample="
            f"{args.recycle_sample} (max {runner.max_recycle}), ema="
@@ -206,6 +249,28 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
                f"({100 * d['stall_fraction']:.1f}% of loop), featurize "
                f"{d['featurize_ms_per_step']}ms, transfer "
                f"{d['transfer_ms_per_step']}ms, fill {d['mean_fill']:.2f}")
+    # the whole run's attribution over history["step_s"], as the reference
+    # attributes it: that is the watchdog's EMA, which the first step (a
+    # capture on the card) seeds, so dropping that entry does not drop the
+    # capture's cost; each step's own wall is its `step` span (--trace-out)
+    step_s = runner.history["step_s"]
+    settled = step_s[1:] or step_s
+    if settled:
+        nrs = runner.history["n_recycle"]
+        attr = runner.attribution(
+            measured_step_s=sum(settled) / len(settled),
+            n_recycle=sum(nrs) / max(len(nrs), 1),
+            stall_fraction=(data[-1]["stall_fraction"] if data else 0.0),
+            wall_s=time.time() - t0, step=runner.step)
+        print_(describe_attribution(attr))
+    if runner.tracer is not None:
+        runner.tracer.save(args.trace_out)
+        print_(f"trace: {len(runner.tracer.spans())} spans -> "
+               f"{args.trace_out}")
+    obs.flush()
+    obs.close()
+    if writer and args.metrics_out:
+        print_(f"metrics: JSONL stream -> {args.metrics_out}")
     return runner
 
 

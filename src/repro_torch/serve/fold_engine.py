@@ -23,6 +23,13 @@ CUDA graph, captured at its first use and shared by both kinds
   others under ``plan``; both are normalised with ``for_inference()``.
   Every cell is validated against its bucket before it is built.
 
+Telemetry as the reference's (``obs``, ``tracer``): ``stats`` and the
+registry's ``serve/*`` counters change together through ``bump`` /
+``bump_bucket``; each ``run`` / ``serve`` records a ``serve/call`` event,
+``serve`` its report (``serve/report`` and the ``serve/report/*`` gauges);
+``run``'s batched steps are ``fold_step`` spans, the scheduler's
+``admit`` / ``recycle_step`` / ``harvest``.
+
 Under a plan of several ranks every rank runs the engine on the same
 requests and must take the same scheduling decisions, or the collectives
 diverge and hang.  The reference is one controller and needs neither of
@@ -47,6 +54,7 @@ from repro_torch import graphs as graphs_lib
 from repro_torch.core.config import with_kernels
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import Policy
+from repro_torch.obs import MetricRegistry, trace_span
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import mesh_utils
 from repro_torch.parallel.plan import BuiltPlan, ParallelPlan, as_plan
@@ -104,13 +112,16 @@ class FoldEngine:
     data-parallel replica folds its rows of each micro-batch (rounded up
     to the data extent) and every rank gets every result.  ``ranks``: the
     global ranks the plans' meshes span (None: the whole world).
+
+    ``obs``: a ``MetricRegistry`` (None: one without sinks); ``tracer``: a
+    ``SpanTracer`` (None: the process's, if any).
     """
 
     def __init__(self, cfg, model, *, buckets=None, plan=None, long_plan=None,
                  long_threshold: Optional[int] = None, ranks=None,
                  micro_batch: int = 2, max_recycle: Optional[int] = None,
                  tol: float = 0.0, dtype=None, device=None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, obs=None, tracer=None):
         self.device = resolve_device(device)
         self.ranks = ranks
         self.plan = as_plan(plan).for_inference()
@@ -145,7 +156,10 @@ class FoldEngine:
         # (bucket, plan) -> the sample-cycle both kinds of a bucket replay
         self._cycles: Dict[tuple, object] = {}
         self.compile_misses = 0                 # step-cache misses
-        # lifetime counters, mutated through bump / bump_bucket only
+        self.obs = obs if obs is not None else MetricRegistry()
+        self.tracer = tracer
+        # lifetime counters, mutated through bump / bump_bucket only, which
+        # keep the registry's serve/* counters in step
         self.stats = {"requests": 0, "steps": 0, "recycles_run": 0,
                       "recycles_budget": 0, "per_bucket": {}}
         # deltas of the most recent run() / serve(): lifetime ratios drift
@@ -158,8 +172,10 @@ class FoldEngine:
     _SCALAR_STATS = ("requests", "steps", "recycles_run", "recycles_budget")
 
     def bump(self, key: str, n: int = 1) -> None:
-        """Add ``n`` to the lifetime counter ``key``."""
+        """Add ``n`` to the lifetime counter ``key`` and its registry twin
+        ``serve/{key}``."""
         self.stats[key] += n
+        self.obs.counter(f"serve/{key}").inc(n)
 
     def bump_bucket(self, bucket: fs.Bucket, *, requests: int = 0,
                     steps: int = 0, seconds: float = 0.0) -> None:
@@ -168,19 +184,28 @@ class FoldEngine:
         pb["requests"] += requests
         pb["steps"] += steps
         pb["seconds"] += seconds
+        tag = bucket.describe()
+        if requests:
+            self.obs.counter("serve/bucket_requests", bucket=tag).inc(requests)
+        if steps:
+            self.obs.counter("serve/bucket_steps", bucket=tag).inc(steps)
+        if seconds:
+            self.obs.histogram("serve/bucket_step_s", bucket=tag).observe(
+                seconds)
 
     def _call_begin(self) -> dict:
         return {k: self.stats[k] for k in self._SCALAR_STATS}
 
     def _call_end(self, kind: str, snap: dict) -> dict:
         """``last_stats``: this call's deltas, its kind ("run" / "serve")
-        and its recycle fraction."""
+        and its recycle fraction, recorded as one ``serve/call`` event."""
         self.last_stats = {k: self.stats[k] - snap[k]
                            for k in self._SCALAR_STATS}
         self.last_stats["call"] = kind
         budget = self.last_stats["recycles_budget"]
         self.last_stats["recycle_fraction"] = (
             self.last_stats["recycles_run"] / budget if budget else 0.0)
+        self.obs.record("serve/call", dict(self.last_stats))
         return self.last_stats
 
     # -- plans and the step cache --------------------------------------------
@@ -310,9 +335,11 @@ class FoldEngine:
         active = np.arange(slots) < len(group)
         step = self.step_for(bucket)
         t0 = time.perf_counter()
-        out = step(self.params, batch, active)
-        out = {k: v.float().cpu().numpy() if v.is_floating_point()
-               else v.cpu().numpy() for k, v in out.items()}
+        with trace_span("fold_step", tracer=self.tracer,
+                        bucket=bucket.describe(), n=len(group)):
+            out = step(self.params, batch, active)
+            out = {k: v.float().cpu().numpy() if v.is_floating_point()
+                   else v.cpu().numpy() for k, v in out.items()}
         dt = time.perf_counter() - t0
 
         self.bump("requests", len(group))
@@ -349,8 +376,9 @@ class FoldEngine:
         seconds a step costs, a {Bucket: s} dict or ``callable(bucket)``
         (None: each step's measured wall, agreed across a plan's ranks).
         ``clock``: a ``VirtualClock`` (None: a fresh one at 0).  The
-        report lands in ``last_report``.  Under a plan of several ranks,
-        ``featurize_workers`` must be 0.
+        report lands in ``last_report``, its scalars in the
+        ``serve/report/*`` gauges and a ``serve/report`` event.  Under a
+        plan of several ranks, ``featurize_workers`` must be 0.
         """
         # deferred: the scheduler imports FoldResult from this module
         from repro_torch.serve.scheduler import ContinuousScheduler
@@ -371,4 +399,11 @@ class FoldEngine:
             sched.featurizer.close()
             self._call_end("serve", snap)
         self.last_report = sched.report
+        for k in ("p50_ms", "p99_ms", "goodput_rps", "deadline_hit_rate"):
+            if isinstance(self.last_report.get(k), (int, float)):
+                self.obs.gauge(f"serve/report/{k}").set(self.last_report[k])
+        self.obs.record("serve/report", {
+            k: v for k, v in self.last_report.items()
+            if isinstance(v, (int, float, str, dict))
+            and k not in ("step_wall_s", "trace")})
         return results

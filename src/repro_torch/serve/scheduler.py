@@ -44,6 +44,10 @@ wall, the virtual cost it advances the clock by, runs from before its
 admissions' host-to-device copies to after its harvested slots'
 device-to-host copies, so it holds every transfer a user waits for, as the
 reference's step holds its batch transfer and output copies.
+
+Spans on the engine's tracer, as the reference's: ``admit`` (bucket),
+``recycle_step`` (bucket, active slots; it closes after the step's host
+copies) and ``harvest`` (bucket).
 """
 from __future__ import annotations
 
@@ -56,6 +60,7 @@ import numpy as np
 import torch
 
 from repro_torch.data.featurize import FeaturizePipeline
+from repro_torch.obs import trace_span
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.fold_engine import FoldResult
 
@@ -268,10 +273,12 @@ class ContinuousScheduler:
         key = _fifo_key if self.policy == "fifo" else _order_key
         lane.waiting.sort(key=lambda it: key(it.request))
         admitted = []
-        while lane.waiting and lane.free_slots:
-            item = lane.waiting.pop(0)
-            lane.admit(item, now)
-            admitted.append(item.request.rid)
+        with trace_span("admit", tracer=self.engine.tracer,
+                        bucket=lane.bucket.describe()):
+            while lane.waiting and lane.free_slots:
+                item = lane.waiting.pop(0)
+                lane.admit(item, now)
+                admitted.append(item.request.rid)
         return admitted
 
     # -- stepping ------------------------------------------------------------
@@ -286,16 +293,20 @@ class ContinuousScheduler:
     def _run_step(self, lane: _Lane, now: float, forced: bool) -> None:
         """Admit into ``lane`` (continuous, or fifo into an idle lane), run
         its recycle step and harvest it; the measured wall runs from the
-        admissions' copies to the harvested outputs' copies."""
+        admissions' copies to the harvested outputs' copies.  The
+        ``recycle_step`` span closes after the step's host copies (its
+        flags and the harvested outputs)."""
         eng = self.engine
         t0 = time.perf_counter()
         if self.policy == "continuous" or lane.n_active == 0:
             admitted = self._admit(lane, now)
         else:
             admitted = []
-        lane.carry, out = lane.step(eng.params, lane.batch, lane.carry)
-        lane.pull_flags()
-        done = self._pull_harvest(lane, out)
+        with trace_span("recycle_step", tracer=eng.tracer,
+                        bucket=lane.bucket.describe(), active=lane.n_active):
+            lane.carry, out = lane.step(eng.params, lane.batch, lane.carry)
+            lane.pull_flags()
+            done = self._pull_harvest(lane, out)
         wall = time.perf_counter() - t0
         if self.step_cost is None:
             wall = eng.agree_wall(wall)
@@ -314,7 +325,9 @@ class ContinuousScheduler:
         lane.skipped = 0
         eng.bump("steps")
         eng.bump_bucket(lane.bucket, steps=1, seconds=wall)
-        self._harvest(lane, done)
+        with trace_span("harvest", tracer=eng.tracer,
+                        bucket=lane.bucket.describe()):
+            self._harvest(lane, done)
 
     def _pull_harvest(self, lane: _Lane, out: dict) -> Dict[int, dict]:
         """{slot: host outputs} of the slots that converged or ran

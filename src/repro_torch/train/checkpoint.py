@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import bridge
 from repro_torch.bridge import Stacked
+from repro_torch.obs import MetricRegistry
 
 
 # ---------------------------------------------------------------------------
@@ -367,19 +368,24 @@ class CheckpointManager:
 
     ``write=False`` (a rank other than the writer of a plan of several
     ranks) makes :meth:`save` a no-op; restores read the writer's files.
-    ``stats`` lists the seconds of each ``snapshot_s`` (on the caller's
-    thread: device to pinned host memory), ``save_s`` (on the worker: npz
-    write, fsync, rename and garbage collection) and ``restore_s``."""
+    ``obs`` (a ``MetricRegistry``; None: one of its own) records the seconds
+    of each snapshot (``ckpt/snapshot_s``, on the caller's thread: device to
+    pinned host memory), save (``ckpt/save_s``, on the worker: npz write,
+    fsync, rename and garbage collection) and restore (``ckpt/restore_s``);
+    ``stats[k]`` is the live series ``obs.series(f"ckpt/{k}")``."""
 
     def __init__(self, directory, *, keep: int = 3, async_save: bool = True,
                  install_sigterm: bool = False,
-                 plan_meta: Optional[dict] = None, write: bool = True):
+                 plan_meta: Optional[dict] = None, write: bool = True,
+                 obs=None):
         self.directory = pathlib.Path(directory)
         self.write = write
         self.keep = keep
         self.async_save = async_save
         self.plan_meta = plan_meta
-        self.stats = {"snapshot_s": [], "save_s": [], "restore_s": []}
+        self.obs = obs if obs is not None else MetricRegistry()
+        self.stats = {k: self.obs.series(f"ckpt/{k}")
+                      for k in ("snapshot_s", "save_s", "restore_s")}
         self._thread: Optional[threading.Thread] = None
         self._last_state = None
         self._lock = threading.Lock()
@@ -402,7 +408,7 @@ class CheckpointManager:
             return
         t0 = time.perf_counter()
         host_tree = snapshot(tree)
-        self.stats["snapshot_s"].append(time.perf_counter() - t0)
+        self.obs.record("ckpt/snapshot_s", time.perf_counter() - t0, step=step)
         self.wait()
         with self._lock:
             self._last_state = (step, host_tree)
@@ -420,7 +426,7 @@ class CheckpointManager:
                        if (m := re.fullmatch(r"step_(\d+)", p.name)))
         for s in steps[:-self.keep]:
             shutil.rmtree(self.directory / f"step_{s:010d}", ignore_errors=True)
-        self.stats["save_s"].append(time.perf_counter() - t0)
+        self.obs.record("ckpt/save_s", time.perf_counter() - t0, step=step)
 
     def wait(self):
         if self._thread is not None and self._thread.is_alive():
@@ -434,7 +440,8 @@ class CheckpointManager:
         out = restore_checkpoint(self.directory, tree_like, step=step,
                                  expect_meta=self.plan_meta,
                                  adapt_plan=adapt_plan)
-        self.stats["restore_s"].append(time.perf_counter() - t0)
+        self.obs.record("ckpt/restore_s", time.perf_counter() - t0,
+                        step=out[1])
         return out
 
     def restore_latest(self, tree_like, *, adapt_plan: bool = False):

@@ -27,8 +27,14 @@ card each batch is copied to the device one step ahead, on a copy stream.
 (``train.checkpoint``): every ``ckpt_every`` steps and at the end of
 ``run``; :meth:`TrainRunner.restore` copies a checkpoint into the live
 tensors, which the captured graphs go on reading.  A ``StepWatchdog``
-flags steps slower than twice its EMA of step walls.  Telemetry (the
-reference's metric registry) is not ported yet.
+flags steps slower than twice its EMA of step walls.
+
+Telemetry as the reference's (``obs``): every metric goes through a
+``MetricRegistry`` (``history`` is six live views of its series), each step
+runs inside a ``step`` span that ends once the card has finished it, as do
+``eval`` and ``checkpoint`` spans, each evaluation records an attribution
+row (measured step against ``predict_step_time``), and a ``ProfileWindow``
+can capture a step range with ``torch.profiler``.
 
 Under a plan (``plan=``, built by every rank together): the plan's
 implementation choices are applied to the config, every rank builds the
@@ -57,6 +63,8 @@ from repro_torch.data.bucketing import train_bucket
 from repro_torch.data.pipeline import DataPipeline
 from repro_torch.data.protein import protein_batch
 from repro_torch.device import resolve_device
+from repro_torch.obs import (MetricRegistry, attribution_report,
+                             describe_attribution, get_tracer, trace_span)
 from repro_torch.parallel.plan import as_plan
 from repro_torch.serve import fold_steps as fs
 from repro_torch.serve.fold_engine import FoldEngine
@@ -94,14 +102,18 @@ class TrainRunner:
     on SIGTERM.  ``on_straggler(step, dt, ema)`` is called for a step the
     watchdog flags.
 
+    Telemetry: ``obs`` (a ``MetricRegistry``; None: one without sinks),
+    ``tracer`` (a ``SpanTracer``; None: the process's, if any) and
+    ``profile_window`` (an ``obs.ProfileWindow``).
+
     ``state`` holds ``params`` (the model), ``opt`` and ``ema``;
-    ``history`` the per-step ``loss``, ``n_recycle`` and ``step_s`` (the raw
-    wall seconds of each step, ending in a synchronize on the card; the
-    reference records its watchdog's EMA there, which here is
-    ``watchdog.ema``), the ``eval`` rows ({"step", "lddt_ca"}) and the
-    ``data`` rows (the pipeline's ``StageReport.as_dict()`` and the step, at
-    each evaluation and at the end of ``run``); ``last_metrics`` the last
-    step's ``trainstep.METRICS`` as floats.
+    ``history[k] is obs.series(f"train/{k}")``: the per-step ``loss``,
+    ``n_recycle`` and ``step_s`` (the watchdog's EMA of step walls, as the
+    reference records; each step's own wall is its ``step`` span), the
+    ``eval`` rows ({"step", "lddt_ca"}), the ``data`` rows (the pipeline's
+    ``StageReport.as_dict()`` and the step, at each evaluation and at the
+    end of ``run``) and the ``attribution`` rows (one at each evaluation);
+    ``last_metrics`` the last step's ``trainstep.METRICS`` as floats.
     """
 
     def __init__(self, cfg, plan=None, *, ranks=None, optimizer=None,
@@ -116,7 +128,8 @@ class TrainRunner:
                  deterministic: bool = False, device=None, model=None,
                  graphs: Optional[bool] = None, dtype=torch.bfloat16,
                  on_straggler=None, data_source=None, data_workers: int = 1,
-                 data_prefetch: int = 2, bucket_by_length: bool = False):
+                 data_prefetch: int = 2, bucket_by_length: bool = False,
+                 obs=None, tracer=None, profile_window=None):
         self.device = resolve_device(device)
         plan = as_plan(plan)
         self.cfg = with_kernels(plan.apply_to(cfg))
@@ -143,6 +156,9 @@ class TrainRunner:
             optim_lib.af2_lr_schedule(1e-3, warmup_steps=100),
             per_sample_clip=0.1)
         self.ema = optim_lib.ema(ema_decay) if ema_decay else None
+        self.obs = obs if obs is not None else MetricRegistry()
+        self.tracer = tracer
+        self.profile_window = profile_window
         self._body = make_step_body(self.cfg, self.optimizer, self.built,
                                     deterministic=deterministic, ema=self.ema,
                                     dtype=dtype)
@@ -158,11 +174,14 @@ class TrainRunner:
         self.mgr = (CheckpointManager(ckpt_dir, keep=keep,
                                       install_sigterm=install_sigterm,
                                       plan_meta=self.built.metadata(),
-                                      write=self.built.is_writer)
+                                      write=self.built.is_writer,
+                                      obs=self.obs)
                     if ckpt_dir else None)
         self.watchdog = StepWatchdog(on_straggler=on_straggler)
-        self.history = {"loss": [], "n_recycle": [], "step_s": [], "eval": [],
-                        "data": []}
+        # live views: history[k] is the registry's series, the same object
+        self.history = {k: self.obs.series(f"train/{k}") for k in
+                        ("loss", "n_recycle", "step_s", "eval", "data",
+                         "attribution")}
         self.last_metrics: dict = {}
 
     @property
@@ -234,56 +253,116 @@ class TrainRunner:
         self.state["opt"] = opt._replace(step=opt.step + 1)
         return metrics
 
+    def attribution(self, *, measured_step_s: float, n_recycle: float,
+                    stall_fraction: float = 0.0, overhead_s: float = 0.0,
+                    wall_s: Optional[float] = None,
+                    step: Optional[int] = None) -> dict:
+        """The roofline-against-measured row of this runner's config and
+        plan (``obs.attribution_report``), recorded in
+        ``history["attribution"]``."""
+        rep = attribution_report(
+            self.cfg, self.plan, global_batch=self.batch_size,
+            n_recycle=n_recycle, measured_step_s=measured_step_s,
+            stall_fraction=stall_fraction, overhead_s=overhead_s,
+            wall_s=wall_s, step=step)
+        self.obs.record("train/attribution", rep, step=step)
+        return rep
+
     def run(self, steps: int, *, log_every: int = 0, log=print) -> dict:
         """Train until global step ``steps`` (continuing from ``self.step``),
         reading batches from :meth:`make_pipeline`, evaluating every
-        ``eval_every`` steps and saving every ``ckpt_every`` steps before
-        ``steps`` and once at the end (then waiting for the write); returns
-        ``history``."""
+        ``eval_every`` steps (with the pipeline's report and an attribution
+        row over the steps since the last one) and saving every
+        ``ckpt_every`` steps before ``steps`` and once at the end (then
+        waiting for the write); returns ``history``."""
         pipeline = self.make_pipeline()
+        tracer = self.tracer if self.tracer is not None else get_tracer()
+        obs = self.obs
+        h_step = obs.histogram("train/step_s")
+        c_steps = obs.counter("train/steps")
+        # the attribution window restarts at each row
+        win_t0 = time.perf_counter()
+        win_i0 = len(self.history["step_s"])
+        win_overhead = 0.0
         try:
             for step, batch in pipeline:
                 if step >= steps:
                     break
+                if self.profile_window is not None:
+                    self.profile_window.maybe_start(step)
                 nr = self.recycle_draw(step)
                 self.watchdog.start_step()
-                t0 = time.perf_counter()
-                metrics = self._train_step(step, batch, nr)
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                dt = time.perf_counter() - t0
+                with trace_span("step", tracer=tracer, step=step,
+                                n_recycle=nr):
+                    metrics = self._train_step(step, batch, nr)
+                    if self.device.type == "cuda":
+                        # the span ends when the card has finished the step
+                        torch.cuda.synchronize(self.device)
                 self.watchdog.end_step(step)
+                dt = self.watchdog.ema or 0.0
                 self.last_metrics = metrics
-                self.history["loss"].append(metrics["loss"])
-                self.history["n_recycle"].append(nr)
-                self.history["step_s"].append(dt)
+                obs.record("train/loss", metrics["loss"], step=step)
+                obs.record("train/n_recycle", nr, step=step)
+                obs.record("train/step_s", dt, step=step)
+                h_step.observe(dt)
+                c_steps.inc()
                 self.step = step + 1
                 if log_every and step % log_every == 0:
                     log(f"step {step:5d}  loss {metrics['loss']:.4f}  "
                         f"n_recycle {nr}  "
                         f"({self.batch_size / max(dt, 1e-9):.2f} protein/s)")
                 if self.eval_every and self.step % self.eval_every == 0:
-                    ev = self.evaluate()
-                    self.history["eval"].append({"step": self.step,
-                                                 "lddt_ca": ev["lddt_ca"]})
-                    self.history["data"].append(
-                        dict(pipeline.report.as_dict(), step=self.step))
+                    t_ev = time.perf_counter()
+                    with trace_span("eval", tracer=tracer, step=self.step):
+                        ev = self.evaluate()
+                    win_overhead += time.perf_counter() - t_ev
+                    obs.record("train/eval",
+                               {"step": self.step, "lddt_ca": ev["lddt_ca"]},
+                               step=self.step)
+                    obs.record("train/data",
+                               dict(pipeline.report.as_dict(), step=self.step),
+                               step=self.step)
+                    win = self.history["step_s"][win_i0:]
+                    nrs = self.history["n_recycle"][win_i0:]
+                    attr = self.attribution(
+                        measured_step_s=(sum(win) / len(win)) if win else 0.0,
+                        n_recycle=(sum(nrs) / len(nrs)) if nrs else
+                        float(self.n_recycle),
+                        stall_fraction=pipeline.report.stall_fraction,
+                        overhead_s=win_overhead,
+                        wall_s=time.perf_counter() - win_t0, step=self.step)
+                    win_t0 = time.perf_counter()
+                    win_i0 = len(self.history["step_s"])
+                    win_overhead = 0.0
                     if log_every:
                         log(f"  eval @ {self.step}: lDDT-Cα "
                             f"{ev['lddt_ca']:.2f} (ema={self.ema is not None},"
                             f" {self.batch_size / max(dt, 1e-9):.2f}"
                             f" protein/s)")
                         log(f"  {pipeline.report.describe()}")
+                        log(f"  {describe_attribution(attr)}")
                 if (self.mgr and self.step % self.ckpt_every == 0
                         and self.step < steps):
-                    self.save()
+                    t_ck = time.perf_counter()
+                    with trace_span("checkpoint", tracer=tracer,
+                                    step=self.step):
+                        self.save()
+                    win_overhead += time.perf_counter() - t_ck
+                obs.tick(step=step)
+                if self.profile_window is not None:
+                    self.profile_window.maybe_stop(step)
         finally:
-            self.history["data"].append(
-                dict(pipeline.report.as_dict(), step=self.step))
+            obs.record("train/data",
+                       dict(pipeline.report.as_dict(), step=self.step),
+                       step=self.step)
             pipeline.close()
+            if self.profile_window is not None:
+                self.profile_window.close()
         if self.mgr:
-            self.save()
-            self.mgr.wait()
+            with trace_span("checkpoint", tracer=tracer, step=self.step):
+                self.save()
+                self.mgr.wait()
+        obs.tick(step=self.step)
         return self.history
 
     # -- the input pipeline -------------------------------------------------
@@ -300,7 +379,7 @@ class TrainRunner:
             bucket_by_length=self.bucket_by_length,
             pad_to=(train_bucket(self.cfg) if self.data_source is not None
                     else None),
-            device=self.device)
+            device=self.device, obs=self.obs, tracer=self.tracer)
 
     # -- checkpoints --------------------------------------------------------
 

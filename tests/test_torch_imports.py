@@ -58,6 +58,11 @@ SERVING_MODULES = ("repro_torch.serve.fold_engine",
                    "repro_torch.data.featurize", "repro_torch.launch.serve")
 
 
+OBS_MODULES = ("repro_torch.obs", "repro_torch.obs.registry",
+               "repro_torch.obs.sinks", "repro_torch.obs.tracing",
+               "repro_torch.obs.attribution", "repro_torch.analysis.roofline")
+
+
 def test_no_jax_or_reference_imports_in_source():
     files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
@@ -65,6 +70,7 @@ def test_no_jax_or_reference_imports_in_source():
     assert set(LM_MODULES) <= {m for m, _ in _modules()}
     assert set(PARALLEL_MODULES) <= {m for m, _ in _modules()}
     assert set(SERVING_MODULES) <= {m for m, _ in _modules()}
+    assert set(OBS_MODULES) <= {m for m, _ in _modules()}
     bad = []
     for path in files:
         for name in _imported_names(path):

@@ -9,7 +9,9 @@ runs one more cycle when active and converges once it has run the cycle
 count its request carries in ``target_feat``, so no model is compiled.
 With injected step costs every schedule is deterministic, and the two
 schedulers must take the same one: equal traces, reports and per-request
-stage ledgers.  Host walls (featurize seconds, measured step walls) are
+stage ledgers, equal ``serve/*`` counters (each stand-in counts through its
+package's ``FoldEngine.bump`` / ``bump_bucket``) and equal sequences of
+``admit`` / ``recycle_step`` / ``harvest`` spans.  Host walls (featurize seconds, measured step walls) are
 not deterministic and are compared by count only.
 """
 import dataclasses
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro import obs as jax_obs
 from repro.data.featurize import FeaturizePipeline as JaxFeaturizePipeline
 from repro.data.featurize import feature_digest as jax_feature_digest
 from repro.parallel.plan import ParallelPlan as JaxParallelPlan
@@ -30,6 +33,7 @@ from repro.serve.result_cache import ResultCache as JaxResultCache
 from repro.serve.scheduler import ContinuousScheduler as JaxScheduler
 from repro.serve.scheduler import VirtualClock as JaxClock
 
+from repro_torch import obs as port_obs
 from repro_torch.data.featurize import FeaturizePipeline, feature_digest
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.serve import fold_steps as fs
@@ -91,15 +95,20 @@ def _port_step(batch, carry):
 
 
 class _StandInEngine:
-    """What a scheduler reads of its FoldEngine, over the stand-in step."""
+    """What a scheduler reads of its FoldEngine, over the stand-in step;
+    its stats and ``serve/*`` counters change through ``engine_cls``'s own
+    ``bump`` / ``bump_bucket``, its spans go to a tracer of ``obs_lib``."""
 
-    def __init__(self, bucket_cls, step, slots=2):
+    def __init__(self, bucket_cls, step, engine_cls=FoldEngine,
+                 obs_lib=port_obs, slots=2):
         self.buckets = sorted(bucket_cls(*b) for b in BUCKETS)
         self.costs = dict(zip(self.buckets, COSTS))
         self._step, self._slots = step, slots
+        self._engine_cls = engine_cls
         self.max_recycle = MAX_RECYCLE
         self.params = None
-        self.tracer = None
+        self.obs = obs_lib.MetricRegistry()
+        self.tracer = obs_lib.SpanTracer()
         self.device, self.dtype = torch.device("cpu"), torch.float32
         self.stats = {"requests": 0, "steps": 0, "recycles_run": 0,
                       "recycles_budget": 0, "per_bucket": {}}
@@ -116,14 +125,10 @@ class _StandInEngine:
         return lambda params, batch, carry: self._step(batch, carry)
 
     def bump(self, key, n=1):
-        self.stats[key] += n
+        self._engine_cls.bump(self, key, n)
 
-    def bump_bucket(self, bucket, *, requests=0, steps=0, seconds=0.0):
-        pb = self.stats["per_bucket"].setdefault(
-            bucket, {"requests": 0, "steps": 0, "seconds": 0.0})
-        pb["requests"] += requests
-        pb["steps"] += steps
-        pb["seconds"] += seconds
+    def bump_bucket(self, bucket, **kw):
+        self._engine_cls.bump_bucket(self, bucket, **kw)
 
     def agree_wall(self, wall):
         return wall
@@ -177,6 +182,18 @@ def _key(b):
     return (b.n_res, b.n_seq, b.n_extra_seq)
 
 
+def _serve_obs(engine):
+    """The ``serve/*`` counters, the step-wall histograms' counts (their
+    sums are host walls) and the (span name, bucket) sequence."""
+    snap = engine.obs.snapshot()
+    counters = {k: v for k, v in snap.items() if k.startswith("serve/")
+                and not k.startswith("serve/bucket_step_s")}
+    hist = {k: v["count"] for k, v in snap.items()
+            if k.startswith("serve/bucket_step_s")}
+    spans = [(e["name"], e["args"]["bucket"]) for e in engine.tracer.spans()]
+    return counters, hist, spans
+
+
 RESULT_FIELDS = ("finish_s", "latency_s", "queue_s", "service_s",
                  "cache_hit", "n_recycles", "converged")
 
@@ -184,12 +201,17 @@ RESULT_FIELDS = ("finish_s", "latency_s", "queue_s", "service_s",
 @pytest.mark.parametrize("policy", ["continuous", "fifo"])
 @pytest.mark.parametrize("name", sorted(SCENARIOS))
 def test_schedule_matches_reference(name, policy):
-    want, wrep = _serve(JaxScheduler, JaxClock, JaxResultCache,
-                        _StandInEngine(jfs.Bucket, _ref_step),
+    jeng = _StandInEngine(jfs.Bucket, _ref_step, JaxFoldEngine, jax_obs)
+    peng = _StandInEngine(fs.Bucket, _port_step)
+    want, wrep = _serve(JaxScheduler, JaxClock, JaxResultCache, jeng,
                         _requests(JaxFoldRequest, name), name, policy)
-    got, grep_ = _serve(ContinuousScheduler, VirtualClock, ResultCache,
-                        _StandInEngine(fs.Bucket, _port_step),
+    got, grep_ = _serve(ContinuousScheduler, VirtualClock, ResultCache, peng,
                         _requests(FoldRequest, name), name, policy)
+    # telemetry: the same counters and the same spans, in the same order
+    (pc, ph, ps), (jc, jh, js) = _serve_obs(peng), _serve_obs(jeng)
+    assert pc == jc and ph == jh and ps == js
+    assert pc["serve/steps"] == {"value": wrep["steps"]}
+    assert sum(n == "recycle_step" for n, _ in ps) == wrep["steps"]
     assert sorted(got) == sorted(want) == list(range(len(want)))
     for rid in want:
         for f in RESULT_FIELDS:
