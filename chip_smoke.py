@@ -138,6 +138,21 @@ Phases, each raising on failure (exit code != 0, no result line):
      bf16 peak of each prefill length and decode step (model_flops); then
      one prefill (S 2048) and one decode step under torch.profiler, eager
      and as graph replays.
+ 12. static analysis (``repro_torch.analysis``): (a) ``python -m
+     repro_torch.analysis.lint`` on the card (four gloo ranks sharing it)
+     must exit 0 with "lint: OK", 8 programs, 40 pass runs, 0 skipped and
+     0 unwaived; prints each program's peak_op_elems, findings and async
+     overlap (overlapped pairs of pairs).  (b) fold:serial captured on the
+     card and on the CPU: the same peak_op_elems (61440, the reference's)
+     and finding codes, the same kernel nodes, and K1 / K3 launched during
+     the card's capture (the launch counters are restored afterwards).
+     (c) ``python -m repro_torch.launch.train --af2 initial --steps 2
+     --batch 1 --lint --hlo-check``: lint/ok 1 in its metric stream, two
+     steps trained, and its one train/async_overlap_ok row skipped for
+     the one reason that one device gives (no async pair; 0 pairs), so a
+     trace that raised, recorded as skipped with the exception as its
+     reason, fails.  The phase's wall is printed beside the card's name
+     and power limit.
 Kernel and library times are medians of 5 timed repeats, each after a
 warm-up call, printed with their min-max spread.  Then one JSON line of
 kernel figures, the nvidia-smi line, and the result line ``{"ok": true,
@@ -2804,6 +2819,142 @@ def profile_lm(cfg, engine):
                 what + ", graph replay")
 
 
+# phase 12: static analysis
+LINT_TIMEOUT_S = 300
+
+
+def _src_env() -> dict:
+    import os
+    return {**os.environ, "PYTHONPATH": str(SRC)}
+
+
+def _run(cmd, cwd, what: str) -> str:
+    """Run a ``python -m`` command of the port in ``cwd``; its stdout, or
+    AssertionError with its tail."""
+    proc = subprocess.run([sys.executable, "-m", *cmd], cwd=cwd,
+                          env=_src_env(), capture_output=True, text=True,
+                          timeout=LINT_TIMEOUT_S)
+    if proc.returncode != 0:
+        raise AssertionError(f"{what} exited {proc.returncode}:\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def lint_matrix_on_card(tmp) -> dict:
+    """12a: the lint CLI over the plan matrix, four gloo ranks on the card.
+    Returns {program: {"peak", "findings", "overlap"}}."""
+    report = pathlib.Path(tmp) / "report.json"
+    out = _run(["repro_torch.analysis.lint", "--report", str(report)], tmp,
+               "the lint CLI")
+    if "lint: OK" not in out:
+        raise AssertionError(f"lint CLI did not print 'lint: OK':\n{out}")
+    data = json.loads(report.read_text())
+    s = data["summary"]
+    got = (s["n_programs"], s["n_pass_runs"], s["n_skipped"], s["n_unwaived"])
+    if got != (8, 40, 0, 0):
+        raise AssertionError(f"lint summary {s}")
+    rows = {}
+    for r in data["results"]:
+        row = rows.setdefault(r["program"], {"findings": 0})
+        row["findings"] += r["n_findings"]
+        if r["pass"] == "materialization":
+            row["peak"] = r["stats"]["peak_op_elems"]
+        if r["pass"] == "retrace":
+            row["overlap"] = r["stats"]["overlap"]
+    for name, row in rows.items():
+        print(f"[lint card] {name}: peak_op_elems {row['peak']}, findings "
+              f"{row['findings']}, overlap {row['overlap']}", flush=True)
+    return rows
+
+
+def lint_fold_card_vs_cpu(dev) -> dict:
+    """12b: fold:serial traced on the card and on the CPU: the same peak and
+    finding codes, the same kernel nodes, K1 and K3 launched during the
+    card's capture.  The launch counters are restored afterwards."""
+    from repro_torch.analysis.static import all_passes, op_walk
+    from repro_torch.analysis.static.program import capture_fold, lint_config
+    from repro_torch.kernels import ops
+    from repro_torch.parallel.plan import ParallelPlan
+    saved = ops.launch_counts()
+    cfg, out = lint_config(), {}
+    try:
+        for where in ("cpu", dev):
+            ops.reset_launch_counts()
+            prog = capture_fold("serial", ParallelPlan(), cfg, device=where)
+            res = [p.run(prog) for p in all_passes()]
+            out[torch.device(where).type] = {
+                "peak": res[0].stats["peak_op_elems"],
+                "codes": sorted(f.code for r in res for f in r.findings),
+                "nodes": op_walk.count_ops(prog.traces["step"],
+                                           ops.KERNELS),
+                "launches": ops.launch_counts()}
+    finally:
+        ops.reset_launch_counts()
+        ops.add_launch_counts(saved)
+    cpu, card = out["cpu"], out["cuda"]
+    if card["peak"] != cpu["peak"] or cpu["peak"]["step"] != 61440:
+        raise AssertionError(f"peak_op_elems card {card['peak']} vs CPU "
+                             f"{cpu['peak']} (the reference's 61440)")
+    if card["codes"] != cpu["codes"] or card["nodes"] != cpu["nodes"]:
+        raise AssertionError(f"card vs CPU: {card} vs {cpu}")
+    if not (card["launches"]["evo_attention_fwd"] > 0
+            and card["launches"]["triangle_mult_fwd"] > 0):
+        raise AssertionError(f"K1 / K3 not launched during the card's "
+                             f"capture: {card['launches']}")
+    print(f"[lint fold] card vs CPU: peak_op_elems {card['peak']}, codes "
+          f"{card['codes']}, kernel nodes {card['nodes']}; launches during "
+          f"the card's capture {card['launches']}", flush=True)
+    return out
+
+
+def lint_launcher(tmp) -> dict:
+    """12c: the train launcher at af2_initial (48 + 4 blocks) with --lint
+    and --hlo-check: lint/ok 1, two steps, the overlap verdict skipped
+    (one device)."""
+    metrics = pathlib.Path(tmp) / "launch.jsonl"
+    out = _run(["repro_torch.launch.train", "--af2", "initial", "--steps",
+                "2", "--batch", "1", "--lint", "--hlo-check",
+                "--metrics-out", str(metrics)], tmp, "the train launcher")
+    rows = [json.loads(ln) for ln in metrics.read_text().splitlines()]
+    lint = {r["name"]: r["value"] for r in rows
+            if r.get("name", "").startswith("lint/")}
+    if lint.get("lint/ok") != 1 or lint.get("lint/unwaived") != 0:
+        raise AssertionError(f"launch lint metrics {lint}")
+    # one device has no async pair, so the verdict is skipped for that
+    # reason alone; a trace that raised is recorded as skipped too, with
+    # the exception as its reason and no pair count, and fails here
+    verdicts = [r["value"] for r in rows
+                if r.get("name") == "train/async_overlap_ok"]
+    want = {"ok": None, "skipped": True, "pairs": 0,
+            "reason": "no async collective start/wait pairs in the step"}
+    if len(verdicts) != 1 or \
+            any(verdicts[0].get(k, "missing") != v for k, v in want.items()):
+        raise AssertionError(f"train/async_overlap_ok rows {verdicts}")
+    overlap = [ln for ln in out.splitlines()
+               if ln.startswith("async_overlap_ok:")]
+    if "done: 2 steps" not in out or len(overlap) != 1:
+        raise AssertionError(f"launcher output:\n{out[-3000:]}")
+    for ln in out.splitlines():
+        if ln.startswith(("lint:", "done:", "async_overlap_ok:")):
+            print(f"[lint launch] {ln}", flush=True)
+    return lint
+
+
+def lint_phase(dev, card: str) -> None:
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lint_") as tmp:
+        lint_matrix_on_card(tmp)
+        t_a = time.perf_counter() - t0
+        lint_fold_card_vs_cpu(dev)
+        t_b = time.perf_counter() - t0 - t_a
+        torch.cuda.empty_cache()
+        lint_launcher(tmp)
+    wall = time.perf_counter() - t0
+    print(f"[lint phase] wall {wall:.1f} s (matrix {t_a:.1f} s, fold card vs "
+          f"CPU {t_b:.1f} s, launcher {wall - t_a - t_b:.1f} s) on {card}",
+          flush=True)
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py: src/repro_torch not found — run it "
@@ -3081,6 +3232,10 @@ def main() -> int:
           flush=True)
     profile_lm(lm_cfg, lm_engine)
     stamp("phase 11's profiles")
+    del lm_engine, lm_weights
+    torch.cuda.empty_cache()
+    lint_phase(dev, card)
+    stamp("phase 12")
 
     def entry(name, source, replaces, tot, err, launches, per):
         by = tot["flops"] / PEAK_BF16_FLOPS >= tot["bytes"] / PEAK_BYTES

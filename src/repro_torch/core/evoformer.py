@@ -30,6 +30,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch import nn
 
+from repro_torch import trace_hooks
 from repro_torch.core.config import EvoformerConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.nn.layers import Dense, LayerNorm, dense, layernorm
@@ -127,9 +128,13 @@ def shared_dropout(x: torch.Tensor, rate: float, *, shared_axis: int,
     (1 - rate) * 2^32.  The
     same rng gives the same mask, on the CPU and on the card, and nothing
     is drawn from torch's generators, so a recompute under
-    ``torch.utils.checkpoint`` repeats the mask by construction."""
+    ``torch.utils.checkpoint`` repeats the mask by construction.  While an
+    op trace records, the draw is a dropout-site node (the key's source and
+    path, and the site) for the RNG audit."""
     if deterministic or rate == 0.0 or rng is None:
         return x
+    if trace_hooks.ACTIVE is not None:
+        trace_hooks.record_dropout(rng)
     shape = list(x.shape)
     shape[shared_axis] = 1
     if isinstance(rng, Key):
@@ -198,14 +203,35 @@ def gated_attention(p: GatedAttention, x: torch.Tensor, *, n_head: int,
     ``bias_input`` (S, S, c_z) is projected to the (h, S, S) bias; ``key_mask``
     (S,) is folded into that bias, so the kernel masks through its bias add.
     """
+    h, q, k, v = attention_qkv(p, x, n_head=n_head, c_hidden=c_hidden)
+    if bias_input is not None:
+        assert bias is None
+        bias = project_attention_bias(p, bias_input)            # (h, S, S)
+    return attend(p, x, h, q, k, v, bias=bias, key_mask=key_mask,
+                  attention_impl=attention_impl)
+
+
+def attention_qkv(p: GatedAttention, x: torch.Tensor, *, n_head: int,
+                  c_hidden: int) -> tuple:
+    """The head of :func:`gated_attention`: (h, q, k, v), the LayerNorm of
+    x (..., L, S, c) and its q/k/v projections (..., L, S, n_head,
+    c_hidden)."""
     h = layernorm(p.ln, x)
     *lead, s, _ = x.shape
     q = dense(p.q, h).reshape(*lead, s, n_head, c_hidden)
     k = dense(p.k, h).reshape(*lead, s, n_head, c_hidden)
     v = dense(p.v, h).reshape(*lead, s, n_head, c_hidden)
-    if bias_input is not None:
-        assert bias is None
-        bias = project_attention_bias(p, bias_input)            # (h, S, S)
+    return h, q, k, v
+
+
+def attend(p: GatedAttention, x: torch.Tensor, h, q, k, v, *,
+           bias: Optional[torch.Tensor] = None,
+           key_mask: Optional[torch.Tensor] = None,
+           attention_impl: str = "evo_pallas") -> torch.Tensor:
+    """The rest of :func:`gated_attention` from :func:`attention_qkv`'s
+    outputs: the gated attention with the (h, S, S) ``bias`` and
+    ``key_mask`` folded into it, and the output projection."""
+    *lead, s, n_head, c_hidden = q.shape
     if key_mask is not None:
         base = 0.0 if bias is None else bias.float()
         bias = (base + mask_bias(key_mask)).expand(n_head, s, s)

@@ -169,28 +169,29 @@ def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
     ``evoformer_block``) takes the serial block's arguments.  A block_fn
     with ``prefetch_init`` (the overlapped DAP schedule) follows the
     prefetch protocol: the stack starts the gather of its input pair rep
-    once (``prefetch_init``), then before each block waits on the pending
-    gather and hands its result to ``block_fn.block(..., prefetch=)``, and
-    after each block but the last starts the gather of the block's output
-    (``prefetch_issue``), which the next block waits on.  Waits and issues
-    stay outside the checkpointed block, so a recompute repeats only the
-    block; a recompute that holds collectives (BP, DAP) reruns all of the
-    block on every rank, so the ranks issue the same collectives in the
-    same order."""
+    once (``prefetch_init``), hands each block the pending gather
+    (``block_fn.block(..., prefetch=)``, which waits on it at its first
+    use, so the block's work before that use runs in the gather's window),
+    and after each block but the last starts the gather of the block's
+    output (``prefetch_issue``), which the next block waits on.  Issues
+    stay outside the checkpointed block; a recompute's wait returns the
+    gathered tensor again without communicating.  A recompute that holds
+    collectives (BP, DAP) reruns all of the block on every rank, so the
+    ranks issue the same collectives in the same order."""
     fn = block_fn or evo.evoformer_block
     prefetch_init = getattr(fn, "prefetch_init", None)
     mask_kw = {} if masks is None else {"masks": masks}
     pending = prefetch_init(msa, z) if prefetch_init is not None else None
     ckpt = remat in ("block", "dots") and torch.is_grad_enabled()
     for i, blk in enumerate(blocks):
-        def one(m, zz, *zf, blk=blk, key=evo.fold_in(rng, i)):
+        def one(m, zz, blk=blk, key=evo.fold_in(rng, i), pending=pending):
             kw = dict(rng=key, deterministic=deterministic, **mask_kw)
-            if zf:
-                mo, zo = fn.block(blk, cfg_block, m, zz, prefetch=zf[0], **kw)
+            if pending is not None:
+                mo, zo = fn.block(blk, cfg_block, m, zz, prefetch=pending,
+                                  **kw)
             else:
                 mo, zo = fn(blk, cfg_block, m, zz, **kw)
             return mo.to(m.dtype), zo.to(zz.dtype)
-        zf = () if pending is None else (pending.wait(),)
         if ckpt:
             # no block draws from torch's generators (dropout hashes its
             # rng), so there is no RNG state to stash and restore; stashing
@@ -198,10 +199,10 @@ def evoformer_stack(blocks: nn.ModuleList, cfg_block, msa, z, *,
             # does not allow
             kw = {"context_fn": _dots_contexts} if remat == "dots" else {}
             with set_checkpoint_early_stop(block_fn is None):
-                msa, z = checkpoint(one, msa, z, *zf, use_reentrant=False,
+                msa, z = checkpoint(one, msa, z, use_reentrant=False,
                                     preserve_rng_state=False, **kw)
         else:
-            msa, z = one(msa, z, *zf)
+            msa, z = one(msa, z)
         if pending is not None and i + 1 < len(blocks):
             pending = fn.prefetch_issue(z)
     return msa, z

@@ -20,6 +20,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import trace_hooks
 from repro_torch.kernels import evo_attention as _ka
 from repro_torch.kernels import flash_attention as _kf
 from repro_torch.kernels import ref
@@ -52,6 +53,15 @@ def add_launch_counts(counts: dict) -> None:
         setattr(mod, attr, getattr(mod, attr) + n)
 
 
+def _k(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``: kernel ``name`` or its plain version; one
+    kernel node while an op trace records kernel nodes."""
+    trace = trace_hooks.ACTIVE
+    if trace is None or not trace.kernel_nodes:
+        return fn(*args, **kwargs)
+    return trace_hooks.kernel_node(name, fn, *args, **kwargs)
+
+
 def _on_cuda(*tensors) -> bool:
     dev = tensors[0].device.type
     if dev == "cpu":
@@ -75,9 +85,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
-        if _on_cuda(q):
-            return _kf.flash_attention_fwd(q, k, v, causal, scale)
-        return ref.flash_attention_ref(q, k, v, causal, scale)
+        fwd = _kf.flash_attention_fwd if _on_cuda(q) else ref.flash_attention_ref
+        return _k("flash_attention_fwd", fwd, q, k, v, causal, scale)
 
     @staticmethod
     def backward(ctx, do):
@@ -95,9 +104,9 @@ def flash_attention(q, k, v, causal: bool = True,
     multiple of KV; ``causal``: query i sees keys 0..i."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, scale)
-    if _on_cuda(q, k, v):
-        return _kf.flash_attention_fwd(q, k, v, causal, scale)
-    return ref.flash_attention_ref(q, k, v, causal, scale)
+    fwd = (_kf.flash_attention_fwd if _on_cuda(q, k, v)
+           else ref.flash_attention_ref)
+    return _k("flash_attention_fwd", fwd, q, k, v, causal, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -112,7 +121,8 @@ class _EvoAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, bias, gate, scale):
         fwd = (_ka.evo_attention_fwd if _on_cuda(q)
                else ref.evo_attention_ref)
-        out, lse = fwd(q, k, v, bias, gate, scale, return_lse=True)
+        out, lse = _k("evo_attention_fwd", fwd, q, k, v, bias, gate, scale,
+                      return_lse=True)
         ctx.save_for_backward(q, k, v, bias, gate, out, lse)
         ctx.scale = scale
         return out
@@ -122,8 +132,9 @@ class _EvoAttention(torch.autograd.Function):
         q, k, v, bias, gate, out, lse = ctx.saved_tensors
         bwd = (_ka.evo_attention_bwd if _on_cuda(q)
                else ref.evo_attention_bwd_ref)
-        dq, dk, dv, dbias, dgate = bwd(q, k, v, bias, gate, out, lse,
-                                       do.contiguous(), ctx.scale)
+        dq, dk, dv, dbias, dgate = _k("evo_attention_bwd", bwd, q, k, v,
+                                      bias, gate, out, lse, do.contiguous(),
+                                      ctx.scale)
         if dbias is not None:
             dbias = dbias.to(bias.dtype)
         return dq, dk, dv, dbias, dgate, None
@@ -134,18 +145,18 @@ def evo_attention(q, k, v, bias, gate, scale: Optional[float] = None):
     bias (H, S, S) shared across the L rows."""
     if _needs_grad(q, k, v, bias, gate):
         return _EvoAttention.apply(q, k, v, bias, gate, scale)
-    if _on_cuda(q, k, v, bias, gate):
-        return _ka.evo_attention_fwd(q, k, v, bias, gate, scale)
-    return ref.evo_attention_ref(q, k, v, bias, gate, scale)
+    fwd = (_ka.evo_attention_fwd if _on_cuda(q, k, v, bias, gate)
+           else ref.evo_attention_ref)
+    return _k("evo_attention_fwd", fwd, q, k, v, bias, gate, scale)
 
 
 def evo_attention_nobias(q, k, v, gate, scale: Optional[float] = None):
     """Gated attention with no pair bias (the bias add is compiled out)."""
     if _needs_grad(q, k, v, gate):
         return _EvoAttention.apply(q, k, v, None, gate, scale)
-    if _on_cuda(q, k, v, gate):
-        return _ka.evo_attention_fwd(q, k, v, None, gate, scale)
-    return ref.evo_attention_ref(q, k, v, None, gate, scale)
+    fwd = (_ka.evo_attention_fwd if _on_cuda(q, k, v, gate)
+           else ref.evo_attention_ref)
+    return _k("evo_attention_fwd", fwd, q, k, v, None, gate, scale)
 
 
 def evo_attention_nogate(q, k, v, bias, scale: Optional[float] = None):
@@ -154,9 +165,9 @@ def evo_attention_nogate(q, k, v, bias, scale: Optional[float] = None):
     bias=...)``.  q/k/v (L, S, H, C), bias (H, S, S)."""
     if _needs_grad(q, k, v, bias):
         return _EvoAttention.apply(q, k, v, bias, None, scale)
-    if _on_cuda(q, k, v, bias):
-        return _ka.evo_attention_fwd(q, k, v, bias, None, scale)
-    return ref.evo_attention_ref(q, k, v, bias, None, scale)
+    fwd = (_ka.evo_attention_fwd if _on_cuda(q, k, v, bias)
+           else ref.evo_attention_ref)
+    return _k("evo_attention_fwd", fwd, q, k, v, bias, None, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -173,7 +184,7 @@ class _TriangleMult(torch.autograd.Function):
                 w_g, b_g):
         args = (xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g)
         fwd = _kt.triangle_mult_fwd if _on_cuda(xa) else ref.triangle_mult_ref
-        y, s = fwd(*args, return_s=True)
+        y, s = _k("triangle_mult_fwd", fwd, *args, return_s=True)
         ctx.save_for_backward(*args, s)
         return y
 
@@ -186,11 +197,13 @@ class _TriangleMult(torch.autograd.Function):
         else:
             epi, bwd_dx = (ref.triangle_mult_bwd_epilogue_ref,
                            ref.triangle_mult_bwd_dx_ref)
-        ds, dxg, dln_s, dln_b, dw_o, db_o, dw_g, db_g = epi(
-            s, xg, dy.contiguous(), ln_s, ln_b, w_o, b_o, w_g, b_g)
-        dxa, dw_a, db_a = bwd_dx(ds, xa, xb, w_a, b_a, w_b, b_b)
-        dxb, dw_b, db_b = bwd_dx(ds.transpose(0, 1), xb, xa, w_b, b_b, w_a,
-                                 b_a)
+        ds, dxg, dln_s, dln_b, dw_o, db_o, dw_g, db_g = _k(
+            "triangle_mult_bwd_epilogue", epi, s, xg, dy.contiguous(), ln_s,
+            ln_b, w_o, b_o, w_g, b_g)
+        dxa, dw_a, db_a = _k("triangle_mult_bwd_dx", bwd_dx, ds, xa, xb, w_a,
+                             b_a, w_b, b_b)
+        dxb, dw_b, db_b = _k("triangle_mult_bwd_dx", bwd_dx,
+                             ds.transpose(0, 1), xb, xa, w_b, b_b, w_a, b_a)
         cast = lambda g, p: g.to(p.dtype)
         return (dxa, dxb, dxg, cast(dw_a, w_a), cast(db_a, b_a),
                 cast(dw_b, w_b), cast(db_b, b_b), cast(dln_s, ln_s),
@@ -205,9 +218,8 @@ def triangle_mult(xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o,
     args = (xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g)
     if _needs_grad(*args):
         return _TriangleMult.apply(*args)
-    if _on_cuda(*args):
-        return _kt.triangle_mult_fwd(*args)
-    return ref.triangle_mult_ref(*args)
+    fwd = _kt.triangle_mult_fwd if _on_cuda(*args) else ref.triangle_mult_ref
+    return _k("triangle_mult_fwd", fwd, *args)
 
 
 def triangle_mult_masked(xa, xb, xg, k_mask, w_a, b_a, w_b, b_b, ln_s, ln_b,
@@ -221,5 +233,7 @@ def triangle_mult_masked(xa, xb, xg, k_mask, w_a, b_a, w_b, b_b, ln_s, ln_b,
         if _needs_grad(*args, k_mask):
             raise RuntimeError("triangle_mult_masked is forward-only (padded-"
                                "bucket serving); call it under torch.no_grad()")
-        return _kt.triangle_mult_fwd(*args, k_mask=k_mask.float())
-    return ref.triangle_mult_ref(*args, k_mask=k_mask)
+        return _k("triangle_mult_fwd", _kt.triangle_mult_fwd, *args,
+                  k_mask=k_mask.float())
+    return _k("triangle_mult_fwd", ref.triangle_mult_ref, *args,
+              k_mask=k_mask)

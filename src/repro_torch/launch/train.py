@@ -21,12 +21,27 @@ update on the hand-written kernels.
   # (open in ui.perfetto.dev), torch.profiler over steps [2, 3) into
   # trace.json.profile/, a console summary every 2 steps
   PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 4 --batch 1 --device cpu --eval-every 2 --metrics-out metrics.jsonl --trace-out trace.json --profile-steps 2:3 --obs-every 2
+  # static analysis first: lint this launch's plan (refuse to train on an
+  # unwaived finding), and record the async-overlap verdict of the step
+  PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu --devices 2 --bp 2 --lint --hlo-check
 
 ``--devices N`` spawns N rank processes (the reference's fake host
 devices); the backend and the route of every collective kind are printed.
 Under rank processes every rank keeps its own registry, and only the
 writer rank (the one that writes checkpoints) writes the telemetry files
 and prints.
+
+``--lint`` runs the pass suite (``analysis.static``) over a real step of
+THIS launch's plan at the lint config (``program.lint_config``, the
+calibrated probe; the launch config's own channel dims may collide with
+its sequence extents) before the first step, as the program
+``train:launch``:
+every rank captures, the findings of all ranks are merged, the ``lint/*``
+metrics are recorded, and the run refuses to train on a finding the
+baseline does not waive.  ``--hlo-check`` (the reference's name) has the
+runner trace its step once before the first and record the async-overlap
+verdict as ``train/async_overlap_ok``.  The reference's
+``--print-tpu-env`` prints TPU XLA flags and has no counterpart.
 """
 from __future__ import annotations
 
@@ -118,6 +133,15 @@ def main(argv=None):
     ap.add_argument("--obs-every", type=int, default=0,
                     help="print a summary of the latest data/, train/ and "
                          "ckpt/ metrics every N steps (0: off)")
+    ap.add_argument("--hlo-check", action="store_true",
+                    help="trace the step once before the first, check that "
+                         "its async collectives overlap compute, and record "
+                         "the verdict as train/async_overlap_ok")
+    ap.add_argument("--lint", action="store_true",
+                    help="run the static-analysis passes over a step of THIS "
+                         "launch's plan (at the lint config) before "
+                         "training, record lint/* metrics, and refuse to "
+                         "train on a finding the baseline does not waive")
     args = ap.parse_args(argv)
     from repro_torch.device import resolve_device
     from repro_torch.parallel import ranks
@@ -162,6 +186,50 @@ def make_plan(args, cfg, world: int):
                                    pod=args.pods, **kw)
 
 
+def lint_launch_plan(plan, variant: str, obs, device, print_) -> dict:
+    """The pre-flight lint: capture a real step of ``plan`` at the lint
+    config as ``train:launch`` (every rank of the world together), run the
+    passes, merge the findings of every rank, record ``lint/pass_runs``,
+    ``lint/skipped``, ``lint/findings``, ``lint/unwaived`` and
+    ``lint/ok``; raises SystemExit on an unwaived finding.  Returns the
+    recorded values."""
+    import torch.distributed as dist
+    from repro_torch.analysis.lint import (DEFAULT_BASELINE, load_baseline,
+                                           merge_ranks, run_passes)
+    from repro_torch.analysis.static.program import capture_train, lint_config
+    waivers = dict(load_baseline(DEFAULT_BASELINE).get("waivers", {}))
+    prog = capture_train("launch", plan, lint_config(variant),
+                         per_sample_clip=0.1, device=device)
+    mine = run_passes([prog])
+    per_rank = [mine]
+    if dist.is_available() and dist.is_initialized():
+        per_rank = [None] * dist.get_world_size()
+        dist.all_gather_object(per_rank, mine)
+    results = merge_ranks(per_rank)
+    findings = [f for r in results for f in r.findings]
+    unwaived = [f for f in findings if f.fingerprint not in waivers]
+    rec = {"lint/pass_runs": len(results),
+           "lint/skipped": sum(1 for r in results if r.skipped),
+           "lint/findings": len(findings), "lint/unwaived": len(unwaived),
+           "lint/ok": int(not unwaived)}
+    for k, v in rec.items():
+        obs.record(k, v, step=0)
+    print_(f"lint: {plan.describe()}: {len(findings)} findings "
+           f"({len(unwaived)} unwaived) across {len(results)} passes"
+           + "".join(f" [{r.pass_name}: skipped — {r.skip_reason}]"
+                     for r in results if r.skipped))
+    for f in unwaived:
+        print_(f"  UNWAIVED [{f.severity}] {f.fingerprint} "
+               f"{f.pass_name}/{f.code}: {f.message}")
+    if unwaived:
+        obs.flush()
+        raise SystemExit(
+            "lint: FAIL — this plan's step violates a pinned invariant; fix "
+            f"it or waive the fingerprint (with a reason) in "
+            f"{DEFAULT_BASELINE.name} before training")
+    return rec
+
+
 def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     from repro_torch.core.config import PRESETS
     from repro_torch.nn.layers import count_params
@@ -203,7 +271,7 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
         deterministic=False, device=device, data_source=source,
         data_workers=args.data_workers,
         bucket_by_length=args.bucket_by_length, obs=obs,
-        on_straggler=lambda s, dt, ema: print_(
+        hlo_check=args.hlo_check, on_straggler=lambda s, dt, ema: print_(
             f"  [watchdog] step {s} took {dt:.2f}s (EMA {ema:.2f}s)"))
     # telemetry files: the writer rank's only, as checkpoints
     writer = runner.built.is_writer
@@ -226,6 +294,8 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     print_(f"plan: {runner.plan.describe()}")
     for kind, route in runner.built.routes().items():
         print_(f"  collective {kind}: {route}")
+    if args.lint:
+        lint_launch_plan(plan, args.variant, obs, runner.device, print_)
     if args.ckpt_dir and args.resume:
         try:
             print_(f"resumed from step "
@@ -263,6 +333,10 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
             stall_fraction=(data[-1]["stall_fraction"] if data else 0.0),
             wall_s=time.time() - t0, step=runner.step)
         print_(describe_attribution(attr))
+    if args.hlo_check:
+        ov = obs.series("train/async_overlap_ok")
+        if ov:
+            print_(f"async_overlap_ok: {ov[-1]}")
     if runner.tracer is not None:
         runner.tracer.save(args.trace_out)
         print_(f"trace: {len(runner.tracer.spans())} spans -> "

@@ -20,7 +20,11 @@ host memory: copied to the host, reduced there, copied back.
 
 ``COUNTS`` counts the collectives issued, by the kind on the wire (the
 backward of a gather counts as a ``reduce_scatter``); a collective over an
-axis of extent 1 is the identity and issues nothing.
+axis of extent 1 is the identity and issues nothing.  While an op trace
+records (``trace_hooks``), each collective is a node of it,
+with its kind, axis name and bytes (``op_walk.collective_axis_counts``
+counts them per (kind, axis)); the async gather of the overlapped DAP
+schedule is a start node and a wait node linked by an id.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Sequence
 import torch
 import torch.distributed as dist
 
+from repro_torch import trace_hooks
 from repro_torch.parallel.mesh_utils import Axis
 
 KINDS = ("psum", "pmax", "all_gather", "all_to_all", "reduce_scatter")
@@ -42,6 +47,16 @@ def reset_counts() -> None:
 
 def counts() -> dict:
     return {k: COUNTS[k] for k in KINDS}
+
+
+def _issued(kind: str, axis: Axis, nbytes: int, event: str = "sync"):
+    """Count one collective of ``kind`` over ``axis`` moving ``nbytes``
+    (its output); returns the trace's pair id of an async ``start``."""
+    COUNTS[kind] += 1
+    if trace_hooks.ACTIVE is not None:
+        return trace_hooks.record_collective(kind, axis.name, nbytes,
+                                             event=event)
+    return None
 
 
 def _staged(x: torch.Tensor, group) -> bool:
@@ -71,7 +86,7 @@ def routes(group, device) -> dict:
 def _all_reduce_(x: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM,
                  kind: str = "psum") -> torch.Tensor:
     """In place over ``axis``; returns ``x`` (contiguous)."""
-    COUNTS[kind] += 1
+    _issued(kind, axis, x.numel() * x.element_size())
     if _staged(x, axis.group):
         h = x.cpu()
         dist.all_reduce(h, op=op, group=axis.group)
@@ -82,22 +97,25 @@ def _all_reduce_(x: torch.Tensor, axis: Axis, op=dist.ReduceOp.SUM,
 
 
 def _gather_list(x: torch.Tensor, axis: Axis, async_op: bool = False):
-    """(parts, work): every rank's ``x`` in axis order; ``work`` is the
-    pending op when ``async_op`` (None otherwise)."""
-    COUNTS["all_gather"] += 1
+    """(parts, work, pair): every rank's ``x`` in axis order; ``work`` is
+    the pending op when ``async_op`` (None otherwise), ``pair`` the trace's
+    id of its start (None with no trace)."""
     src = x.detach().contiguous()
     if _staged(src, axis.group):
         src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(axis.size)]
     work = dist.all_gather(parts, src, group=axis.group, async_op=async_op)
-    return parts, work
+    pair = _issued("all_gather", axis,
+                   axis.size * src.numel() * src.element_size(),
+                   "start" if async_op else "sync")
+    return parts, work, pair
 
 
 def _all_to_all_stacked(inp: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``inp`` (n, ...): chunk j goes to rank j; returns (n, ...) whose chunk
     i came from rank i."""
-    COUNTS["all_to_all"] += 1
     inp = inp.contiguous()
+    _issued("all_to_all", axis, inp.numel() * inp.element_size())
     staged = _staged(inp, axis.group)
     src = inp.cpu() if staged else inp
     out = torch.empty_like(src)
@@ -107,8 +125,8 @@ def _all_to_all_stacked(inp: torch.Tensor, axis: Axis) -> torch.Tensor:
 
 def _reduce_scatter_stacked(inp: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``inp`` (n, ...): the sum over ranks of chunk ``axis.index``."""
-    COUNTS["reduce_scatter"] += 1
     inp = inp.contiguous()
+    _issued("reduce_scatter", axis, inp[0].numel() * inp.element_size())
     if dist.get_backend(axis.group) == "nccl":
         out = torch.empty_like(inp[0])
         dist.reduce_scatter_tensor(out, inp, group=axis.group)
@@ -187,7 +205,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis, dim):
         ctx.axis, ctx.dim = axis, dim
-        parts, _ = _gather_list(x, axis)
+        parts, _, _ = _gather_list(x, axis)
         return torch.cat([p.to(x.device) for p in parts], dim)
 
     @staticmethod
@@ -236,14 +254,20 @@ def all_to_all(x: torch.Tensor, axis: Axis, split_dim: int,
 # ---------------------------------------------------------------------------
 
 class _GatherWait(torch.autograd.Function):
-    """The consume half: waits for the gather started from ``src`` and
-    returns its result; the backward reduce-scatters the cotangent onto
-    ``src``."""
+    """The consume half: waits for the gather started from ``src`` (the
+    first time) and returns its result; the backward reduce-scatters the
+    cotangent onto ``src``."""
 
     @staticmethod
     def forward(ctx, src, pending):
         ctx.axis, ctx.dim = pending.axis, pending.dim
-        pending.work.wait()
+        if pending.work is not None:
+            if trace_hooks.ACTIVE is not None:
+                trace_hooks.record_collective(
+                    "all_gather", pending.axis.name, 0, event="wait",
+                    pair=pending.pair)
+            pending.work.wait()
+            pending.work = None
         return torch.cat([p.to(src.device) for p in pending.parts], pending.dim)
 
     @staticmethod
@@ -255,18 +279,19 @@ class Pending:
     """A tiled all-gather of ``src`` along ``dim`` over ``axis``, started
     asynchronously (``async_op=True``) when made; :meth:`wait` returns the
     gathered tensor, differentiable back to ``src``.  The issue half reads
-    ``src`` without recording anything for autograd."""
+    ``src`` without recording anything for autograd.  Only the first
+    :meth:`wait` waits: a later one (the consuming block's recompute under
+    ``torch.utils.checkpoint``) returns the gathered tensor again with no
+    communication, so the Pending holds the gathered parts until it is
+    dropped."""
 
     def __init__(self, src: torch.Tensor, axis: Axis, dim: int = 0):
         self.src, self.axis, self.dim = src, axis, dim
-        self.parts, self.work = _gather_list(src, axis, async_op=True)
+        self.parts, self.work, self.pair = _gather_list(src, axis,
+                                                        async_op=True)
 
     def wait(self) -> torch.Tensor:
-        if self.work is None:
-            raise RuntimeError("this gather was already waited on")
-        out = _GatherWait.apply(self.src, self)
-        self.work = self.parts = self.src = None
-        return out
+        return _GatherWait.apply(self.src, self)
 
 
 def all_gather_start(x: torch.Tensor, axis: Axis, dim: int = 0) -> Pending:
@@ -320,6 +345,6 @@ def gather_rows(x: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
     with torch.no_grad():
         for a in reversed(axes):
             if a.size > 1:
-                parts, _ = _gather_list(x, a)
+                parts, _, _ = _gather_list(x, a)
                 x = torch.cat([p.to(x.device) for p in parts], 0)
     return x

@@ -28,7 +28,9 @@ that DAP shards or transposes away, so a shard's mask is the serial mask.
 The communication-overlapped schedule (``make_dap_block_fn(overlap=True)``,
 FastFold's duplex idiom): both branches of the 'parallel' variant read the
 block's input pair rep, so block k can start the gather of its output
-(``z_full`` of block k+1) asynchronously, and block k+1 waits on it.
+(``z_full`` of block k+1) asynchronously, and block k+1 waits on it where
+it first needs it: after its row attention's LayerNorm and q/k/v
+projections, which the host issues inside the gather's window.
 Consuming ``z_full`` replaces two gathers at the head of the block
 (row-attention bias, triangle-out operand) by per-position math on the
 gathered rep; the values are the same, as LayerNorm and the projections act
@@ -66,20 +68,24 @@ def dap_msa_branch(p: evo.EvoformerBlock, cfg: EvoformerConfig, msa_l, z_l, *,
                    masks=None, z_full=None):
     """``masks`` (padded-bucket inference): DAP shards query axes only, every
     masked key axis is consumed at full extent, so the full masks apply.
-    ``z_full`` (overlap schedule): the gathered block-input pair rep, from
-    which the row-attention bias is projected with no collective."""
+    ``z_full`` (overlap schedule): a zero-argument callable returning the
+    gathered block-input pair rep, from which the row-attention bias is
+    projected with no collective.  It is called once the row attention's
+    LayerNorm and q/k/v projections are issued, so the host issues them
+    inside the window of the gather it waits for."""
     impl = cfg.attention_impl
     rows_mask = res_mask = None
     if masks is not None:
         rows_mask, res_mask = masks.rows, masks.res
+    h, q, k, v = evo.attention_qkv(p.row_attn, msa_l, n_head=cfg.n_head_msa,
+                                   c_hidden=cfg.c_hidden_att)
     if z_full is not None:
-        bias = evo.project_attention_bias(p.row_attn, z_full)     # (h, r, r)
+        bias = evo.project_attention_bias(p.row_attn, z_full())    # (h, r, r)
     else:
         bias = coll.all_gather(evo.project_attention_bias(p.row_attn, z_l),
                                axis, dim=1)                        # (h, r, r)
-    upd = evo.gated_attention(p.row_attn, msa_l, n_head=cfg.n_head_msa,
-                              c_hidden=cfg.c_hidden_att, bias=bias,
-                              key_mask=res_mask, attention_impl=impl)
+    upd = evo.attend(p.row_attn, msa_l, h, q, k, v, bias=bias,
+                     key_mask=res_mask, attention_impl=impl)
     msa_l = msa_l + evo.shared_dropout(
         upd, cfg.dropout_msa, shared_axis=0, rng=evo.fold_in(rng, 0),
         deterministic=deterministic)
@@ -237,7 +243,8 @@ def dap_evoformer_block_overlap(p: evo.EvoformerBlock, cfg: EvoformerConfig,
                                 deterministic: bool = True, n_seq_total=None,
                                 masks=None):
     """The consume half of the overlapped 'parallel' block: ``z_full`` (the
-    gathered block input, started by the previous block) feeds the
+    gathered block input: a ``collectives.Pending`` started by the previous
+    block, waited on at its first use, or the gathered tensor) feeds the
     row-attention bias and the outgoing triangle operand; returns
     (msa_out, z_out).  Only the 'parallel' variant qualifies: its two
     branches both read the block-input pair rep."""
@@ -248,10 +255,19 @@ def dap_evoformer_block_overlap(p: evo.EvoformerBlock, cfg: EvoformerConfig,
             f"variant={cfg.variant!r} — use overlap_dap=False or "
             "variant='parallel'")
     row_mask = masks.rows if masks is not None else None
-    kw = dict(axis=axis, deterministic=deterministic, masks=masks,
-              z_full=z_full)
-    msa_out = dap_msa_branch(p, cfg, msa_l, z_l, rng=evo.fold_in(rng, 0), **kw)
-    z_out = dap_pair_branch(p, cfg, z_l, rng=evo.fold_in(rng, 1), **kw)
+    got = []
+
+    def full():
+        if not got:
+            got.append(z_full.wait() if isinstance(z_full, coll.Pending)
+                       else z_full)
+        return got[0]
+
+    kw = dict(axis=axis, deterministic=deterministic, masks=masks)
+    msa_out = dap_msa_branch(p, cfg, msa_l, z_l, rng=evo.fold_in(rng, 0),
+                             z_full=full, **kw)
+    z_out = dap_pair_branch(p, cfg, z_l, rng=evo.fold_in(rng, 1),
+                            z_full=full(), **kw)
     return msa_out, z_out + dap_outer_product_mean(
         p.opm, msa_out, axis, n_seq_total, row_chunk=cfg.opm_chunk,
         opm_impl=cfg.opm_impl, row_mask=row_mask)
@@ -269,9 +285,9 @@ def unshard_outputs(msa_l, z_l, axis: Axis):
 class OverlapBlockFn:
     """The ``block_fn`` of the overlapped schedule, following the stack's
     prefetch protocol: the stack starts the gather of its input pair rep
-    with :meth:`prefetch_init`, then for each block waits on the pending
-    gather (the consume half, at the head of block k+1), runs :meth:`block`
-    on it and starts the gather of the block's output with
+    with :meth:`prefetch_init`, then for each block runs :meth:`block` on
+    the pending gather (the consume half, which waits on it at its first
+    use in block k+1) and starts the gather of the block's output with
     :meth:`prefetch_issue` (the issue half, at the end of block k).  A call
     runs both halves of one block and returns (msa, z, pending), the
     reference's block signature."""

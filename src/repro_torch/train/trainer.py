@@ -36,6 +36,11 @@ runs inside a ``step`` span that ends once the card has finished it, as do
 row (measured step against ``predict_step_time``), and a ``ProfileWindow``
 can capture a step range with ``torch.profiler``.
 
+``hlo_check=True`` (the reference's name): before the first step, the
+ungraphed step body runs once under an op trace on a copy of the state
+(``analysis.overlap.check_async_overlap``), and its verdict on the async
+collectives is recorded as ``train/async_overlap_ok``.
+
 Under a plan (``plan=``, built by every rank together): the plan's
 implementation choices are applied to the config, every rank builds the
 same global batch from the seed and takes its data-parallel rows, every
@@ -129,7 +134,8 @@ class TrainRunner:
                  graphs: Optional[bool] = None, dtype=torch.bfloat16,
                  on_straggler=None, data_source=None, data_workers: int = 1,
                  data_prefetch: int = 2, bucket_by_length: bool = False,
-                 obs=None, tracer=None, profile_window=None):
+                 obs=None, tracer=None, profile_window=None,
+                 hlo_check: bool = False):
         self.device = resolve_device(device)
         plan = as_plan(plan)
         self.cfg = with_kernels(plan.apply_to(cfg))
@@ -159,6 +165,7 @@ class TrainRunner:
         self.obs = obs if obs is not None else MetricRegistry()
         self.tracer = tracer
         self.profile_window = profile_window
+        self.hlo_check = hlo_check
         self._body = make_step_body(self.cfg, self.optimizer, self.built,
                                     deterministic=deterministic, ema=self.ema,
                                     dtype=dtype)
@@ -236,7 +243,16 @@ class TrainRunner:
         return self._body(self.state, dict(zip(self._batch_keys, tensors[:n])),
                           *tensors[n:], n_recycle)
 
-    def _train_step(self, step: int, batch: dict, nr: int) -> dict:
+    @property
+    def batch_keys(self) -> Optional[list]:
+        """The batch's keys in the order the step takes their tensors."""
+        return self._batch_keys
+
+    def step_args(self, step: int, batch: dict) -> tuple:
+        """The tensors a step of this runner takes for global step
+        ``step`` and ``batch``: this replica's batch tensors (in
+        :attr:`batch_keys` order), the dropout key lanes and the
+        optimizer's new step count, on the runner's device."""
         batch, key, opt_step = step_inputs(batch, (self.seed, step),
                                            self.state["opt"].step + 1,
                                            self.device, self.built)
@@ -245,13 +261,54 @@ class TrainRunner:
         elif sorted(batch) != self._batch_keys:
             raise ValueError(f"batch keys {sorted(batch)} != the step's "
                              f"{self._batch_keys}")
-        out = self.step_for(nr)(*(batch[k] for k in self._batch_keys), key,
-                                opt_step)
+        return (*(batch[k] for k in self._batch_keys), key, opt_step)
+
+    def _train_step(self, step: int, batch: dict, nr: int) -> dict:
+        out = self.step_for(nr)(*self.step_args(step, batch))
         # read now: the next replay of any graph of the pool overwrites them
         metrics = {k: float(v) for k, v in zip(METRICS, out)}
         opt = self.state["opt"]
         self.state["opt"] = opt._replace(step=opt.step + 1)
         return metrics
+
+    def record_async_overlap(self, batch: dict,
+                             step: Optional[int] = None) -> dict:
+        """Trace the ungraphed step body once on ``batch`` (global step
+        ``step``, default ``self.step``, with that step's recycle draw),
+        check its async collectives for overlap
+        (``analysis.overlap.check_async_overlap``) and record the verdict,
+        or why there is none, as ``train/async_overlap_ok`` with the
+        reference's keys (``ok``, ``skipped``, ``reason``, and ``pairs``,
+        ``overlapped``, ``exposed`` when there were pairs).  The state's
+        tensors are copied before and restored after, so the parameters,
+        moments, EMA, step count and ``train_compiles`` stay as they
+        were."""
+        from repro_torch.analysis.overlap import check_async_overlap
+        from repro_torch.analysis.static.op_walk import capture
+        from repro_torch.analysis.static.program import state_tensors
+        step = self.step if step is None else step
+        live = state_tensors(self.state)
+        saved = {k: t.detach().clone() for k, t in live.items()}
+        try:
+            trace, _ = capture(
+                functools.partial(self._run_body, self.recycle_draw(step)),
+                *self.step_args(step, batch))
+            ok, rep = check_async_overlap(trace)
+        except Exception as e:  # keep training even if the trace fails
+            ok, rep = None, {"error": f"{type(e).__name__}: {e}"}
+        finally:
+            with torch.no_grad():
+                for k, t in live.items():
+                    t.copy_(saved[k])
+        row = {"ok": ok, "skipped": ok is None,
+               "reason": (None if ok is not None else rep.get(
+                   "error", "no async collective start/wait pairs in the "
+                            "step"))}
+        for k in ("pairs", "overlapped", "exposed"):
+            if k in rep:
+                row[k] = rep[k]
+        self.obs.record("train/async_overlap_ok", row, step=self.step)
+        return row
 
     def attribution(self, *, measured_step_s: float, n_recycle: float,
                     stall_fraction: float = 0.0, overhead_s: float = 0.0,
@@ -290,6 +347,8 @@ class TrainRunner:
                     break
                 if self.profile_window is not None:
                     self.profile_window.maybe_start(step)
+                if self.hlo_check and not self.history["step_s"]:
+                    self.record_async_overlap(batch, step)
                 nr = self.recycle_draw(step)
                 self.watchdog.start_step()
                 with trace_span("step", tracer=tracer, step=step,

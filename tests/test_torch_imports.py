@@ -63,6 +63,20 @@ OBS_MODULES = ("repro_torch.obs", "repro_torch.obs.registry",
                "repro_torch.obs.attribution", "repro_torch.analysis.roofline")
 
 
+ANALYSIS_MODULES = ("repro_torch.analysis.lint", "repro_torch.analysis.overlap",
+                    "repro_torch.analysis.static",
+                    "repro_torch.analysis.static.core",
+                    "repro_torch.analysis.static.op_walk",
+                    "repro_torch.analysis.static.program",
+                    "repro_torch.analysis.static.passes",
+                    "repro_torch.analysis.static.passes.materialization",
+                    "repro_torch.analysis.static.passes.collectives",
+                    "repro_torch.analysis.static.passes.precision",
+                    "repro_torch.analysis.static.passes.rng",
+                    "repro_torch.analysis.static.passes.retrace",
+                    "repro_torch.trace_hooks")
+
+
 def test_no_jax_or_reference_imports_in_source():
     files = [p for _, p in _modules()] + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
@@ -71,6 +85,7 @@ def test_no_jax_or_reference_imports_in_source():
     assert set(PARALLEL_MODULES) <= {m for m, _ in _modules()}
     assert set(SERVING_MODULES) <= {m for m, _ in _modules()}
     assert set(OBS_MODULES) <= {m for m, _ in _modules()}
+    assert set(ANALYSIS_MODULES) <= {m for m, _ in _modules()}
     bad = []
     for path in files:
         for name in _imported_names(path):
