@@ -138,6 +138,19 @@ Phases, each raising on failure (exit code != 0, no result line):
      bf16 peak of each prefill length and decode step (model_flops); then
      one prefill (S 2048) and one decode step under torch.profiler, eager
      and as graph replays.
+ 11b. the other LM families: K6 at head dim 112 against its plain version
+     at zamba2-7b's prefill shapes (S 500 and 2048, 32 heads, causal) and
+     on ragged / GQA / fp32 shapes; then qwen2-moe-a2.7b (24 layers, 60
+     experts in 64 bank slots), mamba2-2.7b (64 layers) and zamba2-7b (81
+     layers, a shared attention block at every 6th) at full width and
+     depth, one at a time (weights freed before the next): phase 11's
+     engine, checks and report over 4 requests (prompts 500, 2048, 500,
+     2048) of 16 new tokens, eager then graphed, graphed equal to eager
+     token for token and logit for logit, K6 launched 24 / 0 / 14 times a
+     prefill; a MoE's plain paths take the served run's experts
+     (LM_NOISE_FACTOR).  Then the serve launcher, ``--fold tiny
+     --requests 3`` on one device and with ``--devices 2 --dap 2`` (two
+     gloo ranks on the card): the same folds.
  12. static analysis (``repro_torch.analysis``): (a) ``python -m
      repro_torch.analysis.lint`` on the card (four gloo ranks sharing it)
      must exit 0 with "lint: OK", 8 programs, 40 pass runs, 0 skipped and
@@ -2567,6 +2580,17 @@ LM_CHECKED = (3, 5)
 # and their distances agree within 7% on the card; at 3x a decode that
 # leaves out each token's own key passed (1.97x)
 LM_NOISE_FACTOR = 1.5
+# A MoE's top-k routing is discrete: one ulp of a bf16 router logit can
+# move a token to another expert, and the served path (batch-1 prefill,
+# 4-slot decode, K6) rounds other values than the plain path, so each moves
+# some tokens' experts where the other does not, and a row behind a moved
+# token lies several times farther from fp32 than the others: the max
+# would compare which path drew more moves.  So for the moe family the plain
+# paths (fp32 and bf16) take the experts the eager served run chose, token
+# by token and layer by layer (``LogitRecorder.routes``), their gates from
+# their own router logits; the token-layers where their own top-k differs
+# are counted and printed.  A graphed run is held to the eager run's
+# logits, which it must equal.
 
 
 class LogitRecorder:
@@ -2575,77 +2599,121 @@ class LogitRecorder:
     logits they return to the engine for the requests ``rids``: each
     prefill's last row (in insert order, matched to a request through the
     engine's ``last_stats``) and their slot's row at each decode step
-    (cloned: a graph's static output is overwritten by the next replay)."""
+    (cloned: a graph's static output is overwritten by the next replay).
+
+    Of an eager MoE engine it also keeps the experts each step chose (the
+    ``idx`` of ``models.moe.router_topk``, one tensor a layer), so that
+    ``routes(rid)`` gives a request's routing, token by token."""
 
     def __init__(self, engine, rids):
         self.engine, self.rids = engine, set(rids)
         self.clear()
         self._steps = engine._prefill1, engine._decode
         engine._prefill1, engine._decode = self._prefill, self._decode
+        self._cur = None
+        self._topk = None
+        if engine.cfg.family == "moe" and not engine.graphs:
+            from repro_torch.models import moe
+            self._topk = moe.router_topk
+
+            def recording(logits, k):
+                out = self._topk(logits, k)
+                if self._cur is not None:
+                    self._cur.append(out[1].clone())
+                return out
+            moe.router_topk = recording
 
     def restore(self):
-        """Give the engine back its own steps."""
+        """Give the engine back its own steps (and moe its router)."""
         self.engine._prefill1, self.engine._decode = self._steps
+        if self._topk is not None:
+            from repro_torch.models import moe
+            moe.router_topk = self._topk
 
     def clear(self):
         self.prefills, self.steps = [], collections.defaultdict(list)
+        self.prefill_routes, self.step_routes = [], collections.defaultdict(
+            list)
 
     def _prefill(self, prompt):
+        self._cur = []
         logits = self._steps[0](prompt)
         self.prefills.append(logits[0, -1].clone())
+        self.prefill_routes.append(self._cur)
+        self._cur = None
         return logits
 
     def _decode(self, tokens):
+        self._cur = []
         logits = self._steps[1](tokens)
         for i, req in enumerate(self.engine.slots):
             if req is not None and req.rid in self.rids:
                 self.steps[req.rid].append(logits[i, 0].clone())
+                if self._cur:
+                    self.step_routes[req.rid].append([r[i] for r in self._cur])
+        self._cur = None
         return logits
+
+    def _order(self, rid) -> int:
+        return [p["rid"] for p in self.engine.last_stats["prefill"]].index(rid)
 
     def logits(self, rid):
         """(new tokens, V): the rows the engine took each token of ``rid``
         from."""
-        order = [p["rid"] for p in self.engine.last_stats["prefill"]]
-        return torch.stack([self.prefills[order.index(rid)],
+        return torch.stack([self.prefills[self._order(rid)],
                             *self.steps[rid]])
 
+    def routes(self, rid):
+        """Per layer, the experts (prompt + decode steps, k) ``rid``'s tokens
+        were routed to, or None where none were recorded."""
+        pre = self.prefill_routes[self._order(rid)]
+        if not pre:
+            return None
+        steps = self.step_routes[rid]
+        return [torch.cat([pre[l], *(st[l][None] for st in steps)])
+                for l in range(len(pre))]
 
-def lm_params(dev):
-    """glm4-9b's config and seeded bf16 weights drawn on the card; returns
-    (cfg, params, seconds to draw them)."""
+
+def lm_params(dev, arch=LM_ARCH):
+    """``arch``'s config and seeded bf16 weights drawn on the card, one
+    module at a time; returns (cfg, params, seconds to draw them)."""
     from repro_torch import configs
-    from repro_torch.models import dense
+    from repro_torch.models import get_model
     from repro_torch.models.lmconfig import with_kernels
-    cfg = with_kernels(configs.get_config(LM_ARCH))
+    cfg = with_kernels(configs.get_config(arch))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    params = dense.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    params = get_model(cfg).init_params(cfg, seed=0, device=dev,
+                                        dtype=torch.bfloat16)
     torch.cuda.synchronize()
     return cfg, params, time.perf_counter() - t0
 
 
-def lm_main_path(cfg, params, dev, *, graphs: bool):
-    """glm4-9b through a DecodeEngine (``graphs`` on or off) that serves
-    through a LogitRecorder: warm-up requests (one of 64 tokens; with
-    graphs also one of each main-path prompt length, so that every step is
-    captured before the measured run), then the 8 requests with the launch
-    counters set to 0 just before and read just after.  Returns (engine,
-    recorder, requests, results, launch counts, wall seconds, peak
-    allocated GiB, reserved GiB, warm-up seconds)."""
+def lm_main_path(cfg, params, dev, *, graphs: bool, prompts=LM_PROMPTS,
+                 new_tokens=LM_NEW_TOKENS, checked=LM_CHECKED):
+    """``cfg``'s family (glm4-9b in phase 11) through a DecodeEngine
+    (``graphs`` on or off) that serves through a LogitRecorder of the
+    requests ``checked``: warm-up requests (one of 64 tokens; with graphs
+    also one of each prompt length, so that every step is captured before
+    the measured run), then one request per prompt length of ``prompts``
+    (``new_tokens`` each) with the launch counters set to 0 just before and
+    read just after.  Returns (engine, recorder, requests, results, launch
+    counts, wall seconds, peak allocated GiB, reserved GiB, warm-up
+    seconds)."""
     from repro_torch.kernels import ops
-    from repro_torch.models import dense
+    from repro_torch.models import get_model
     from repro_torch.serve.engine import DecodeEngine, Request
-    engine = DecodeEngine(dense, cfg, params, batch_slots=LM_SLOTS,
+    engine = DecodeEngine(get_model(cfg), cfg, params, batch_slots=LM_SLOTS,
                           max_len=LM_MAX_LEN, device=dev, graphs=graphs)
-    rec = LogitRecorder(engine, LM_CHECKED)
+    rec = LogitRecorder(engine, checked)
     rng = np.random.default_rng(0)
     prompt = lambda n: rng.integers(0, cfg.vocab, n, dtype=np.int32)
     warm = [Request(rid=-1, prompt=prompt(64), max_new_tokens=2)]
-    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=LM_NEW_TOKENS)
-            for i, n in enumerate(LM_PROMPTS)]
+    reqs = [Request(rid=i, prompt=prompt(n), max_new_tokens=new_tokens)
+            for i, n in enumerate(prompts)]
     if graphs:
         warm += [Request(rid=-2 - i, prompt=prompt(n), max_new_tokens=2)
-                 for i, n in enumerate(sorted(set(LM_PROMPTS)))]
+                 for i, n in enumerate(sorted(set(prompts)))]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     engine.run(warm)
@@ -2666,47 +2734,81 @@ def lm_main_path(cfg, params, dev, *, graphs: bool):
             warm_s)
 
 
-def plain_lm_logits(params, cfg, tokens, start: int, dtype):
+def pinned_router(routes, moved: list):
+    """A stand-in for ``models.moe.router_topk`` that returns, layer by
+    layer, the experts of ``routes`` (one (S, k) tensor a layer) with gates
+    renormalised from its own router probabilities; ``moved`` counts
+    [token-layers where its own top-k chose other experts, token-layers]."""
+    from repro_torch.models import moe
+    layers, own = iter(routes), moe.router_topk
+
+    def topk(logits, k):
+        idx = next(layers).to(logits.device)
+        _, idx_own, probs = own(logits, k)
+        moved[0] += int((idx_own.sort(-1).values != idx.sort(-1).values)
+                        .any(-1).sum())
+        moved[1] += idx.shape[0]
+        gates = probs.gather(-1, idx)
+        return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), \
+            idx, probs
+    return topk
+
+
+def plain_lm_logits(params, cfg, tokens, start: int, dtype, routes=None,
+                    moved=None):
     """Logits (S - start, V), fp32, at positions start.. of ``tokens``
-    (1, S) on the plain path: ``forward``'s body with chunked attention and
-    no cache, activations in ``dtype`` (bf16 as ``forward``; fp32 gives the
-    value of the same bf16 weights)."""
-    from repro_torch.models import dense
+    (1, S) on the plain path: ``forward``'s body (the family's
+    ``backbone``) with chunked attention and no cache, the SSM families'
+    chunked SSD over the whole sequence, activations in ``dtype`` (bf16 as
+    ``forward``; fp32 gives the value of the same bf16 weights).  A MoE's
+    experts come from ``routes`` (``pinned_router``) when given."""
+    from repro_torch.models import dense, get_model, moe
     cfg = dataclasses.replace(cfg, attention_impl="chunked")
-    with torch.no_grad():
-        x = params.embed.table[tokens.long()].to(dtype)
-        pos = torch.arange(tokens.shape[1], dtype=torch.int32,
-                           device=tokens.device)[None]
-        x = dense.backbone(params, cfg, x, pos)
-        return dense.logits_fn(params, cfg, x[:, start:])[0].float()
+    own = moe.router_topk
+    if routes is not None:
+        moe.router_topk = pinned_router(routes, moved)
+    try:
+        with torch.no_grad():
+            x = params.embed.table[tokens.long()].to(dtype)
+            pos = torch.arange(tokens.shape[1], dtype=torch.int32,
+                               device=tokens.device)[None]
+            x = get_model(cfg).backbone(params, cfg, x, pos)
+            return dense.logits_fn(params, cfg, x[:, start:])[0].float()
+    finally:
+        moe.router_topk = own
 
 
-def check_lm_main_path(cfg, engine, rec, reqs, done, counts, refs) -> list:
-    """Every request's 32 token ids in the vocabulary; K6 launched once per
-    layer per prompt and nothing else.  For each request of LM_CHECKED, the
-    engine's logits for all its tokens (the prefill's last row, then its
-    slot's row of each batched decode step, read from the slot-copied cache)
-    against the plain path on prompt + tokens[:-1]: no farther from the fp32
-    value than LM_NOISE_FACTOR times the plain bf16 path, and each token the
-    argmax of its row.  ``refs`` keeps the plain path's values by request
-    and tokens, for a second run that served the same tokens.  Returns per
-    checked request (rid, max |served - fp32|, max |plain bf16 - fp32|)."""
+def check_lm_main_path(cfg, engine, rec, reqs, done, counts, refs, *,
+                       new_tokens=LM_NEW_TOKENS, checked=LM_CHECKED,
+                       k6_per_prefill=None) -> list:
+    """Every request's ``new_tokens`` token ids in the vocabulary; K6
+    launched ``k6_per_prefill`` times per prompt (default: once per layer)
+    and nothing else.  For each request of ``checked``, the engine's logits
+    for all its tokens (the prefill's last row, then its slot's row of each
+    batched decode step, read from the slot-copied cache) against the plain
+    path on prompt + tokens[:-1]: no farther from the fp32 value than
+    LM_NOISE_FACTOR times the plain bf16 path, and each token the argmax of
+    its row.  ``refs`` keeps the plain path's values by request and tokens,
+    for a second run that served the same tokens.  Returns per checked
+    request (rid, max |served - fp32|, max |plain bf16 - fp32|)."""
     if sorted(done) != [r.rid for r in reqs]:
         raise AssertionError(f"served {sorted(done)}")
     for r in reqs:
         toks = np.asarray(done[r.rid])
-        if toks.shape != (LM_NEW_TOKENS,) or toks.min() < 0 or \
+        if toks.shape != (new_tokens,) or toks.min() < 0 or \
                 toks.max() >= cfg.vocab:
             raise AssertionError(f"request {r.rid}: tokens {toks}")
     want = {k: 0 for k in counts}
-    want["flash_attention_fwd"] = cfg.n_layer * len(reqs)
+    want["flash_attention_fwd"] = (cfg.n_layer if k6_per_prefill is None
+                                   else k6_per_prefill) * len(reqs)
     if counts != want:
-        raise AssertionError(f"LM launches {counts} != the path's {want}")
+        raise AssertionError(f"{cfg.arch_id} launches {counts} != the "
+                             f"path's {want}")
     out = []
-    for rid in LM_CHECKED:
+    for rid in checked:
         prompt, gen = reqs[rid].prompt, done[rid]
         served = rec.logits(rid).float()
-        if served.shape != (LM_NEW_TOKENS, cfg.vocab) or not torch.equal(
+        if served.shape != (new_tokens, cfg.vocab) or not torch.equal(
                 served.argmax(-1).cpu(), torch.as_tensor(gen)):
             raise AssertionError(f"request {rid}: recorded logits "
                                  f"{tuple(served.shape)} do not give its "
@@ -2716,16 +2818,27 @@ def check_lm_main_path(cfg, engine, rec, reqs, done, counts, refs) -> list:
             tokens = torch.as_tensor(np.concatenate([prompt, gen[:-1]]),
                                      device=engine.device)[None]
             start = len(prompt) - 1
+            routes = rec.routes(rid) if cfg.family == "moe" else None
+            if cfg.family == "moe" and routes is None:
+                raise AssertionError(f"{cfg.arch_id}: no routing recorded "
+                                     f"(an eager run comes first)")
+            moved = {"fp32": [0, 0], "bf16": [0, 0]}
             ref32 = plain_lm_logits(engine.params, cfg, tokens, start,
-                                    torch.float32)
+                                    torch.float32, routes, moved["fp32"])
             noise = (plain_lm_logits(engine.params, cfg, tokens, start,
-                                     torch.bfloat16) - ref32).abs().max().item()
-            refs[key] = ref32, noise
-        ref32, noise = refs[key]
+                                     torch.bfloat16, routes, moved["bf16"])
+                     - ref32).abs().max().item()
+            refs[key] = ref32, noise, moved
+        ref32, noise, moved = refs[key]
         err = (served - ref32).abs().max().item()
-        print(f"[lm check] request {rid} (prompt {len(prompt)}): max |served "
-              f"- fp32| {err:.4g}, plain bf16 {noise:.4g}, |fp32| max "
-              f"{ref32.abs().max().item():.4g}", flush=True)
+        pinned = (f"; on the served routing, own top-k elsewhere in "
+                  f"fp32 {moved['fp32'][0]} and bf16 {moved['bf16'][0]} of "
+                  f"{moved['fp32'][1]} token-layers"
+                  if cfg.family == "moe" else "")
+        print(f"[lm check] {cfg.arch_id} request {rid} (prompt "
+              f"{len(prompt)}): max |served - fp32| {err:.4g}, plain bf16 "
+              f"{noise:.4g}, |fp32| max {ref32.abs().max().item():.4g}"
+              f"{pinned}", flush=True)
         if not err <= LM_NOISE_FACTOR * noise:
             raise AssertionError(f"request {rid}: served logits {err} from "
                                  f"the fp32 plain path, over "
@@ -2749,7 +2862,7 @@ def lm_report(tag, cfg, engine, done, wall, peak_gib, reserved_gib, warm_s,
                     first_token_s=[round(p["first_token_s"], 4) for p in ps])
             for n, ps in sorted(by_len.items())}
     total = sum(len(v) for v in done.values())
-    print(f"[lm path {tag}] {LM_ARCH} ({cfg.n_layer} layers, d "
+    print(f"[lm path {tag}] {cfg.arch_id} ({cfg.n_layer} layers, d "
           f"{cfg.d_model}, {n_params / 1e9:.2f} B parameters, bf16 weights "
           f"drawn in {init_s:.1f}s) DecodeEngine {LM_SLOTS} slots, cache "
           f"{LM_MAX_LEN}, warm-up {warm_s:.2f}s, compile_misses "
@@ -2791,7 +2904,8 @@ def lm_flop_shares(tag, cfg, engine) -> dict:
     row = {"active_params": active_params(cfg), "prefill": prefill,
            "decode_share_median": round(float(np.median(dec)), 5),
            "decode_share_range": [round(min(dec), 5), round(max(dec), 5)]}
-    print(f"[lm model flops {tag}] {LM_ARCH}, 2 x {row['active_params']:.4g} "
+    print(f"[lm model flops {tag}] {cfg.arch_id}, 2 x "
+          f"{row['active_params']:.4g} "
           f"active parameters a token, shares of {PEAK_BF16_FLOPS:.4g} "
           f"FLOP/s: {json.dumps(row)}", flush=True)
     return row
@@ -2817,6 +2931,138 @@ def profile_lm(cfg, engine):
                                           engine.cache), "lm_decode", what)
     profile_run(lambda: engine._decode(tokens), "lm_decode_graphed",
                 what + ", graph replay")
+
+
+# ---------------------------------------------------------------------------
+# Phase 11b: the moe, ssm and hybrid families at full width and depth
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b")
+# 500 tokens pad the SSD's 256-token chunk; requests 1 and 3 (2048 tokens,
+# in slots 1 and 3 beside live slots) are held to the plain path
+FAMILY_PROMPTS = (500, 2048, 500, 2048)
+FAMILY_NEW_TOKENS = 16
+FAMILY_CHECKED = (1, 3)
+# K6's launches a prefill: every MoE layer's attention, none in mamba2, one
+# a invocation of zamba2's shared block (81 layers, every 6th)
+FAMILY_K6 = {"qwen2-moe-a2.7b": 24, "mamba2-2.7b": 0, "zamba2-7b": 14}
+
+
+def d112_kernel_shapes(cfg):
+    """K6 rows at zamba2-7b's shared attention (H = KV = 32, D 112): each
+    prefill length of phase 11b with its launches there (one a shared-block
+    invocation a prompt), then D-112 checks the path does not reach."""
+    H, KV, D = cfg.n_head, cfg.n_kv_head, cfg.d_head
+    bf, f32 = torch.bfloat16, torch.float32
+    per_len = collections.Counter(FAMILY_PROMPTS)
+    rows = [(f"zamba2_prefill_S{n}", (1, n, n, H, KV, D), True, bf,
+             FAMILY_K6[cfg.arch_id] * per_len[n]) for n in sorted(per_len)]
+    rows += [("d112_gqa_ragged_S77_noncausal", (2, 77, 77, 4, 2, D), False,
+              bf, 0),
+             ("d112_causal_S130_T70", (1, 130, 70, 4, 4, D), True, bf, 0),
+             ("d112_fp32_S300", (1, 300, 300, 4, 4, D), True, f32, 0)]
+    return rows
+
+
+def family_phase(arch: str, dev) -> dict:
+    """``arch`` at full width and depth through the LM path: seeded bf16
+    weights drawn on the card, a DecodeEngine of LM_SLOTS slots and cache
+    LM_MAX_LEN serving FAMILY_PROMPTS (FAMILY_NEW_TOKENS each) eagerly and
+    then graphed (warm-up captures first), each run held to the plain path
+    and its K6 launches to the family's; graphed must equal eager, token
+    for token and logit for logit.  Frees the engine and the weights."""
+    cfg, params, init_s = lm_params(dev, arch)
+    n_params = sum(p.numel() for p in params.parameters())
+    kw = dict(new_tokens=FAMILY_NEW_TOKENS, checked=FAMILY_CHECKED)
+    refs, served, row = {}, {}, {"params": n_params, "init_s": init_s}
+    for tag, use in (("eager", False), ("graphed", True)):
+        engine, rec, reqs, done, counts, wall, peak, reserved, warm_s = \
+            lm_main_path(cfg, params, dev, graphs=use,
+                         prompts=FAMILY_PROMPTS, **kw)
+        errs = check_lm_main_path(cfg, engine, rec, reqs, done, counts, refs,
+                                  k6_per_prefill=FAMILY_K6[arch], **kw)
+        if engine.compile_misses != 1 + len(set(FAMILY_PROMPTS) | {64}):
+            raise AssertionError(f"{arch}: compile_misses "
+                                 f"{engine.compile_misses}")
+        lm_report(tag, cfg, engine, done, wall, peak, reserved, warm_s,
+                  init_s, n_params, errs)
+        print(f"[lm path {tag}] {arch} launches {counts}", flush=True)
+        flops = lm_flop_shares(tag, cfg, engine)
+        st = engine.last_stats
+        dec_tok, dec_s = sum(st["decode_tokens"]), sum(st["decode_step_s"])
+        ttft = collections.defaultdict(list)
+        for pre in st["prefill"]:
+            ttft[pre["prompt_len"]].append(round(pre["seconds"], 4))
+        row[tag] = {"wall_s": wall, "warm_s": warm_s, "peak_gib": peak,
+                    "reserved_gib": reserved, "prefill_s": dict(ttft),
+                    "decode_tokens_per_s": dec_tok / dec_s,
+                    "decode_step_median_ms": 1e3 * float(
+                        np.median(st["decode_step_s"])),
+                    "k6_launches": counts["flash_attention_fwd"],
+                    "logits_vs_fp32": errs,
+                    "prefill_share_of_peak": {
+                        n: r["share"] for n, r in flops["prefill"].items()}}
+        served[tag] = done, {rid: rec.logits(rid) for rid in FAMILY_CHECKED}
+        rec.restore()
+        del engine, rec
+        torch.cuda.empty_cache()
+    (e_done, e_logits), (g_done, g_logits) = served["eager"], served["graphed"]
+    differ = sum(a != b for r in e_done for a, b in zip(e_done[r], g_done[r]))
+    d_logits = max((g_logits[r].float() - e_logits[r].float()).abs().max()
+                   .item() for r in FAMILY_CHECKED)
+    row["graphed_vs_eager"] = {"tokens_differ": differ,
+                               "max_logits_diff": d_logits}
+    print(f"[lm family] {arch}: graphed vs eager {differ} of "
+          f"{sum(len(v) for v in e_done.values())} tokens differ, max "
+          f"|logits diff| of requests {list(FAMILY_CHECKED)} {d_logits:.6g}; "
+          f"{json.dumps(row)}", flush=True)
+    if differ or d_logits != 0.0:
+        raise AssertionError(f"{arch}: graphed serving differs from eager")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def fold_launcher_phase() -> dict:
+    """The serve launcher's fold path on the card, af2_tiny, 3 requests: on
+    one device (graphed), then ``--devices 2 --dap 2`` (two rank processes
+    on this card over gloo, eager, the longest bucket under dap=2); rank
+    0's folds must equal the one device's: recycles and buckets exactly,
+    pLDDT and contact probabilities within LONG_RTOL relative L2,
+    coordinates within 1e-3."""
+    from repro_torch.launch import serve
+    base = ["--fold", "tiny", "--requests", "3"]
+    t0 = time.perf_counter()
+    one = serve.main(base)
+    t1 = time.perf_counter()
+    two = serve.main(base + ["--devices", "2", "--dap", "2"])
+    t2 = time.perf_counter()
+    if sorted(one) != sorted(two) or sorted(one) != [0, 1, 2]:
+        raise AssertionError(f"launcher folds {sorted(one)} vs {sorted(two)}")
+    d_max, rel = 0.0, 0.0
+    for rid in one:
+        a, b = two[rid], one[rid]
+        if a.n_recycles != b.n_recycles or a.bucket != b.bucket:
+            raise AssertionError(f"request {rid}: ranks {a.n_recycles} "
+                                 f"recycles in {a.bucket}, one device "
+                                 f"{b.n_recycles} in {b.bucket}")
+        if not np.abs(a.coords - b.coords).max() <= 1e-3:
+            raise AssertionError(f"request {rid}: coordinates differ")
+        for x, y in ((a.plddt, b.plddt), (a.contact_probs, b.contact_probs),
+                     (a.coords, b.coords)):
+            d_max = max(d_max, float(np.abs(x - y).max()))
+        for x, y in ((a.plddt, b.plddt), (a.contact_probs, b.contact_probs)):
+            rel = max(rel, float(np.linalg.norm(x - y) / np.linalg.norm(y)))
+    if not rel <= LONG_RTOL:
+        raise AssertionError(f"launcher ranks' folds differ from one "
+                             f"device's by {rel} relative L2")
+    row = {"one_device_s": t1 - t0, "two_ranks_s": t2 - t1,
+           "max_abs_diff": d_max, "max_rel_l2": rel,
+           "bit_equal": d_max == 0.0}
+    print(f"[serve launcher] --fold tiny --requests 3: one device vs "
+          f"--devices 2 --dap 2 (two gloo ranks on the card): "
+          f"{json.dumps(row)}", flush=True)
+    return row
 
 
 # phase 12: static analysis
@@ -3232,8 +3478,22 @@ def main() -> int:
           flush=True)
     profile_lm(lm_cfg, lm_engine)
     stamp("phase 11's profiles")
-    del lm_engine, lm_weights
+    del lm_engine, lm_rec, lm_weights    # the recorder holds the engine
     torch.cuda.empty_cache()
+    # phase 11b: K6 at zamba2-7b's head dim 112, then the moe, ssm and
+    # hybrid families through the LM path, then the serve launcher's ranks
+    d112_rows, d112_tot = check_flash_attention(
+        dev, d112_kernel_shapes(configs.get_config("zamba2-7b")))
+    for row in d112_rows:
+        print(f"[lm kernel] flash_attention_fwd {json.dumps(row)}", flush=True)
+    print(f"[lm kernel total] K6 at D 112 over zamba2-7b's prefills in "
+          f"phase 11b: {json.dumps(d112_tot)}", flush=True)
+    families = {}
+    for arch in FAMILY_ARCHS:
+        families[arch] = family_phase(arch, dev)
+        stamp(f"phase 11b {arch}")
+    fold_launcher_phase()
+    stamp("phase 11b")
     lint_phase(dev, card)
     stamp("phase 12")
 
@@ -3280,6 +3540,21 @@ def main() -> int:
               f"the prefills of the {LM_ARCH} main path (8 prompts x "
               f"{lm_cfg.n_layer} layers)"),
     ]
+    # K6 on phase 11b's paths: launches of each family's graphed run, and
+    # its D-112 times over zamba2-7b's prefills
+    kernels[-1]["launches_by_path"] = {
+        LM_ARCH: lm_counts["flash_attention_fwd"],
+        **{a: r["graphed"]["k6_launches"] for a, r in families.items()}}
+    d112_ops = d112_tot["flops"] / PEAK_BF16_FLOPS >= \
+        d112_tot["bytes"] / PEAK_BYTES
+    kernels[-1]["d112"] = {
+        "launches": families["zamba2-7b"]["graphed"]["k6_launches"],
+        "max_abs_err": d112_tot["err"], "ms": d112_tot["ms"],
+        "plain_ms": d112_tot["plain_ms"], "bound_ms": d112_tot["bound_ms"],
+        "bound_by": "operations" if d112_ops else "bytes",
+        "library_ms": d112_tot["library_ms"],
+        "per": "the prefills of phase 11b's zamba2-7b path (4 prompts x "
+               "14 shared-block invocations)"}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

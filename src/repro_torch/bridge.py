@@ -7,7 +7,9 @@ imports neither JAX nor the JAX package.  Key paths are the same on both
 sides, joined with dots; the stacks' leading block axis (the reference scans
 over stacked params) is split across the port's ``ModuleList``:
 ``evoformer.w`` of shape (n, ...) becomes ``evoformer.0.w`` ... ``evoformer.<n-1>.w``
-(an LM's scanned ``layers`` likewise, with ``stacked=LM_STACKED``).
+(an LM's scanned ``layers`` likewise, with ``stacked=LM_STACKED``: a MoE's
+expert banks (L, E_pad, d, f) become ``layers.<i>.moe.w_gate`` (E_pad, d,
+f); the hybrid's ``shared`` block is one block, not a stack).
 The reference's ``OptState`` (``step``, ``mu``, ``nu``; ``mu``/``nu`` trees
 like the params) and its EMA tree become the port's ``train.optim.OptState``
 and EMA dict, keyed like ``model.named_parameters()``.

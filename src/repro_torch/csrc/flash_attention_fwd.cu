@@ -54,9 +54,14 @@
 //    tile is masked whole.  Query blocks run heaviest first.  Rows past S
 //    are zero-filled by TMA and not written; keys past T are zero-filled
 //    and masked.
-// D 32 and 64 (bf16) keep the mma.sync kernel below: a block of 4 warps
-// owns 64 query rows, K/V in 64-key tiles through shared memory, ldmatrix
-// fragments (ldmatrix.trans for V).
+// D 32, 64 and 112 (bf16) keep the mma.sync kernel below: a block of 4
+// warps owns 64 query rows, K/V in 64-key tiles through shared memory,
+// ldmatrix fragments (ldmatrix.trans for V).  D 112 (zamba2-7b's shared
+// attention, 3584 / 32) is 7 k-steps of 16 for Q.K^T, the odd last one
+// through ldmatrix.x2, and 14 n-tiles of 8 for P.V; a shared row of 112 + 8
+// bf16 is 240 bytes, 16-byte aligned, and its 8 rows of an ldmatrix hit
+// distinct banks (a 60-word stride); 30 KB of shared memory a block.  A
+// plain first version, not the wgmma path of D 128.
 //
 // fp32 inputs: the exact path on the fp32 CUDA cores, one warp per 4 query
 // rows, each lane holding D/32 channels; a score is a warp-shuffle sum and
@@ -110,6 +115,16 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// Two 8x8 bf16 matrices: lanes 0-15 give the addresses (lane l: row l % 8
+// of matrix l / 8), as for ldsm_x4's first two.
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(a)
                : "memory");
 }
@@ -199,11 +214,19 @@ flash_attention_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int nt = 0; nt < MK / 8; ++nt) {
       s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
 #pragma unroll
-      for (int kc = 0; kc < D / 16; kc += 2) {
+      for (int kc = 0; kc + 1 < D / 16; kc += 2) {
         uint32_t bk[4];
         ldsm_x4(bk, &ks[nt * 8 + lrow][kc * 16 + lmat * 8]);
         mma16816(s[nt], qa[kc], bk[0], bk[1]);
         mma16816(s[nt], qa[kc + 1], bk[2], bk[3]);
+      }
+      if constexpr (D / 16 % 2 == 1) {
+        // D 112: the last 16 channels alone, matrices 0 and 1 (lanes 16-31
+        // repeat lanes 0-15's addresses, which x2 ignores)
+        constexpr int kc = D / 16 - 1;
+        uint32_t bk[2];
+        ldsm_x2(bk, &ks[nt * 8 + lrow][kc * 16 + (lmat & 1) * 8]);
+        mma16816(s[nt], qa[kc], bk[0], bk[1]);
       }
     }
     float mx[2] = {m[0], m[1]};
@@ -632,7 +655,9 @@ flash_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
                                const float* __restrict__ v, float* __restrict__ out,
                                int S, int T, int H, int G, Strides qs, Strides ks_,
                                Strides vs_, int causal, float scale) {
-  constexpr int CL = D / 32;  // channels per lane: lane + 32 * cc
+  // channels per lane: lane + 32 * cc, those < D (D 112: 4, the last of
+  // them on lanes 0-15 only)
+  constexpr int CL = (D + 31) / 32;
   __shared__ float ks[FK][D];
   __shared__ float vs[FK][D];
 
@@ -656,7 +681,8 @@ flash_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
     l[i] = 0.f;
 #pragma unroll
     for (int cc = 0; cc < CL; ++cc) {
-      qr[i][cc] = rows[i] < S ? qb[rows[i] * qs.s + lane + 32 * cc] : 0.f;
+      const int c = lane + 32 * cc;
+      qr[i][cc] = rows[i] < S && c < D ? qb[rows[i] * qs.s + c] : 0.f;
       acc[i][cc] = 0.f;
     }
   }
@@ -678,7 +704,8 @@ flash_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
       for (int i = 0; i < RW; ++i) {
         float d = 0.f;
 #pragma unroll
-        for (int cc = 0; cc < CL; ++cc) d = fmaf(qr[i][cc], ks[kk][lane + 32 * cc], d);
+        for (int cc = 0; cc < CL; ++cc)
+          if (lane + 32 * cc < D) d = fmaf(qr[i][cc], ks[kk][lane + 32 * cc], d);
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
         if (causal && j > rows[i]) continue;  // uniform across the warp
@@ -689,7 +716,8 @@ flash_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
         l[i] = l[i] * corr + p;
 #pragma unroll
         for (int cc = 0; cc < CL; ++cc)
-          acc[i][cc] = fmaf(p, vs[kk][lane + 32 * cc], acc[i][cc] * corr);
+          if (lane + 32 * cc < D)
+            acc[i][cc] = fmaf(p, vs[kk][lane + 32 * cc], acc[i][cc] * corr);
         m[i] = m_new;
       }
     }
@@ -700,7 +728,8 @@ flash_attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restr
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
     const i64 off = ((i64)(b * S + rows[i]) * H + h) * D;
 #pragma unroll
-    for (int cc = 0; cc < CL; ++cc) out[off + lane + 32 * cc] = acc[i][cc] * inv;
+    for (int cc = 0; cc < CL; ++cc)
+      if (lane + 32 * cc < D) out[off + lane + 32 * cc] = acc[i][cc] * inv;
   }
 }
 
@@ -750,6 +779,7 @@ extern "C" int flash_attention_fwd(const i64* a, float scale, void* stream) {
   switch (D) {
     case 32: return (int)launch<32>(q, k, v, out, B, S, T, H, G, qs, ks_, vs_, causal, dtype, scale, st);
     case 64: return (int)launch<64>(q, k, v, out, B, S, T, H, G, qs, ks_, vs_, causal, dtype, scale, st);
+    case 112: return (int)launch<112>(q, k, v, out, B, S, T, H, G, qs, ks_, vs_, causal, dtype, scale, st);
     case 128: return (int)launch<128>(q, k, v, out, B, S, T, H, G, qs, ks_, vs_, causal, dtype, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -16,7 +16,7 @@ import torch
 from repro_torch.kernels import build
 
 NAME = "flash_attention_fwd"
-SUPPORTED_D = (32, 64, 128)
+SUPPORTED_D = (32, 64, 112, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -63,7 +63,8 @@ def _check(name, t, dtype, device):
 def flash_attention_fwd(q, k, v, causal: bool = True,
                         scale: Optional[float] = None):
     """Launch K6 on CUDA tensors: q (B, S, H, D), k/v (B, T, KV, D) of one
-    dtype (float32 or bfloat16), H a multiple of KV, D in (32, 64, 128).
+    dtype (float32 or bfloat16), H a multiple of KV, D in (32, 64, 112,
+    128).
     Returns (B, S, H, D) in q's dtype (contiguous)."""
     global launches
     if q.dtype not in DTYPE_CODES:

@@ -1,8 +1,9 @@
-"""Serving launcher of the PyTorch port, on one device: LM batched decode
-through ``DecodeEngine`` (``--arch``; prefill attention on the flash kernel
-K6), or AF2 fold serving of a mixed-length synthetic queue through
-``FoldEngine`` (``--fold``; every attention and triangle update on the
-hand-written kernels).
+"""Serving launcher of the PyTorch port: LM batched decode through
+``DecodeEngine`` on one device (``--arch``: the dense, moe, ssm and hybrid
+families; prefill attention on the flash kernel K6), or AF2 fold serving of
+a mixed-length synthetic queue through ``FoldEngine`` (``--fold``; every
+attention and triangle update on the hand-written kernels), on one device
+or over ``--devices`` rank processes with a DAP plan for the long buckets.
 
   # on the GPU (the default device)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b \
@@ -13,6 +14,14 @@ hand-written kernels).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke \
       --device cpu --requests 3 --slots 2 --max-new 4 --prompt-len 8 --max-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke \
+      --device cpu --requests 3 --slots 2 --max-new 4 --prompt-len 8 --max-len 32
+  # two rank processes (CPU ranks over gloo; on the card, ranks that share
+  # it talk over gloo and serve without graphs): the longest bucket runs
+  # under long_plan = ParallelPlan(data=devices // dap, dap=dap), the
+  # others on each rank alone; every rank serves the same requests
+  PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu \
+      --devices 2 --dap 2 --requests 3
   # sustained traffic (--arrival-rate > 0): FoldEngine.serve, Poisson
   # arrivals on a virtual clock, continuous batching and the result cache
   PYTHONPATH=src python -m repro_torch.launch.serve --fold initial \
@@ -48,6 +57,13 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     # fold knobs
+    ap.add_argument("--devices", type=int, default=1,
+                    help="--fold: rank processes to spawn (the reference's "
+                         "fake host devices; 1: this process alone); every "
+                         "rank serves the same requests")
+    ap.add_argument("--dap", type=int, default=1,
+                    help="--fold: dap extent of the long buckets' plan, "
+                         "which must divide --devices")
     ap.add_argument("--micro-batch", type=int, default=2)
     ap.add_argument("--max-recycle", type=int, default=3)
     ap.add_argument("--tol", type=float, default=0.0,
@@ -112,6 +128,9 @@ def run_lm_decode(args):
             f"unknown --arch {args.arch!r}; known LM archs: "
             f"{', '.join(cfglib.ARCH_IDS)}.  AF2 fold serving uses --fold "
             "<tiny|small|initial|finetune> instead of --arch")
+    if cfg.family in ("audio", "vlm"):
+        raise SystemExit("serve demo supports token-prompt archs; "
+                         "audio/vlm prefill needs frames/patches — see tests")
     cfg = with_kernels(cfg)
     model = get_model(cfg)
     dev = resolve_device(args.device)
@@ -138,42 +157,118 @@ def run_lm_decode(args):
 
 
 def run_fold(args):
+    """``--fold``: on this process, or over ``--devices`` rank processes,
+    each serving the same requests (rank 0's results are returned)."""
+    from repro_torch.parallel import ranks
+    from repro_torch.parallel.plan import ParallelPlan
+
+    if args.dap > 1 and args.devices % args.dap:
+        raise SystemExit(
+            f"--dap {args.dap} does not divide the {args.devices} available "
+            f"devices; pass --devices as a multiple of --dap")
+    long_plan = (ParallelPlan(data=args.devices // args.dap, dap=args.dap)
+                 if args.dap > 1 else None)
+    if long_plan is not None:
+        check_long_plan(args.fold, long_plan)
+    if args.devices <= 1:
+        return serve_folds(args, long_plan)
+    if args.featurize_workers:
+        raise SystemExit("--featurize-workers must be 0 with --devices > 1: "
+                         "every rank must admit the same requests at the "
+                         "same steps, and thread timing differs by rank")
+    import torch
+    from repro_torch.device import resolve_device
+    device_type = resolve_device(args.device).type
+    backend = ranks.choose_backend(device_type, args.devices)
+    print(ranks.describe_backend(device_type, backend, args.devices))
+    if device_type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()           # once, before the ranks start
+    done = ranks.spawn(_fold_rank, args.devices, args, long_plan,
+                       device_type=device_type, backend=backend,
+                       # CPU ranks split this process's intra-op threads
+                       threads=max(1, torch.get_num_threads() // args.devices)
+                       if device_type == "cpu" else 0)
+    return done[0]
+
+
+def check_long_plan(fold: str, long_plan) -> None:
+    """Refuse a long plan that cannot split the buckets it would run, as the
+    reference refuses it when it builds its engine ("fold plan rejected");
+    the port's engine would find it at the bucket's first step, inside the
+    rank processes."""
+    from repro_torch.core.config import PRESETS
+    from repro_torch.parallel.plan import PlanError
+    from repro_torch.serve import fold_steps as fs
+
+    cfg = PRESETS[fold]()
+    plan = long_plan.for_inference()
+    buckets = sorted(fs.default_buckets(cfg))
+    try:
+        for b in buckets:
+            if b.n_res >= buckets[-1].n_res:     # FoldEngine.long_threshold
+                plan.validate(plan.apply_to(fs.bucket_cfg(cfg, b)))
+    except PlanError as e:
+        raise SystemExit(f"fold plan rejected: {e}")
+
+
+def _fold_rank(rank, world, device, args, long_plan):
+    return serve_folds(args, long_plan, device=device, rank=rank)
+
+
+def serve_folds(args, long_plan, *, device=None, rank: int = 0):
+    """Build the engine (``long_plan`` for buckets of the largest one's
+    length and up, one device for the rest) and serve the synthetic
+    requests; only rank 0 prints and writes the telemetry files."""
     from repro_torch.core.config import PRESETS
     from repro_torch.core.model import AlphaFold2
     from repro_torch.data.synthetic import make_fold_requests
     from repro_torch.obs import JsonlSink, MetricRegistry, SpanTracer
     from repro_torch.serve.fold_engine import FoldEngine
 
+    lead = rank == 0
+    device = device if device is not None else args.device
     cfg = PRESETS[args.fold]()
-    model = AlphaFold2(cfg, seed=args.seed, device=args.device)
-    obs = MetricRegistry(
-        sinks=[JsonlSink(args.metrics_out)] if args.metrics_out else [])
-    tracer = SpanTracer(process_name="fold-serve") if args.trace_out else None
-    engine = FoldEngine(cfg, model, micro_batch=args.micro_batch,
+    model = AlphaFold2(cfg, seed=args.seed, device=device)
+    obs = MetricRegistry(sinks=[JsonlSink(args.metrics_out)]
+                         if args.metrics_out and lead else [])
+    tracer = (SpanTracer(process_name="fold-serve")
+              if args.trace_out and lead else None)
+    engine = FoldEngine(cfg, model, long_plan=long_plan,
+                        micro_batch=args.micro_batch,
                         max_recycle=args.max_recycle, tol=args.tol,
-                        device=args.device, obs=obs, tracer=tracer)
-    print(f"fold engine: {args.fold} cfg on {engine.device}, buckets "
-          f"{[b.describe() for b in engine.buckets]}")
+                        device=device, obs=obs, tracer=tracer)
+    if lead:
+        print(f"fold engine: {args.fold} cfg on {engine.device}, "
+              f"{args.devices} rank(s), buckets "
+              f"{[b.describe() for b in engine.buckets]}")
+        print(f"  short plan {engine.plan.describe()}")
+        if long_plan is not None:
+            print(f"  long plan  {engine.long_plan.describe()} "
+                  f"(>= {engine.long_threshold} res)")
     reqs = make_fold_requests(cfg, args.requests, args.seed)
     if args.arrival_rate > 0:
-        done = run_fold_traffic(args, engine, reqs)
-        finish_fold_obs(args, engine)
+        done = run_fold_traffic(args, engine, reqs, lead)
+        if lead:
+            finish_fold_obs(args, engine)
         return done
     t0 = time.perf_counter()
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
     st = engine.last_stats
     saved = st["recycles_budget"] - st["recycles_run"]
-    print(f"served {len(done)} folds in {dt:.1f}s "
-          f"({len(done) / dt:.2f} folds/s aggregate), "
-          f"{engine.compile_misses} step builds over {st['steps']} steps, "
-          f"{saved}/{st['recycles_budget']} recycles saved by early exit")
-    for rid in sorted(done)[:4]:
-        r = done[rid]
-        print(f"  req {rid}: len={r.coords.shape[0]} bucket<= "
-              f"{r.bucket.n_res} plddt={r.plddt.mean():.1f} "
-              f"recycles={r.n_recycles} converged={r.converged}")
-    finish_fold_obs(args, engine)
+    if lead:
+        print(f"served {len(done)} folds in {dt:.1f}s "
+              f"({len(done) / dt:.2f} folds/s aggregate), "
+              f"{engine.compile_misses} step builds over {st['steps']} "
+              f"steps, {saved}/{st['recycles_budget']} recycles saved by "
+              f"early exit")
+        for rid in sorted(done)[:4]:
+            r = done[rid]
+            print(f"  req {rid}: len={r.coords.shape[0]} bucket<= "
+                  f"{r.bucket.n_res} plddt={r.plddt.mean():.1f} "
+                  f"recycles={r.n_recycles} converged={r.converged}")
+        finish_fold_obs(args, engine)
     return done
 
 
@@ -189,7 +284,7 @@ def finish_fold_obs(args, engine):
         print(f"metrics: JSONL stream -> {args.metrics_out}")
 
 
-def run_fold_traffic(args, engine, reqs):
+def run_fold_traffic(args, engine, reqs, lead: bool = True):
     """Sustained traffic through ``FoldEngine.serve``: ``reqs`` as Poisson
     arrivals at ``--arrival-rate`` drawn from ``--seed``, a
     ``--duplicates`` fraction repeating an earlier request's features,
@@ -214,6 +309,8 @@ def run_fold_traffic(args, engine, reqs):
                         cache=cache,
                         featurize_workers=args.featurize_workers,
                         starvation_steps=args.starvation_steps)
+    if not lead:
+        return done
     rep = engine.last_report
     print(f"served {len(done)}/{rep['requests']} folds under "
           f"{args.arrival_rate:.2f} req/s ({args.policy}): "

@@ -189,31 +189,41 @@ def write_kv_cache(c, new, lengths, *, uniform: bool):
     return c
 
 
+def decode_attention_block(p, cfg: LMConfig, h, kc, vc, length):
+    """One token's attention in a decode step: ``h`` (B, 1, D) normalised,
+    its keys and values written into the caches ``kc`` / ``vc`` (B, T, KV,
+    Hd) in place at ``length`` (B,), then attention over each sequence's
+    filled slots; returns ``wo`` of the output (B, 1, D).  ``p`` holds
+    ``wq`` / ``wk`` / ``wv`` / ``wo`` (a layer, or the hybrid's shared
+    block)."""
+    b = h.shape[0]
+    positions = length[:, None]                                  # (B, 1)
+    q = dense(p.wq, h).reshape(b, 1, cfg.n_head, cfg.d_head)
+    k = dense(p.wk, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
+    v = dense(p.wv, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
+    q = apply_rope(q, positions, theta=cfg.rope_theta)
+    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    kc = write_kv_cache(kc, k, length, uniform=cfg.uniform_decode)
+    vc = write_kv_cache(vc, v, length, uniform=cfg.uniform_decode)
+    o = decode_attention(q, kc, vc, lengths=length + 1)
+    return dense(p.wo, o.reshape(b, 1, cfg.n_head * cfg.d_head))
+
+
 @torch.no_grad()
 def decode_step(params: DenseLM, cfg: LMConfig, tokens1, cache):
     """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
     params = BF16.cast(params)
-    b = tokens1.shape[0]
     x = params.embed.table[tokens1.long()]
     length = cache["length"]
-    positions = length[:, None]                                  # (B, 1)
     for i, lp in enumerate(params.layers):
-        h = rmsnorm(lp.ln1, x)
-        q = dense(lp.wq, h).reshape(b, 1, cfg.n_head, cfg.d_head)
-        k = dense(lp.wk, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
-        v = dense(lp.wv, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
-        q = apply_rope(q, positions, theta=cfg.rope_theta)
-        k = apply_rope(k, positions, theta=cfg.rope_theta)
-        kc = write_kv_cache(cache["k"][i], k, length, uniform=cfg.uniform_decode)
-        vc = write_kv_cache(cache["v"][i], v, length, uniform=cfg.uniform_decode)
-        o = decode_attention(q, kc, vc, lengths=length + 1)
-        att = dense(lp.wo, o.reshape(b, 1, cfg.n_head * cfg.d_head))
+        att = decode_attention_block(lp, cfg, rmsnorm(lp.ln1, x),
+                                     cache["k"][i], cache["v"][i], length)
         if cfg.parallel_block:
             x = x + att + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
         else:
             x = x + att
             x = x + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
-        x = x.to(o.dtype)
+        x = x.to(att.dtype)
     x = rmsnorm(params.ln_f, x)
     logits = logits_fn(params, cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}

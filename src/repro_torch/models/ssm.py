@@ -1,0 +1,343 @@
+"""Mamba2 (SSD, state-space duality, arXiv:2405.21060): counterpart of
+``repro/models/ssm.py``, serving functions only (``loss`` and
+``partition_rules`` come with the LM training and tensor-parallel slices).
+
+Scalar decay per head: S_t = exp(dt_t A_h) S_{t-1} + dt_t B_t x_t^T;
+y_t = C_t S_t + D_h x_t.  ``ssd_chunked`` is the chunked form (intra-chunk
+quadratic term plus a scan over chunk states), ``ssd_reference`` the
+token-by-token recurrence, ``ssd_decode_step`` one token.
+
+The reference writes its functions for one sequence and vmaps them over the
+batch; here every function takes any leading batch dims (``x`` (..., T, H,
+P)).  ``BF16.cast`` casts every floating parameter, ``A_log``, ``dt_bias``
+and ``D`` included, as the reference's cast does: A = -exp(A_log) is bf16
+in serving and its products with the fp32 dt promote to fp32.
+
+``prefill`` takes each sequence's final state S from the chunked pass (the
+last chunk's entering state times that chunk's decay, plus the chunk's own
+summary; pad steps have dt 0 and are inert), where the reference rebuilds
+it by a scan over every prompt token: the same sum in another order.
+``prefill`` and ``decode_step`` write the cache's tensors in place.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.models.lmconfig import LMConfig
+from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, dense,
+                                   rmsnorm)
+
+BF16 = Policy()
+
+
+# ---------------------------------------------------------------------------
+# SSD core
+# ---------------------------------------------------------------------------
+
+def ssd_reference(x, dt, A, B, C, D):
+    """The recurrence, token by token.  x (..., T, H, P), dt (..., T, H),
+    A (H,), B/C (..., T, N), D (H,) -> y (..., T, H, P) in fp32."""
+    *lead, t, h, p = x.shape
+    n = B.shape[-1]
+    xf, dtf, Bf, Cf = x.float(), dt.float(), B.float(), C.float()
+    S = torch.zeros((*lead, h, n, p), dtype=torch.float32, device=x.device)
+    ys = []
+    for i in range(t):
+        S, y = _ssd_step(S, xf[..., i, :, :], dtf[..., i, :], A,
+                         Bf[..., i, :], Cf[..., i, :])
+        ys.append(y)
+    return torch.stack(ys, dim=-3) + xf * D[:, None]
+
+
+def _ssd_step(S, x1, dt1, A, B1, C1):
+    """S (..., H, N, P), x1 (..., H, P), dt1 (..., H), B1/C1 (..., N), all
+    fp32 but A -> (S', C1 . S')."""
+    decay = torch.exp(dt1 * A)
+    S = S * decay[..., None, None] + torch.einsum(
+        "...n,...hp->...hnp", B1, x1 * dt1[..., None])
+    return S, torch.einsum("...n,...hnp->...hp", C1, S)
+
+
+def ssd_chunked(x, dt, A, B, C, D, *, chunk: int, return_state: bool = False):
+    """Chunked SSD, ``ssd_reference``'s signature and semantics (fp32 out).
+    ``return_state``: also return the state after the last token, S (...,
+    H, N, P) fp32."""
+    *lead, t0, h, p = x.shape
+    n = B.shape[-1]
+    t = t0
+    if t % chunk:
+        # pad with dt = 0 steps: decay exp(0) = 1, contribution dt x = 0
+        pad = chunk - t % chunk
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, pad))
+        t += pad
+    nc = t // chunk
+    xf = x.float().reshape(*lead, nc, chunk, h, p)
+    dtc = dt.float().reshape(*lead, nc, chunk, h)
+    Bc = B.float().reshape(*lead, nc, chunk, n)
+    Cc = C.float().reshape(*lead, nc, chunk, n)
+
+    a_cum = torch.cumsum(dtc * A, dim=-2)                 # (..., nc, Q, H)
+    xbar = xf * dtc[..., None]                            # dt-weighted input
+
+    # intra-chunk: Y[i] = sum_{j<=i} exp(acum_i - acum_j) (C_i.B_j) xbar_j
+    scores = torch.einsum("...cin,...cjn->...cij", Cc, Bc)
+    logdec = a_cum[..., :, None, :] - a_cum[..., None, :, :]  # (.., i, j, H)
+    mask = torch.ones((chunk, chunk), dtype=torch.bool,
+                      device=x.device).tril()
+    decay = torch.where(mask[:, :, None], torch.exp(logdec), 0.0)
+    att = scores[..., None] * decay
+    y_intra = torch.einsum("...cijh,...cjhp->...cihp", att, xbar)
+
+    # chunk summary states: S_c = sum_j exp(acum_last - acum_j) B_j xbar_j^T
+    w = torch.exp(a_cum[..., -1:, :] - a_cum)             # (..., nc, Q, H)
+    S_chunk = torch.einsum("...cjn,...cjhp->...chnp", Bc, xbar * w[..., None])
+
+    # inter-chunk scan: S_c = S_{c-1} exp(acum_last_c) + S_chunk_c
+    chunk_decay = torch.exp(a_cum[..., -1, :])            # (..., nc, H)
+    S = torch.zeros((*lead, h, n, p), dtype=torch.float32, device=x.device)
+    S_prev = []
+    for c in range(nc):
+        S_prev.append(S)
+        S = S * chunk_decay[..., c, :, None, None] + S_chunk[..., c, :, :, :]
+    S_prev = torch.stack(S_prev, dim=-4)                  # (..., nc, H, N, P)
+
+    # inter contribution: y[i] += C_i (exp(acum_i) S_prev)
+    y_inter = torch.einsum("...cin,...chnp->...cihp", Cc, S_prev) \
+        * torch.exp(a_cum)[..., None]
+    y = (y_intra + y_inter).reshape(*lead, t, h, p)[..., :t0, :, :]
+    y = y + x[..., :t0, :, :].float() * D[:, None]
+    return (y, S) if return_state else y
+
+
+def ssd_decode_step(S, x1, dt1, A, B1, C1, D):
+    """One token's state update.  S (..., H, N, P) fp32, x1 (..., H, P),
+    dt1 (..., H), B1/C1 (..., N); returns (S', y (..., H, P) fp32)."""
+    x1 = x1.float()
+    S, y = _ssd_step(S, x1, dt1.float(), A, B1.float(), C1.float())
+    return S, y + x1 * D[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 block
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One Mamba2 block under the reference's names: the separate
+    projections ``wz`` / ``wx`` / ``wB`` / ``wC`` / ``wdt``, ``dt_bias``
+    (softplus^-1 of linspace(0.001, 0.1)), ``A_log`` (log linspace(1, 16)),
+    ``D`` (ones), ``conv_w`` (K, d_inner + 2N) of 0.1 N(0, 1), ``gate_ln``
+    and ``out``."""
+
+    def __init__(self, cfg: LMConfig, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        d, di, h, n = cfg.d_model, cfg.d_inner, cfg.n_ssm_heads, cfg.ssm_state
+        kw = dict(generator=generator, use_bias=False, device=device)
+        self.ln = RMSNorm(d, device=device)
+        self.wz = Dense(d, di, **kw)
+        self.wx = Dense(d, di, **kw)
+        self.wB = Dense(d, n, **kw)
+        self.wC = Dense(d, n, **kw)
+        self.wdt = Dense(d, h, **kw)
+        lin = lambda a, b: torch.linspace(a, b, h, dtype=torch.float32,
+                                          device=device)
+        self.dt_bias = nn.Parameter(            # softplus^-1
+            torch.log(torch.exp(lin(0.001, 0.1)) - 1.0))
+        self.A_log = nn.Parameter(torch.log(lin(1.0, 16.0)))
+        self.D = nn.Parameter(torch.ones((h,), device=device))
+        self.conv_w = nn.Parameter(0.1 * torch.randn(
+            (cfg.ssm_conv, di + 2 * n), generator=generator, device=device))
+        self.gate_ln = RMSNorm(di, device=device)
+        self.out = Dense(di, d, **kw)
+
+
+def _causal_conv(u, w, *, state=None):
+    """Depthwise causal conv1d.  u (..., T, C), w (K, C), state (..., K-1,
+    C) the history.  Returns (out, the last K-1 rows of history + u)."""
+    k, t = w.shape[0], u.shape[-2]
+    if state is None:
+        pad = u.new_zeros((*u.shape[:-2], k - 1, u.shape[-1]))
+    else:
+        pad = state.to(u.dtype)
+    ext = torch.cat([pad, u], dim=-2)                     # (..., T+K-1, C)
+    out = ext[..., 0:t, :] * w[0]
+    for i in range(1, k):
+        out = out + ext[..., i:i + t, :] * w[i]
+    return out, ext[..., ext.shape[-2] - (k - 1):, :]
+
+
+def _mixer_inputs(p: Block, cfg: LMConfig, x):
+    """The block's projections of x (..., T, D): z, dt (fp32), and xbc =
+    [x | B | C] before the convolution."""
+    h_ = rmsnorm(p.ln, x)
+    z = dense(p.wz, h_)
+    xbc = torch.cat([dense(p.wx, h_), dense(p.wB, h_), dense(p.wC, h_)], -1)
+    dt = F.softplus(dense(p.wdt, h_).float() + p.dt_bias)
+    return z, dt, xbc
+
+
+def _split_xbc(cfg: LMConfig, xbc):
+    di, n = cfg.d_inner, cfg.ssm_state
+    xin = xbc[..., :di]
+    xh = xin.reshape(*xin.shape[:-1], cfg.n_ssm_heads, cfg.ssm_head_dim)
+    return xh, xbc[..., di:di + n], xbc[..., di + n:]
+
+
+def _gated_out(p: Block, y, z, dtype):
+    """rmsnorm(y * silu(z)) through ``out``; y (..., T, d_inner) fp32."""
+    y = y.to(dtype)
+    return dense(p.out, rmsnorm(p.gate_ln, y * F.silu(z)))
+
+
+def mamba_with_state(p: Block, cfg: LMConfig, x, *, chunked: bool = True):
+    """The block on x (..., T, D) -> (out (..., T, D), (conv state: the last
+    K-1 rows of xbc before the convolution (fewer when T < K-1), S (..., H,
+    N, P) fp32 after the last token, or None for ``chunked=False``))."""
+    t = x.shape[-2]
+    z, dt, xbc = _mixer_inputs(p, cfg, x)
+    conv_state = xbc[..., max(t - (cfg.ssm_conv - 1), 0):, :]
+    u, _ = _causal_conv(xbc, p.conv_w.to(xbc.dtype))
+    xh, Bp, Cp = _split_xbc(cfg, F.silu(u))
+    A = -torch.exp(p.A_log)
+    if chunked:
+        y, S = ssd_chunked(xh, dt, A, Bp, Cp, p.D,
+                           chunk=min(cfg.ssm_chunk, t), return_state=True)
+    else:
+        y, S = ssd_reference(xh, dt, A, Bp, Cp, p.D), None
+    y = y.reshape(*y.shape[:-2], cfg.d_inner)
+    return _gated_out(p, y, z, x.dtype), (conv_state, S)
+
+
+def block_apply(p: Block, cfg: LMConfig, x, *, chunked: bool = True):
+    """x (..., T, D) -> (..., T, D)."""
+    return mamba_with_state(p, cfg, x, chunked=chunked)[0]
+
+
+def check_prompt(cfg: LMConfig, t: int) -> None:
+    """A prefill keeps the last K-1 inputs of the convolution as its
+    history, so a prompt needs at least K-1 tokens: the reference's prefill
+    keeps ``xbc[-(K-1):]`` of a shorter one, whose short history its cache
+    cannot take."""
+    if t < cfg.ssm_conv - 1:
+        raise ValueError(f"a prompt of {t} tokens is shorter than the "
+                         f"convolution's history of {cfg.ssm_conv - 1} "
+                         f"(ssm_conv - 1): prefill needs at least that many")
+
+
+def block_decode(p: Block, cfg: LMConfig, x1, state):
+    """x1 (..., D), state {"conv": (..., K-1, C), "S": (..., H, N, P)} ->
+    (y (..., D), new state)."""
+    z, dt, xbc = _mixer_inputs(p, cfg, x1[..., None, :])
+    xbc, conv_state = _causal_conv(xbc, p.conv_w.to(xbc.dtype),
+                                   state=state["conv"])
+    xh, Bp, Cp = _split_xbc(cfg, F.silu(xbc)[..., 0, :])
+    A = -torch.exp(p.A_log)
+    S, y = ssd_decode_step(state["S"], xh, dt[..., 0, :], A, Bp, Cp, p.D)
+    y = _gated_out(p, y.reshape(*y.shape[:-2], cfg.d_inner)[..., None, :], z,
+                   x1.dtype)
+    return y[..., 0, :], {"conv": conv_state, "S": S}
+
+
+# ---------------------------------------------------------------------------
+# Full model
+# ---------------------------------------------------------------------------
+
+class MambaLM(nn.Module):
+    """All parameters, drawn on ``device`` (``cuda`` by default, raising
+    without a card unless ``device="cpu"``) from a generator there seeded
+    with ``seed``, one module at a time, each cast to ``dtype`` as soon as
+    it is drawn (as ``dense.DenseLM``)."""
+
+    def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        device = resolve_device(device)
+        g = torch.Generator(device=device).manual_seed(seed)
+        kw = dict(generator=g, device=device)
+        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
+        self.layers = nn.ModuleList(Block(cfg, **kw).to(dtype)
+                                    for _ in range(cfg.n_layer))
+        self.ln_f = RMSNorm(cfg.d_model, device=device).to(dtype)
+        self.lm_head = Dense(cfg.d_model, cfg.vocab, use_bias=False,
+                             **kw).to(dtype)
+
+
+def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
+                dtype: torch.dtype = torch.float32) -> MambaLM:
+    return MambaLM(cfg, seed=seed, device=device, dtype=dtype)
+
+
+def backbone(params: MambaLM, cfg: LMConfig, x, positions=None, *,
+             chunked: bool = True):
+    """The block stack on embeddings x (B, T, D), then ``ln_f``
+    (``positions`` is unused: the blocks read order from the recurrence)."""
+    for lp in params.layers:
+        x = (x + block_apply(lp, cfg, x, chunked=chunked)).to(x.dtype)
+    return rmsnorm(params.ln_f, x)
+
+
+def forward(params: MambaLM, cfg: LMConfig, tokens, *, chunked: bool = True):
+    """tokens (B, T) -> logits (B, T, V), in bf16."""
+    params = BF16.cast(params)
+    x = params.embed.table[tokens.long()]
+    return dense(params.lm_head, backbone(params, cfg, x, chunked=chunked))
+
+
+# serving: a recurrent state instead of a KV cache, O(1) a decode step
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None):
+    device = resolve_device(device)
+    c = cfg.d_inner + 2 * cfg.ssm_state
+    return {
+        "conv": torch.zeros((cfg.n_layer, batch, cfg.ssm_conv - 1, c),
+                            dtype=dtype, device=device),
+        "S": torch.zeros((cfg.n_layer, batch, cfg.n_ssm_heads, cfg.ssm_state,
+                          cfg.ssm_head_dim), dtype=torch.float32,
+                         device=device),
+        "length": torch.zeros((batch,), dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def prefill(params: MambaLM, cfg: LMConfig, tokens, cache):
+    """Run the chunked form over the prompt tokens (B, T), at least K - 1
+    of them, writing each layer's final (conv, S) state into the cache;
+    returns (last-token logits (B, 1, V), cache)."""
+    b, t = tokens.shape
+    check_prompt(cfg, t)
+    params = BF16.cast(params)
+    x = params.embed.table[tokens.long()]
+    for i, lp in enumerate(params.layers):
+        y, (conv_s, S) = mamba_with_state(lp, cfg, x)
+        x = (x + y).to(x.dtype)
+        cache["conv"][i] = conv_s
+        cache["S"][i] = S
+    x = rmsnorm(params.ln_f, x)
+    logits = dense(params.lm_head, x[:, -1:])
+    return logits, {"conv": cache["conv"], "S": cache["S"],
+                    "length": torch.full((b,), t, dtype=torch.int32,
+                                         device=x.device)}
+
+
+@torch.no_grad()
+def decode_step(params: MambaLM, cfg: LMConfig, tokens1, cache):
+    """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
+    params = BF16.cast(params)
+    x = params.embed.table[tokens1.long()][:, 0]         # (B, D)
+    for i, lp in enumerate(params.layers):
+        y, st = block_decode(lp, cfg, x, {"conv": cache["conv"][i],
+                                          "S": cache["S"][i]})
+        x = (x + y).to(x.dtype)
+        cache["conv"][i] = st["conv"]
+        cache["S"][i] = st["S"]
+    x = rmsnorm(params.ln_f, x)
+    logits = dense(params.lm_head, x[:, None])
+    return logits, {"conv": cache["conv"], "S": cache["S"],
+                    "length": cache["length"] + 1}

@@ -384,6 +384,9 @@ def test_masked_triangle_mult_stays_forward_only_on_the_card(cuda_dev):
     (2, 129, 129, 4, 1, 128, True),     # ragged S and T, T != S, batch 2
     (2, 70, 333, 4, 2, 128, False),
     (1, 1, 1, 2, 1, 128, True),
+    (1, 500, 500, 32, 32, 112, True),   # zamba2-7b's shared attention
+    (2, 77, 77, 4, 2, 112, False),      # D 112: ragged tiles, GQA,
+    (1, 130, 70, 4, 4, 112, True),      # T < S
 ])
 def test_flash_attention_kernel_matches_plain(cuda_dev, dtype, B, S, T, H,
                                               KV, D, causal):

@@ -39,7 +39,12 @@ LM_MODULES = ("repro_torch.models", "repro_torch.models.lmconfig",
               "repro_torch.models.dense", "repro_torch.configs",
               "repro_torch.configs.glm4_9b", "repro_torch.nn.attention",
               "repro_torch.nn.rope", "repro_torch.kernels.flash_attention",
-              "repro_torch.serve.engine", "repro_torch.serve.steps")
+              "repro_torch.serve.engine", "repro_torch.serve.steps",
+              "repro_torch.models.moe", "repro_torch.models.ssm",
+              "repro_torch.models.hybrid",
+              "repro_torch.configs.qwen2_moe_a2_7b",
+              "repro_torch.configs.mamba2_2_7b",
+              "repro_torch.configs.zamba2_7b")
 
 
 PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",

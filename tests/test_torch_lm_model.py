@@ -326,9 +326,11 @@ def test_registry_and_launcher_rehearsal(capsys):
                                                     13696, 151552, True)
     for arch in tconfigs.ARCH_IDS:
         cfg = tconfigs.get_config(arch)
-        if cfg.family != "dense":
+        if cfg.family in ("audio", "vlm"):
             with pytest.raises(NotImplementedError, match="queue 1"):
                 get_model(cfg)
+        else:
+            assert get_model(cfg).__name__ == f"repro_torch.models.{cfg.family}"
     done = serve.main(["--arch", "glm4-9b", "--smoke", "--device", "cpu",
                        "--requests", "3", "--slots", "2", "--max-new", "4",
                        "--prompt-len", "8", "--max-len", "32"])
