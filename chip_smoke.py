@@ -151,6 +151,34 @@ Phases, each raising on failure (exit code != 0, no result line):
      (LM_NOISE_FACTOR).  Then the serve launcher, ``--fold tiny
      --requests 3`` on one device and with ``--devices 2 --dap 2`` (two
      gloo ranks on the card): the same folds.
+ 11c. whisper-medium and internvl2-26b, and LM training: (a) K6 against
+     its plain version at the whisper encoder's shape (4 x 1500 frames,
+     non-causal, 16 heads of 64), whisper training's cross-attention (2 x
+     448 queries over 1500 frames) and the internvl2 prefill (4 x 2048
+     positions, causal, 48 heads over 8 KV heads of 128), with SDPA's time
+     at the same is_causal / enable_gqa.  (b) whisper-medium (24 + 24
+     layers, d 1024, vocab 51865) and (c) internvl2-26b (48 layers, d 6144,
+     48 / 8 heads, vocab 92553) at full width and depth, seeded bf16
+     weights drawn on the card, one at a time: 4 requests in one batch
+     (whisper: seeded frames (1500, 1024) and a one-token BOS prompt, 32
+     new tokens, cache 448; internvl2: seeded patches (256, 3200) and a
+     1792-token prompt, 16 new tokens, cache 4096), a batched prefill then
+     greedy decode steps, eagerly and then as CUDA graphs (graphed equal
+     to eager, token for token and logit for logit); K6 launched 24 / 48
+     times a prefill and never by a decode step; the logits of requests 1
+     and 3 no farther from the fp32 plain path (chunked attention; fp32
+     activations, bf16 weights upcast per op for internvl2) than 1.5x the
+     plain bf16 path; time to first token, decode step ms, tokens/s,
+     memory.  (d) whisper-medium training (batch 2 x 448 tokens over 1500
+     frames, remat="layer", fp32 masters, AdamW 1e-4 with clip_norm 1):
+     the first step's loss within 2e-3 and global gradient norm within
+     5e-2 of the plain path's on the same weights and batch, everything
+     finite, then 3 eager steps, K6 launched 144 times each (72 attention
+     calls, each again in the remat recompute); step walls, peak memory.
+     (e) ``launch.train --arch <a> --smoke --steps 3 --batch 2 --seq 32``
+     for the six families on the card and with ``--device cpu``: every
+     loss within 2e-2 relative, K6 launched once per attention call a
+     step.
  12. static analysis (``repro_torch.analysis``): (a) ``python -m
      repro_torch.analysis.lint`` on the card (four gloo ranks sharing it)
      must exit 0 with "lint: OK", 8 programs, 40 pass runs, 0 skipped and
@@ -3065,6 +3093,467 @@ def fold_launcher_phase() -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# Phase 11c: whisper-medium and internvl2-26b serving, LM training
+# ---------------------------------------------------------------------------
+
+WHISPER_ARCH, VLM_ARCH = "whisper-medium", "internvl2-26b"
+AV_REQUESTS = 4
+# requests whose logits are held to the plain path (slots 1 and 3)
+AV_CHECKED = (1, 3)
+WHISPER_BOS = 50258            # <|startoftranscript|>
+WHISPER_NEW_TOKENS = 32
+WHISPER_MAX_LEN = 448          # whisper's text context
+VLM_PROMPT = 1792              # + 256 patches: 2048 positions
+VLM_NEW_TOKENS = 16
+VLM_MAX_LEN = 4096
+TRAIN_LM_BATCH, TRAIN_LM_SEQ, TRAIN_LM_STEPS = 2, 448, 3
+TRAIN_LM_LR = 1e-4
+# phase 9c's bounds on a kernel path's first step against the plain path
+TRAIN_LM_LOSS_RTOL, TRAIN_LM_GNORM_RTOL = 2e-3, 5e-2
+# the train launcher's losses on the card against the same command on the
+# CPU (bf16 rounding apart)
+LAUNCH_RTOL = 2e-2
+LAUNCH_ARCHS = ("glm4-9b", "qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b",
+                "whisper-medium", "internvl2-26b")
+LAUNCH_ARGS = ("--smoke", "--steps", "3", "--batch", "2", "--seq", "32")
+
+
+def attention_calls(cfg) -> int:
+    """Attention calls of one forward of ``cfg`` over a sequence: one a
+    layer (whisper: its encoder's, then its decoder's causal and cross
+    attention), one a shared-block invocation of the hybrid, none in
+    mamba2."""
+    from repro_torch.models import hybrid
+    if cfg.family == "audio":
+        return cfg.n_enc_layer + 2 * cfg.n_layer
+    if cfg.family == "hybrid":
+        return hybrid.n_shared_invocations(cfg)
+    return 0 if cfg.family == "ssm" else cfg.n_layer
+
+
+def whisper_train_k6(cfg) -> int:
+    """K6 launches of one whisper training step: every attention's forward
+    (``attention_calls``), and each again when ``remat="layer"`` recomputes
+    its layer for the backward; the backward itself is the plain chunked
+    VJP, which launches nothing."""
+    return attention_calls(cfg) * (2 if cfg.remat == "layer" else 1)
+
+
+def av_kernel_shapes(wcfg, vcfg):
+    """K6 rows at phase 11c's shapes: the whisper encoder (non-causal, S = T
+    = 1500 frames, D 64), whisper training's cross-attention (S 448 over T
+    1500 frames) and the internvl2 prefill (causal, 48 heads over 8 KV
+    heads, D 128, 2048 positions), with their launches: a prefill's, a
+    training step's and a prefill's."""
+    bf = torch.bfloat16
+    n_frames = wcfg.n_frontend_tokens
+    w = (wcfg.n_head, wcfg.n_kv_head, wcfg.d_head)
+    npos = vcfg.n_frontend_tokens + VLM_PROMPT
+    return [
+        (f"whisper_encoder_S{n_frames}", (AV_REQUESTS, n_frames, n_frames, *w),
+         False, bf, wcfg.n_enc_layer),
+        (f"whisper_cross_S{TRAIN_LM_SEQ}_T{n_frames}",
+         (TRAIN_LM_BATCH, TRAIN_LM_SEQ, n_frames, *w), False, bf,
+         2 * wcfg.n_layer),
+        (f"internvl2_prefill_S{npos}",
+         (AV_REQUESTS, npos, npos, vcfg.n_head, vcfg.n_kv_head, vcfg.d_head),
+         True, bf, vcfg.n_layer)]
+
+
+def seeded_bf16(shape, seed: int, dev):
+    """N(0, 1) drawn in fp32 on ``dev`` from a generator seeded ``seed``,
+    as bf16."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+
+@contextlib.contextmanager
+def compute_dtype(module, dtype):
+    """``module``'s cast policy (its global ``BF16``) computing in
+    ``dtype``."""
+    from repro_torch.nn.layers import Policy
+    saved = module.BF16
+    module.BF16 = Policy(compute_dtype=dtype)
+    try:
+        yield
+    finally:
+        module.BF16 = saved
+
+
+def av_serve(cfg, params, dev, inputs: dict, new_tokens: int, max_len: int,
+             *, graphs: bool) -> dict:
+    """``cfg``'s family (whisper or the VLM) serving AV_REQUESTS requests in
+    one batch: a batched ``prefill`` of ``inputs`` (frames or patches and
+    the prompts), then greedy ``decode_step``s to ``new_tokens`` tokens
+    each, on one cache of ``max_len`` positions written in place.  With
+    ``graphs`` the prefill and the decode step are ``graphs.CapturedStep``s,
+    captured by a warm-up pass first.  The launch counters are set to 0
+    just before the measured pass; returns its tokens (B, new_tokens),
+    every step's logits (new_tokens, B, V) fp32, the K6 launches after the
+    prefill and at the end, the cache's bytes, the prefill's and each
+    decode step's seconds, the wall and peak / reserved GiB."""
+    from repro_torch import graphs as graphs_lib
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    keys = list(inputs)
+    cache = model.init_cache(cfg, AV_REQUESTS, max_len, device=dev)
+
+    def prefill_fn(*tensors):
+        for t in cache.values():
+            t.zero_()
+        logits, new = model.prefill(params, cfg, dict(zip(keys, tensors)),
+                                    cache)
+        cache["length"].copy_(new["length"])
+        return logits
+
+    def decode_fn(tokens):
+        logits, new = model.decode_step(params, cfg, tokens, cache)
+        cache["length"].copy_(new["length"])
+        return logits
+
+    prefill, decode = prefill_fn, decode_fn
+    if graphs:
+        pool = torch.cuda.graph_pool_handle()
+        prefill = graphs_lib.CapturedStep(prefill_fn, pool=pool)
+        decode = graphs_lib.CapturedStep(decode_fn, pool=pool)
+
+    def run():
+        t0 = time.perf_counter()
+        logits = prefill(*inputs.values())
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        rows = [logits[:, -1].float().clone()]
+        torch.cuda.synchronize()
+        pre_s = time.perf_counter() - t0
+        k6_prefill = ops.launch_counts()["flash_attention_fwd"]
+        toks, steps = [tok], []
+        for _ in range(new_tokens - 1):
+            t1 = time.perf_counter()
+            logits = decode(tok)
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+            rows.append(logits[:, -1].float().clone())
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t1)
+            toks.append(tok)
+        return (torch.cat(toks, 1).cpu(), torch.stack(rows), k6_prefill,
+                pre_s, steps, time.perf_counter() - t0)
+
+    with torch.no_grad():
+        warm_s = 0.0
+        if graphs:
+            t0 = time.perf_counter()
+            run()                 # captures the prefill and the decode step
+            warm_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        tokens, logits, k6_prefill, pre_s, steps, wall = run()
+    return {"tokens": tokens, "logits": logits, "k6_prefill": k6_prefill,
+            "cache_bytes": sum(t.numel() * t.element_size()
+                               for t in cache.values()),
+            "counts": ops.launch_counts(), "prefill_s": pre_s,
+            "decode_s": steps, "wall_s": wall, "warm_s": warm_s,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "reserved_gib": torch.cuda.memory_reserved() / 2 ** 30}
+
+
+def plain_whisper_logits(params, cfg, frames, tokens, dtype):
+    """(S, V) fp32: whisper's ``forward`` on the plain path (chunked
+    attention) on one request's frames (1, T, F) and tokens (1, S), its
+    casts at ``dtype`` (fp32: the value of the bf16 weights; whisper-medium
+    is small enough for an fp32 copy)."""
+    from repro_torch.models import whisper
+    cfg = dataclasses.replace(cfg, attention_impl="chunked")
+    with torch.no_grad(), compute_dtype(whisper, dtype):
+        out = whisper.forward(params, cfg, {"frames": frames,
+                                            "tokens": tokens})
+    return out[0].float()
+
+
+def plain_vlm_logits(params, cfg, patches, tokens, start: int, dtype):
+    """(P + S - start, V) fp32: the VLM's ``forward`` body on the plain path
+    (chunked attention) over one request's patches (1, P, F) and tokens (1,
+    S), from position ``start`` of the P + S, activations in ``dtype`` and
+    each op upcasting its bf16 weights (no fp32 copy of the 26B model)."""
+    from repro_torch.models import dense, vlm
+    cfg = dataclasses.replace(cfg, attention_impl="chunked")
+    with torch.no_grad():
+        img = vlm.project_patches(params, patches.to(dtype))
+        txt = params.embed.table[tokens.long()].to(dtype)
+        x = torch.cat([img, txt], dim=1)
+        pos = torch.arange(x.shape[1], dtype=torch.int32,
+                           device=x.device)[None]
+        x = dense.backbone(params, cfg, x, pos)
+        return dense.logits_fn(params, cfg, x[:, start:])[0].float()
+
+
+def check_av_run(cfg, run: dict, plain, refs: dict, k6_per_prefill: int,
+                 new_tokens: int) -> list:
+    """A run of ``av_serve``: tokens in the vocabulary, K6 launched
+    ``k6_per_prefill`` times by the prefill and never by a decode step, no
+    other kernel; for each request of AV_CHECKED its served logits no
+    farther from ``plain(rid, tokens, fp32)`` than LM_NOISE_FACTOR times the
+    plain bf16 path (``refs`` keeps them by request and tokens).  Returns
+    [(rid, max |served - fp32|, max |plain bf16 - fp32|)]."""
+    toks = run["tokens"]
+    if toks.shape != (AV_REQUESTS, new_tokens) or int(toks.min()) < 0 or \
+            int(toks.max()) >= cfg.vocab:
+        raise AssertionError(f"{cfg.arch_id}: tokens {toks}")
+    want = {k: 0 for k in run["counts"]}
+    want["flash_attention_fwd"] = k6_per_prefill
+    if run["k6_prefill"] != k6_per_prefill or run["counts"] != want:
+        raise AssertionError(f"{cfg.arch_id}: K6 {run['k6_prefill']} a "
+                             f"prefill, launches {run['counts']} != {want}")
+    out = []
+    for rid in AV_CHECKED:
+        served = run["logits"][:, rid]
+        if not torch.equal(served.argmax(-1).cpu(), toks[rid]):
+            raise AssertionError(f"request {rid}: logits do not give its "
+                                 f"tokens")
+        key = (rid, tuple(toks[rid].tolist()))
+        if key not in refs:
+            ref32 = plain(rid, toks[rid], torch.float32)
+            noise = (plain(rid, toks[rid], torch.bfloat16) - ref32
+                     ).abs().max().item()
+            refs[key] = ref32, noise
+        ref32, noise = refs[key]
+        err = (served - ref32).abs().max().item()
+        print(f"[av check] {cfg.arch_id} request {rid}: max |served - fp32| "
+              f"{err:.4g}, plain bf16 {noise:.4g}, |fp32| max "
+              f"{ref32.abs().max().item():.4g}", flush=True)
+        if not err <= LM_NOISE_FACTOR * noise:
+            raise AssertionError(f"{cfg.arch_id} request {rid}: served "
+                                 f"logits {err} from the fp32 plain path, "
+                                 f"over {LM_NOISE_FACTOR} x {noise}")
+        out.append((rid, err, noise))
+    return out
+
+
+def av_family_phase(arch: str, dev) -> dict:
+    """``arch`` (whisper-medium or internvl2-26b) at full width and depth:
+    seeded bf16 weights drawn on the card; AV_REQUESTS requests served by
+    ``av_serve`` eagerly and then graphed, each run held to
+    ``check_av_run``; graphed must equal eager, token for token and logit
+    for logit.  Frees the weights."""
+    cfg, params, init_s = lm_params(dev, arch)
+    n_params = sum(p.numel() for p in params.parameters())
+    if cfg.family == "audio":
+        frames = seeded_bf16((AV_REQUESTS, cfg.n_frontend_tokens,
+                              cfg.frontend_dim), 21, dev)
+        prompt = torch.full((AV_REQUESTS, 1), WHISPER_BOS, dtype=torch.int64,
+                            device=dev)
+        inputs = {"frames": frames, "tokens": prompt}
+        new, max_len, k6 = WHISPER_NEW_TOKENS, WHISPER_MAX_LEN, cfg.n_enc_layer
+
+        def plain(rid, toks, dtype):
+            tokens = torch.cat([prompt[rid], toks[:-1].to(dev)])[None]
+            return plain_whisper_logits(params, cfg, frames[rid:rid + 1],
+                                        tokens, dtype)
+    else:
+        patches = seeded_bf16((AV_REQUESTS, cfg.n_frontend_tokens,
+                               cfg.frontend_dim), 22, dev)
+        rng = np.random.default_rng(22)
+        prompt = torch.as_tensor(rng.integers(0, cfg.vocab, (AV_REQUESTS,
+                                                             VLM_PROMPT)),
+                                 dtype=torch.int64, device=dev)
+        inputs = {"patches": patches, "tokens": prompt}
+        new, max_len, k6 = VLM_NEW_TOKENS, VLM_MAX_LEN, cfg.n_layer
+        start = cfg.n_frontend_tokens + VLM_PROMPT - 1
+
+        def plain(rid, toks, dtype):
+            tokens = torch.cat([prompt[rid], toks[:-1].to(dev)])[None]
+            return plain_vlm_logits(params, cfg, patches[rid:rid + 1],
+                                    tokens, start, dtype)
+    refs, runs, row = {}, {}, {"params": n_params, "init_s": init_s}
+    for tag, use in (("eager", False), ("graphed", True)):
+        run = av_serve(cfg, params, dev, inputs, new, max_len, graphs=use)
+        errs = check_av_run(cfg, run, plain, refs, k6, new)
+        dec = sorted(run["decode_s"])
+        total = AV_REQUESTS * new
+        # a decode step reads every weight and the whole cache at least once
+        read = sum(p.numel() * p.element_size() for p in params.parameters())
+        row[tag] = {
+            "k6_launches_a_prefill": run["k6_prefill"],
+            "time_to_first_token_s": run["prefill_s"],
+            "decode_step_median_ms": 1e3 * dec[len(dec) // 2],
+            "decode_step_ms_range": [1e3 * dec[0], 1e3 * dec[-1]],
+            "decode_step_bound_ms": 1e3 * (read + run["cache_bytes"])
+            / PEAK_BYTES,
+            "tokens_per_s": total / run["wall_s"], "wall_s": run["wall_s"],
+            "warm_s": run["warm_s"], "peak_gib": run["peak_gib"],
+            "reserved_gib": run["reserved_gib"], "logits_vs_fp32": errs}
+        print(f"[av path {tag}] {arch} ({cfg.n_layer} layers"
+              + (f" + {cfg.n_enc_layer} encoder" if cfg.n_enc_layer else "")
+              + f", d {cfg.d_model}, {n_params / 1e9:.3f} B parameters, bf16 "
+              f"weights drawn in {init_s:.1f}s): {AV_REQUESTS} requests x "
+              f"{new} tokens, cache {max_len}: {json.dumps(row[tag])}",
+              flush=True)
+        runs[tag] = run
+    e, g = runs["eager"], runs["graphed"]
+    differ = int((e["tokens"] != g["tokens"]).sum())
+    d_logits = (e["logits"] - g["logits"]).abs().max().item()
+    row["graphed_vs_eager"] = {"tokens_differ": differ,
+                               "max_logits_diff": d_logits}
+    print(f"[av family] {arch}: graphed vs eager {differ} of "
+          f"{AV_REQUESTS * new} tokens differ, max |logits diff| "
+          f"{d_logits:.6g}", flush=True)
+    if differ or d_logits != 0.0:
+        raise AssertionError(f"{arch}: graphed serving differs from eager")
+    del params, runs, e, g, refs
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_train_phase(dev) -> dict:
+    """whisper-medium training at full width and depth on one fixed batch
+    (TRAIN_LM_BATCH x TRAIN_LM_SEQ tokens of ``token_batch``, seeded frames),
+    ``remat="layer"``, fp32 masters drawn on the card: the first step's
+    loss and global gradient norm on the kernel path against the plain path
+    (chunked attention) on the same weights, then TRAIN_LM_STEPS eager
+    steps of ``make_lm_train_step`` (AdamW at a constant TRAIN_LM_LR,
+    clip_norm 1.0), K6 launched ``whisper_train_k6`` times each."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.models.lmconfig import with_kernels
+    from repro_torch.train.optim import adamw, global_norm
+    from repro_torch.train.trainstep import (init_lm_state,
+                                             lm_value_and_grad,
+                                             make_lm_train_step)
+    cfg = dataclasses.replace(with_kernels(configs.get_config(WHISPER_ARCH)),
+                              remat="layer")
+    lm = get_model(cfg)
+    want_k6 = whisper_train_k6(cfg)
+    print(f"[lm train] {WHISPER_ARCH}: K6 predicted {want_k6} launches a "
+          f"step ({attention_calls(cfg)} attention calls forward, each again "
+          f"in the remat recompute)", flush=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = lm.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    b = token_batch(0, 0, TRAIN_LM_BATCH, TRAIN_LM_SEQ, cfg.vocab)
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "labels": torch.as_tensor(b["labels"], device=dev),
+             "frames": seeded_bf16((TRAIN_LM_BATCH, cfg.n_frontend_tokens,
+                                    cfg.frontend_dim), 23, dev)}
+
+    def first(c):
+        ops.reset_launch_counts()
+        loss, grads = lm_value_and_grad(lm, c, model, batch)
+        counts = ops.launch_counts()
+        finite = all(bool(torch.isfinite(g).all()) for g in grads.values())
+        return loss.item(), global_norm(grads).item(), finite, counts
+
+    loss_k, norm_k, fin_k, counts = first(cfg)
+    loss_p, norm_p, fin_p, _ = first(dataclasses.replace(
+        cfg, attention_impl="chunked"))
+    want = {k: 0 for k in counts}
+    want["flash_attention_fwd"] = want_k6
+    row = {"params": sum(p.numel() for p in model.parameters()),
+           "init_s": init_s, "loss": [loss_k, loss_p],
+           "grad_norm": [norm_k, norm_p], "first_step_launches": counts}
+    print(f"[lm train] {WHISPER_ARCH} first step, kernel vs plain path: "
+          f"loss {loss_k:.6f} / {loss_p:.6f}, global grad norm "
+          f"{norm_k:.6f} / {norm_p:.6f}; launches {counts}", flush=True)
+    if not (fin_k and fin_p and np.isfinite([loss_k, loss_p, norm_k,
+                                             norm_p]).all()):
+        raise AssertionError(f"{WHISPER_ARCH}: non-finite loss or gradient")
+    if abs(loss_k - loss_p) > TRAIN_LM_LOSS_RTOL * abs(loss_p) or \
+            abs(norm_k - norm_p) > TRAIN_LM_GNORM_RTOL * abs(norm_p):
+        raise AssertionError(f"{WHISPER_ARCH}: the kernel path's first step "
+                             f"left the plain path's bounds")
+    if counts != want:
+        raise AssertionError(f"{WHISPER_ARCH}: launches {counts} != {want}")
+    opt = adamw(TRAIN_LM_LR, clip_norm=1.0)
+    step = make_lm_train_step(lm, cfg, opt)
+    state = init_lm_state(model, opt)
+    losses, walls = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(TRAIN_LM_STEPS):
+        ops.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = metrics["loss"].item()
+        walls.append(time.perf_counter() - t0)
+        losses.append(loss)
+        if ops.launch_counts() != want or not np.isfinite(loss):
+            raise AssertionError(f"{WHISPER_ARCH} step: loss {loss}, "
+                                 f"launches {ops.launch_counts()}")
+    if not all(bool(torch.isfinite(p).all()) for p in model.parameters()):
+        raise AssertionError(f"{WHISPER_ARCH}: non-finite parameters")
+    row.update(losses=losses, step_s=walls, k6_launches_a_step=want_k6,
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+               reserved_gib=torch.cuda.memory_reserved() / 2 ** 30)
+    print(f"[lm train] {WHISPER_ARCH} ({cfg.n_enc_layer} + {cfg.n_layer} "
+          f"layers, remat=layer, batch "
+          f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens over "
+          f"{cfg.n_frontend_tokens} frames, AdamW {TRAIN_LM_LR}): "
+          f"{json.dumps(row)}", flush=True)
+    del model, state, step, opt, batch
+    torch.cuda.empty_cache()
+    return row
+
+
+def lm_launcher_phase() -> dict:
+    """``launch.train --arch <a> LAUNCH_ARGS`` for each of LAUNCH_ARCHS, in
+    this process: on the card (K6 launched once per attention call a step)
+    and with ``--device cpu``; each step's loss within LAUNCH_RTOL relative
+    of the CPU's (the weights come from a CPU generator and the batches
+    from ``token_batch``, so both see the same inputs)."""
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    rows = {}
+    for arch in LAUNCH_ARCHS:
+        argv = ["--arch", arch, *LAUNCH_ARGS]
+        steps = int(LAUNCH_ARGS[LAUNCH_ARGS.index("--steps") + 1])
+        want_k6 = steps * attention_calls(configs.get_smoke_config(arch))
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        card = train.main(argv)
+        card_s = time.perf_counter() - t0
+        k6 = ops.launch_counts()["flash_attention_fwd"]
+        cpu = train.main(argv + ["--device", "cpu"])
+        rel = max(abs(card[s] - cpu[s]) / abs(cpu[s]) for s in cpu)
+        rows[arch] = {"card": card, "cpu": cpu, "max_rel": rel,
+                      "k6_launches": k6, "card_s": card_s}
+        print(f"[lm launcher] {arch}: {json.dumps(rows[arch])}", flush=True)
+        if sorted(card) != list(range(steps)) or sorted(cpu) != sorted(card):
+            raise AssertionError(f"{arch}: steps {sorted(card)} / "
+                                 f"{sorted(cpu)}")
+        if not rel <= LAUNCH_RTOL:
+            raise AssertionError(f"{arch}: card losses {card} vs CPU {cpu}")
+        if k6 != want_k6:
+            raise AssertionError(f"{arch}: K6 launched {k6} times, the "
+                                 f"path's {want_k6}")
+    return rows
+
+
+def av_phase(dev) -> dict:
+    """Phase 11c: (a) K6 at the new shapes, (b) whisper-medium and (c)
+    internvl2-26b serving, (d) whisper-medium training, (e) the train
+    launcher for every family."""
+    from repro_torch import configs
+    t0 = time.perf_counter()
+    rows, tot = check_flash_attention(dev, av_kernel_shapes(
+        configs.get_config(WHISPER_ARCH), configs.get_config(VLM_ARCH)))
+    for row in rows:
+        print(f"[av kernel] flash_attention_fwd {json.dumps(row)}", flush=True)
+    out = {"k6_rows": rows}
+    for arch in (WHISPER_ARCH, VLM_ARCH):
+        out[arch] = av_family_phase(arch, dev)
+    out["train"] = whisper_train_phase(dev)
+    out["launcher"] = lm_launcher_phase()
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[av phase] wall {out['wall_s']:.1f} s", flush=True)
+    return out
+
+
 # phase 12: static analysis
 LINT_TIMEOUT_S = 300
 
@@ -3494,6 +3983,10 @@ def main() -> int:
         stamp(f"phase 11b {arch}")
     fold_launcher_phase()
     stamp("phase 11b")
+    # phase 11c: whisper-medium and internvl2-26b serving, whisper-medium
+    # training, the train launcher for every LM family
+    av = av_phase(dev)
+    stamp("phase 11c")
     lint_phase(dev, card)
     stamp("phase 12")
 
@@ -3555,6 +4048,20 @@ def main() -> int:
         "library_ms": d112_tot["library_ms"],
         "per": "the prefills of phase 11b's zamba2-7b path (4 prompts x "
                "14 shared-block invocations)"}
+    # K6 on phase 11c's paths: launches a prefill (whisper's encoder,
+    # internvl2's layers) and a whisper training step, and its times at
+    # those shapes
+    kernels[-1]["launches_by_path"].update({
+        f"{WHISPER_ARCH} prefill": av[WHISPER_ARCH]["graphed"][
+            "k6_launches_a_prefill"],
+        f"{VLM_ARCH} prefill": av[VLM_ARCH]["graphed"][
+            "k6_launches_a_prefill"],
+        f"{WHISPER_ARCH} train step": av["train"]["k6_launches_a_step"]})
+    kernels[-1]["phase_11c_shapes"] = {
+        r["shape"]: {k: r[k] for k in ("launches", "max_abs_err", "ms",
+                                       "plain_ms", "bound_ms", "bound_by",
+                                       "library_ms")}
+        for r in av["k6_rows"]}
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

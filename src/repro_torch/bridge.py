@@ -9,7 +9,9 @@ over stacked params) is split across the port's ``ModuleList``:
 ``evoformer.w`` of shape (n, ...) becomes ``evoformer.0.w`` ... ``evoformer.<n-1>.w``
 (an LM's scanned ``layers`` likewise, with ``stacked=LM_STACKED``: a MoE's
 expert banks (L, E_pad, d, f) become ``layers.<i>.moe.w_gate`` (E_pad, d,
-f); the hybrid's ``shared`` block is one block, not a stack).
+f); the hybrid's ``shared`` block is one block, not a stack; whisper's
+``enc_layers`` and ``dec_layers`` are two stacks; the VLM's ``projector``
+is no stack).
 The reference's ``OptState`` (``step``, ``mu``, ``nu``; ``mu``/``nu`` trees
 like the params) and its EMA tree become the port's ``train.optim.OptState``
 and EMA dict, keyed like ``model.named_parameters()``.
@@ -20,7 +22,8 @@ import numpy as np
 import torch
 
 STACKED = ("extra_stack", "evoformer")
-LM_STACKED = ("layers",)     # the LM zoo's scanned layer stack
+# the LM zoo's scanned layer stacks
+LM_STACKED = ("layers", "enc_layers", "dec_layers")
 
 
 def flatten(tree: dict, prefix: str = "") -> dict:

@@ -1,6 +1,8 @@
-"""Training launcher of the PyTorch port: ``TrainRunner`` on one device or
-over rank processes under a ``ParallelPlan``, every attention and triangle
-update on the hand-written kernels.
+"""Training launcher of the PyTorch port: AlphaFold2 (``--af2``) through
+``TrainRunner`` on one device or over rank processes under a
+``ParallelPlan``, every attention and triangle update on the hand-written
+kernels; or an LM of the zoo (``--arch``) through ``make_lm_train_step`` on
+one device, its attention on the flash kernel K6.
 
   # on the GPU (the default device)
   PYTHONPATH=src python -m repro_torch.launch.train --af2 initial --steps 3 --batch 1
@@ -24,6 +26,10 @@ update on the hand-written kernels.
   # static analysis first: lint this launch's plan (refuse to train on an
   # unwaived finding), and record the async-overlap verdict of the step
   PYTHONPATH=src python -m repro_torch.launch.train --af2 tiny --steps 2 --batch 1 --device cpu --devices 2 --bp 2 --lint --hlo-check
+  # an LM at its reduced (smoke) size; any of the ten arch ids
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium --smoke --steps 3 --batch 2 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke --steps 2 --batch 2 --seq 32 --device cpu --ckpt-dir runs/glm --ckpt-every 1
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke --steps 4 --batch 2 --seq 32 --device cpu --ckpt-dir runs/glm --resume
 
 ``--devices N`` spawns N rank processes (the reference's fake host
 devices); the backend and the route of every collective kind are printed.
@@ -42,6 +48,15 @@ baseline does not waive.  ``--hlo-check`` (the reference's name) has the
 runner trace its step once before the first and record the async-overlap
 verdict as ``train/async_overlap_ok``.  The reference's
 ``--print-tpu-env`` prints TPU XLA flags and has no counterpart.
+
+``--arch`` runs the reference's ``run_lm``: AdamW on a warm-up cosine
+schedule (20 steps) with the gradient clipped at norm 1, ``token_batch``
+through a ``ShardedLoader``, checkpoints of the parameters and moments,
+and a ``StepWatchdog``.  Whisper's frames and InternVL2's patches are drawn
+from a CPU ``torch.Generator`` seeded with the step (JAX's PRNG cannot be
+reproduced without JAX), so a run on the card and one on the CPU see the
+same inputs, as they see the same weights.  One device only: ``--devices``
+above 1 is refused until the LM partition rules are ported.
 """
 from __future__ import annotations
 
@@ -52,8 +67,14 @@ import time
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--af2", choices=["tiny", "small", "initial"],
-                    required=True, help="AF2 config")
+    what = ap.add_mutually_exclusive_group(required=True)
+    what.add_argument("--af2", choices=["tiny", "small", "initial"],
+                      help="AF2 config")
+    what.add_argument("--arch", help="LM arch id (repro_torch.configs)")
+    ap.add_argument("--smoke", action="store_true",
+                    help="--arch: the reduced config of the same family")
+    ap.add_argument("--seq", type=int, default=128,
+                    help="--arch: tokens a sequence")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -146,6 +167,11 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.parallel import ranks
     device_type = resolve_device(args.device).type
+    if args.arch:
+        if args.devices > 1 or "WORLD_SIZE" in os.environ:
+            raise SystemExit("--arch trains on one device: the LM partition "
+                             "rules (tensor parallelism) are not ported yet")
+        return run_lm(args)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world, device, backend = ranks.from_env(device_type,
                                                       args.rank_timeout)
@@ -346,6 +372,89 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     if writer and args.metrics_out:
         print_(f"metrics: JSONL stream -> {args.metrics_out}")
     return runner
+
+
+def run_lm(args) -> dict:
+    """The reference's ``run_lm`` on one device; returns {step: loss} of the
+    steps this run took."""
+    import torch
+
+    from repro_torch import bridge
+    from repro_torch import configs as cfglib
+    from repro_torch.data.loader import ShardedLoader
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.device import resolve_device
+    from repro_torch.models import get_model
+    from repro_torch.models.lmconfig import with_kernels
+    from repro_torch.nn.layers import count_params
+    from repro_torch.train.checkpoint import (CheckpointManager, StepWatchdog,
+                                              train_state_tree)
+    from repro_torch.train.optim import adamw, warmup_cosine
+    from repro_torch.train.trainstep import init_lm_state, make_lm_train_step
+
+    try:
+        cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
+               else cfglib.get_config(args.arch))
+    except KeyError as e:
+        raise SystemExit(str(e))
+    cfg = with_kernels(cfg)
+    dev = resolve_device(args.device)
+    lm = get_model(cfg)
+    opt = adamw(warmup_cosine(args.lr, 20, args.steps), clip_norm=1.0)
+    step_fn = make_lm_train_step(lm, cfg, opt)
+    # drawn on the CPU: the card and the CPU train the same weights
+    model = lm.init_params(cfg, seed=0, device="cpu").to(dev)
+    print(f"{cfg.arch_id}: {count_params(model):,} params (smoke="
+          f"{args.smoke}) on {dev}")
+    state = init_lm_state(model, opt)
+    tree = lambda: train_state_tree(state, stacked=bridge.LM_STACKED)
+
+    def make_batch(step):
+        b = token_batch(0, step, args.batch, args.seq, cfg.vocab)
+        out = {"tokens": torch.as_tensor(b["tokens"]),
+               "labels": torch.as_tensor(b["labels"])}
+        key = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+        if key:
+            g = torch.Generator().manual_seed(step)
+            out[key] = torch.randn(
+                (args.batch, cfg.n_frontend_tokens, cfg.frontend_dim),
+                generator=g).to(torch.bfloat16)
+        return out
+
+    mgr = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
+    start = 0
+    if mgr and args.resume:
+        try:
+            restored, start = mgr.restore_latest(tree())
+            state["opt"] = state["opt"]._replace(step=int(restored["opt"].step))
+            print(f"resumed from step {start}")
+        except FileNotFoundError:
+            pass
+    wd = StepWatchdog()
+    loader = ShardedLoader(make_batch, start_step=start)
+    losses = {}
+    try:
+        for step, batch in loader:
+            if step >= args.steps:
+                break
+            batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
+            wd.start_step()
+            state, metrics = step_fn(state, batch)
+            loss = float(metrics["loss"])
+            wd.end_step(step)
+            losses[step] = loss
+            if step % args.log_every == 0:
+                tokps = args.batch * args.seq / max(wd.ema or 1e-9, 1e-9)
+                print(f"step {step:5d}  loss {loss:.4f}  ({tokps:,.0f} tok/s)")
+            if mgr and step and step % args.ckpt_every == 0:
+                mgr.save(step, tree())
+    finally:
+        loader.close()
+    if mgr:
+        mgr.save(args.steps, tree())
+        mgr.wait()
+    print("done")
+    return losses
 
 
 if __name__ == "__main__":

@@ -1,14 +1,16 @@
 """LM model zoo of the port.  ``get_model(cfg)`` returns the module that
-implements the family's serving API: init_params / forward / init_cache /
-prefill / decode_step.  The dense, moe, ssm and hybrid families are
-ported; audio (whisper) and vlm (internvl2) are not."""
+implements the family: init_params / forward / loss / init_cache / prefill /
+decode_step.  The audio family is ``whisper``, the vlm family ``vlm``."""
+import importlib
+
 from repro_torch.models.lmconfig import LMConfig  # noqa: F401
+
+_MODULES = {"dense": "dense", "moe": "moe", "ssm": "ssm", "hybrid": "hybrid",
+            "audio": "whisper", "vlm": "vlm"}
 
 
 def get_model(cfg: LMConfig):
-    if cfg.family in ("dense", "moe", "ssm", "hybrid"):
-        import importlib
-        return importlib.import_module(f"repro_torch.models.{cfg.family}")
-    raise NotImplementedError(
-        f"the {cfg.family!r} family ({cfg.arch_id}) is not ported yet: "
-        "ROADMAP.md queue 1, item 3 (LM zoo: whisper and internvl2 serving)")
+    if cfg.family not in _MODULES:
+        raise ValueError(f"unknown LM family {cfg.family!r} ({cfg.arch_id})")
+    return importlib.import_module(
+        f"repro_torch.models.{_MODULES[cfg.family]}")

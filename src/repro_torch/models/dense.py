@@ -1,8 +1,8 @@
 """Dense decoder-only transformer (GQA + RoPE + SwiGLU + RMSNorm):
 glm4-9b, qwen1.5-110b (QKV bias), deepseek-67b, deepseek-coder-33b.
-Counterpart of ``repro/models/dense.py``, serving functions only
-(``bp_parallel_layer``, ``loss`` and ``partition_rules`` come with the LM
-training and tensor-parallel slices).
+Counterpart of ``repro/models/dense.py``: serving and the training loss
+(``bp_parallel_layer`` and ``partition_rules`` come with the
+tensor-parallel slice).
 
 Parameters live in a :class:`DenseLM` under the reference's key paths
 (``embed.table``, ``layers.<i>.wq.w``, ``layers.<i>.mlp.w_gate.w``,
@@ -21,6 +21,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lmconfig import LMConfig
@@ -114,11 +115,30 @@ def layer_apply(p: Layer, cfg: LMConfig, x, positions, *, causal=True,
     return x.to(att.dtype), kv
 
 
+def remat(cfg: LMConfig, fn):
+    """``fn`` under ``cfg.remat``: for ``"layer"``, while autograd records,
+    one ``torch.utils.checkpoint`` a call (the reference's ``jax.checkpoint``
+    of its scanned layer body): the call keeps only its inputs, and the
+    backward recomputes its forward."""
+    if cfg.remat != "layer":
+        return fn
+
+    def ckpt(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        # nothing in a layer draws from torch's generators
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return ckpt
+
+
 def backbone(params: DenseLM, cfg: LMConfig, x, positions, *, causal=True):
-    """Run the layer stack on embeddings x (B, S, D).  No rematerialisation:
-    the port's LM path is forward-only."""
+    """Run the layer stack on embeddings x (B, S, D), each layer under
+    :func:`remat`."""
+    one = remat(cfg, lambda lp, x: layer_apply(lp, cfg, x, positions,
+                                               causal=causal)[0])
     for lp in params.layers:
-        x, _ = layer_apply(lp, cfg, x, positions, causal=causal)
+        x = one(lp, x)
     return rmsnorm(params.ln_f, x)
 
 
@@ -134,12 +154,31 @@ def _positions(b: int, s: int, device):
 
 
 def forward(params: DenseLM, cfg: LMConfig, tokens):
-    """tokens (B, S) -> logits (B, S, V), in bf16."""
-    params = BF16.cast(params)
+    """tokens (B, S) -> logits (B, S, V), in bf16 (the cast through
+    autograd: gradients reach the fp32 masters)."""
+    params = BF16.cast_train(params)
     b, s = tokens.shape
     x = params.embed.table[tokens.long()]
     x = backbone(params, cfg, x, _positions(b, s, x.device))
     return logits_fn(params, cfg, x)
+
+
+def cross_entropy(logits, labels, *, mask=None):
+    """Mean next-token negative log-likelihood: the log-sum-exp in fp32,
+    the label's logit in the logits' dtype; with ``mask`` (B, S) the mean
+    over its weight (at least 1)."""
+    lse = torch.logsumexp(logits.float(), dim=-1)
+    label_logit = logits.gather(-1, labels.long()[..., None])[..., 0].float()
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def loss(params: DenseLM, cfg: LMConfig, batch: dict):
+    logits = forward(params, cfg, batch["tokens"])
+    return cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Zamba2-style hybrid (arXiv:2411.15242): counterpart of
-``repro/models/hybrid.py``, serving functions only (``loss`` and
-``partition_rules`` come with the LM training and tensor-parallel slices).
+``repro/models/hybrid.py`` (``partition_rules`` comes with the
+tensor-parallel slice).
 
 A Mamba2 backbone (``ssm.Block``) plus one weight-SHARED attention block
 applied after every layer i with ``i % shared_attn_every == 0``: it reads
@@ -107,23 +107,35 @@ def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
 
 def backbone(params: HybridLM, cfg: LMConfig, x, positions):
     """The stack on token embeddings x (B, S, D) (also the shared block's
-    x0), then ``ln_f``."""
-    x0 = x
-    for i, lp in enumerate(params.layers):
+    x0), each layer with its shared-block invocation under
+    ``dense.remat``, then ``ln_f``."""
+    def one(lp, x, x0, shared: bool):
         x = (x + ssm.block_apply(lp, cfg, x)).to(x.dtype)
-        if shared_at(cfg, i):
+        if shared:
             upd, _ = shared_block_apply(params.shared, cfg, x, x0, positions)
             x = (x + upd).to(x.dtype)
+        return x
+
+    one = dense.remat(cfg, one)
+    x0 = x
+    for i, lp in enumerate(params.layers):
+        x = one(lp, x, x0, shared_at(cfg, i))
     return rmsnorm(params.ln_f, x)
 
 
 def forward(params: HybridLM, cfg: LMConfig, tokens):
     """tokens (B, S) -> logits (B, S, V), in bf16."""
-    params = BF16.cast(params)
+    params = BF16.cast_train(params)
     b, s = tokens.shape
     x = params.embed.table[tokens.long()]
     x = backbone(params, cfg, x, dense._positions(b, s, x.device))
     return dense_apply(params.lm_head, x)
+
+
+def loss(params: HybridLM, cfg: LMConfig, batch: dict):
+    logits = forward(params, cfg, batch["tokens"])
+    return dense.cross_entropy(logits, batch["labels"],
+                               mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

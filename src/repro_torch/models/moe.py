@@ -1,15 +1,18 @@
 """Mixture-of-Experts transformer (qwen2-moe, phi3.5-moe): counterpart of
-``repro/models/moe.py``, serving functions only.
+``repro/models/moe.py`` (``partition_rules`` comes with the tensor-parallel
+slice).
 
 Dense attention (``dense.attention_block``) plus a top-k routed FFN whose
 expert banks are padded for even expert-parallel sharding (qwen2-moe: 60
 routed experts in 64 bank slots) and, for qwen2-moe, always-active shared
 experts as a parallel SwiGLU branch.  Serving is the reference's dropless
 path (``moe_ffn_dense``): every bank expert is evaluated and weighted by
-the sparse top-k gates, so no token is dropped.  The capacity dispatch of
-training (``moe_ffn``, ``capacity_dispatch``, ``sorted_dispatch``, the
-router's auxiliary loss) comes with the LM training slice (ROADMAP.md queue
-1, item 3) and raises here.
+the sparse top-k gates, so no token is dropped.  Training routes each
+token's top-k choices into expert buffers of ``capacity`` slots
+(``moe_ffn``), by the one-hot dispatch (``capacity_dispatch``,
+``cfg.moe_dispatch="einsum"``) or by a stable sort (``sorted_dispatch``,
+``"sorted"``), which drop the same overflowing choices, and adds the
+router's load-balancing loss.
 
 Parameters live in a :class:`MoELM` under the reference's key paths
 (``layers.<i>.moe.router.w``, ``layers.<i>.moe.w_gate`` of shape (E_pad,
@@ -32,9 +35,6 @@ from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
                                    dense as dense_apply, rmsnorm, swiglu)
 
 BF16 = Policy()
-
-_TRAINING = ("capacity routing is training's (the LM train step, ROADMAP.md "
-             "queue 1, item 3); serving runs the dropless moe_ffn_dense")
 
 
 # ---------------------------------------------------------------------------
@@ -117,16 +117,101 @@ def moe_ffn_dense(p: MoEFFN, cfg: LMConfig, x):
     return y
 
 
-def moe_ffn(p, cfg: LMConfig, x, **kw):
-    raise NotImplementedError(f"moe_ffn: {_TRAINING}")
-
-
 def capacity_dispatch(idx, gates, n_experts: int, capacity: int):
-    raise NotImplementedError(f"capacity_dispatch: {_TRAINING}")
+    """The one-hot dispatch (T, E, C) and combine (T, E, C) tensors.  A
+    choice's position in its expert's buffer is the count of earlier
+    choices of that expert in the flattened (k, T) order (every token's
+    first choice before any second); choices at positions past
+    ``capacity`` are dropped (their residual passes through)."""
+    t, k = idx.shape
+    flat_idx = idx.T.reshape(-1)                             # (kT,)
+    onehot = F.one_hot(flat_idx, n_experts)                  # (kT, E)
+    pos = ((torch.cumsum(onehot, 0) - 1) * onehot).sum(-1)   # (kT,)
+    keep = pos < capacity
+    # jax.nn.one_hot gives a zero row past ``capacity``; those rows are
+    # dropped here
+    pos_oh = (F.one_hot(torch.clamp(pos, max=capacity - 1), capacity)
+              .float() * keep[:, None])
+    disp = onehot.float()[:, :, None] * pos_oh[:, None, :]  # (kT, E, C)
+    disp = disp.reshape(k, t, n_experts, capacity)
+    combine = disp * gates.T.reshape(k, t, 1, 1)
+    return disp.sum(0), combine.sum(0)
 
 
 def sorted_dispatch(idx, gates, xf, n_experts: int, capacity: int):
-    raise NotImplementedError(f"sorted_dispatch: {_TRAINING}")
+    """The capacity dispatch of :func:`capacity_dispatch` by a stable sort
+    of the choices by expert and one scatter: returns (xe (E, C, D),
+    slot_by_tk (k, T), keep_by_tk (k, T)), each choice's buffer slot and
+    whether it was kept, so that the combine is a gather."""
+    t, k = idx.shape
+    d = xf.shape[-1]
+    flat_e = idx.T.reshape(-1)                               # (kT,)
+    order = torch.sort(flat_e, stable=True).indices          # by expert
+    sorted_e = flat_e[order]
+    ranks = torch.arange(t * k, device=idx.device)
+    experts = torch.arange(n_experts, device=idx.device,
+                           dtype=sorted_e.dtype)
+    seg_start = torch.searchsorted(sorted_e, experts, side="left")
+    pos_sorted = ranks - seg_start[sorted_e]
+    keep_sorted = pos_sorted < capacity
+    token_sorted = order % t
+    slot_sorted = sorted_e * capacity + torch.clamp(pos_sorted,
+                                                    max=capacity - 1)
+    # dropped choices add zeros into their expert's last slot
+    src = torch.where(keep_sorted[:, None], xf[token_sorted],
+                      torch.zeros((), dtype=xf.dtype, device=xf.device))
+    xe = torch.zeros((n_experts * capacity, d), dtype=xf.dtype,
+                     device=xf.device).index_add(0, slot_sorted, src)
+    inv = torch.empty_like(order)
+    inv[order] = ranks
+    return (xe.reshape(n_experts, capacity, d),
+            slot_sorted[inv].reshape(k, t), keep_sorted[inv].reshape(k, t))
+
+
+def _expert_ffn(p: MoEFFN, xe):
+    """Each bank expert's SwiGLU on its buffer: xe (E, C, D) -> (E, C, D)."""
+    xe, wg, wu, wd = _promoted(xe, p.w_gate, p.w_up, p.w_down)
+    return torch.matmul(F.silu(torch.matmul(xe, wg)) * torch.matmul(xe, wu),
+                        wd)
+
+
+def expert_capacity(cfg: LMConfig, t: int) -> int:
+    """Slots of each expert's buffer for ``t`` tokens."""
+    return int(cfg.capacity_factor * cfg.top_k * t / cfg.n_experts + 1)
+
+
+def moe_ffn(p: MoEFFN, cfg: LMConfig, x, *, return_aux: bool = False):
+    """Training's capacity-routed MoE: x (B, S, D) -> (B, S, D), with
+    ``return_aux`` also the Switch/GShard load-balancing loss E * sum_e f_e
+    P_e (f_e the share of first choices, P_e the mean router
+    probability)."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    logits = dense_apply(p.router, xf)                       # (T, E)
+    gates, idx, probs = router_topk(logits, cfg.top_k)
+    cap = expert_capacity(cfg, t)
+    e_pad = padded_experts(cfg)
+    if cfg.moe_dispatch == "sorted":
+        xe, slot_by_tk, keep_by_tk = sorted_dispatch(idx, gates, xf, e_pad,
+                                                     cap)
+        he = _expert_ffn(p, xe).reshape(e_pad * cap, d)
+        picked = he[slot_by_tk]                              # (k, T, D)
+        w = (gates.T * keep_by_tk).to(x.dtype)               # (k, T)
+        y = torch.einsum("kt,ktd->td", *_promoted(w, picked))
+    else:   # 'einsum': the GShard one-hot dispatch
+        disp, combine = capacity_dispatch(idx, gates, e_pad, cap)
+        xe = torch.einsum("tec,td->ecd", *_promoted(disp.to(x.dtype), xf))
+        he = _expert_ffn(p, xe)
+        y = torch.einsum("tec,ecd->td", *_promoted(combine.to(x.dtype), he))
+    y = y.reshape(b, s, d)
+    if cfg.n_shared_experts:
+        y = y + swiglu(p.shared, x)
+    if not return_aux:
+        return y
+    me = probs.mean(0)
+    fe = F.one_hot(idx[:, 0], cfg.n_experts).float().mean(0)
+    return y, cfg.n_experts * (me * fe).sum()
 
 
 # ---------------------------------------------------------------------------
@@ -180,29 +265,55 @@ def _dropless_layer(lp: Layer, cfg: LMConfig, x, positions):
     return x.to(att.dtype), kv
 
 
+def _layer(lp: Layer, cfg: LMConfig, x, positions):
+    """Training's layer: (x, aux)."""
+    att, _ = dense.attention_block(lp, cfg, x, positions)
+    x = x + att
+    y, aux = moe_ffn(lp.moe, cfg, rmsnorm(lp.ln2, x), return_aux=True)
+    return (x + y).to(att.dtype), aux
+
+
+def _stack(params: MoELM, cfg: LMConfig, x, positions, dropless: bool):
+    """The layer stack, each layer under ``dense.remat``, then ``ln_f``:
+    (x, the router losses' sum over the layers; 0 when dropless)."""
+    def one(lp, x):
+        if dropless:
+            return _dropless_layer(lp, cfg, x, positions)[0], aux0
+        return _layer(lp, cfg, x, positions)
+
+    aux0 = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = aux0
+    one = dense.remat(cfg, one)
+    for lp in params.layers:
+        x, a = one(lp, x)
+        aux = aux + a
+    return rmsnorm(params.ln_f, x), aux
+
+
 def backbone(params: MoELM, cfg: LMConfig, x, positions, *,
              dropless: bool = True):
-    """The layer stack on embeddings x (B, S, D), then ``ln_f``; only the
-    dropless (serving) routing."""
-    if not dropless:
-        raise NotImplementedError(f"forward(dropless=False): {_TRAINING}")
-    for lp in params.layers:
-        x, _ = _dropless_layer(lp, cfg, x, positions)
-    return rmsnorm(params.ln_f, x)
+    """The layer stack on embeddings x (B, S, D), then ``ln_f``; by default
+    the dropless (serving) routing."""
+    return _stack(params, cfg, x, positions, dropless)[0]
 
 
 def forward(params: MoELM, cfg: LMConfig, tokens, *, dropless: bool = False):
-    """tokens (B, S) -> (logits (B, S, V) in bf16, aux 0): the reference's
-    ``forward(..., dropless=True)``, inference semantics.  Its default, the
-    capacity routing of training, raises."""
-    if not dropless:
-        raise NotImplementedError(f"forward(dropless=False): {_TRAINING}")
-    params = BF16.cast(params)
+    """tokens (B, S) -> (logits (B, S, V) in bf16, the router loss averaged
+    over the layers): training's capacity routing, or with
+    ``dropless=True`` the inference semantics of prefill and decode (the
+    loss is then 0)."""
+    params = BF16.cast_train(params)
     b, s = tokens.shape
     x = params.embed.table[tokens.long()]
-    x = backbone(params, cfg, x, dense._positions(b, s, x.device))
-    return (dense_apply(params.lm_head, x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    x, aux = _stack(params, cfg, x, dense._positions(b, s, x.device),
+                    dropless)
+    return dense_apply(params.lm_head, x), aux / cfg.n_layer
+
+
+def loss(params: MoELM, cfg: LMConfig, batch: dict):
+    logits, aux = forward(params, cfg, batch["tokens"])
+    ce = dense.cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
+    return ce + cfg.router_aux_weight * aux
 
 
 # serving: the cache layout is dense's

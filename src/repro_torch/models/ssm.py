@@ -1,6 +1,6 @@
 """Mamba2 (SSD, state-space duality, arXiv:2405.21060): counterpart of
-``repro/models/ssm.py``, serving functions only (``loss`` and
-``partition_rules`` come with the LM training and tensor-parallel slices).
+``repro/models/ssm.py`` (``partition_rules`` comes with the
+tensor-parallel slice).
 
 Scalar decay per head: S_t = exp(dt_t A_h) S_{t-1} + dt_t B_t x_t^T;
 y_t = C_t S_t + D_h x_t.  ``ssd_chunked`` is the chunked form (intra-chunk
@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models.dense import cross_entropy, remat
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, dense,
                                    rmsnorm)
@@ -275,18 +276,28 @@ def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
 
 def backbone(params: MambaLM, cfg: LMConfig, x, positions=None, *,
              chunked: bool = True):
-    """The block stack on embeddings x (B, T, D), then ``ln_f``
-    (``positions`` is unused: the blocks read order from the recurrence)."""
+    """The block stack on embeddings x (B, T, D), each block under
+    ``dense.remat``, then ``ln_f`` (``positions`` is unused: the blocks
+    read order from the recurrence)."""
+    def one(lp, x):
+        return (x + block_apply(lp, cfg, x, chunked=chunked)).to(x.dtype)
+
+    one = remat(cfg, one)
     for lp in params.layers:
-        x = (x + block_apply(lp, cfg, x, chunked=chunked)).to(x.dtype)
+        x = one(lp, x)
     return rmsnorm(params.ln_f, x)
 
 
 def forward(params: MambaLM, cfg: LMConfig, tokens, *, chunked: bool = True):
     """tokens (B, T) -> logits (B, T, V), in bf16."""
-    params = BF16.cast(params)
+    params = BF16.cast_train(params)
     x = params.embed.table[tokens.long()]
     return dense(params.lm_head, backbone(params, cfg, x, chunked=chunked))
+
+
+def loss(params: MambaLM, cfg: LMConfig, batch: dict):
+    logits = forward(params, cfg, batch["tokens"])
+    return cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
 
 
 # serving: a recurrent state instead of a KV cache, O(1) a decode step

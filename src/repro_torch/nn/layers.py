@@ -42,6 +42,11 @@ class Policy:
         with torch.no_grad():
             return cast_params(module, self.compute_dtype)
 
+    def cast_train(self, module: nn.Module) -> nn.Module:
+        """As :meth:`cast`, through autograd (:func:`cast_params`): the
+        cast at a training forward's entry."""
+        return cast_params(module, self.compute_dtype)
+
 
 def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """``module`` with its floating parameters cast to ``dtype`` through
@@ -104,10 +109,10 @@ def dense(p: Dense, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 class LayerNorm(nn.Module):
-    def __init__(self, dim: int):
+    def __init__(self, dim: int, *, device=None):
         super().__init__()
-        self.scale = nn.Parameter(torch.ones((dim,)))
-        self.bias = nn.Parameter(torch.zeros((dim,)))
+        self.scale = nn.Parameter(torch.ones((dim,), device=device))
+        self.bias = nn.Parameter(torch.zeros((dim,), device=device))
 
 
 def layernorm(p: LayerNorm, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
@@ -161,6 +166,28 @@ class SwiGLU(nn.Module):
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return dense(p.w_down, F.silu(dense(p.w_gate, x)) * dense(p.w_up, x))
+
+
+class GeluMLP(nn.Module):
+    """``w_in`` (dim, hidden) and ``w_out`` (hidden, dim), both with
+    biases."""
+
+    def __init__(self, dim: int, hidden: int, *, generator: torch.Generator,
+                 device=None):
+        super().__init__()
+        kw = dict(generator=generator, device=device)
+        self.w_in = Dense(dim, hidden, **kw)
+        self.w_out = Dense(hidden, dim, **kw)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation (torch's default
+    is the erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    return dense(p.w_out, gelu(dense(p.w_in, x)))
 
 
 def count_params(module: nn.Module) -> int:

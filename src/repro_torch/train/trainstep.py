@@ -203,3 +203,68 @@ def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *, ranks=None,
         return state, {k: float(v) for k, v in zip(METRICS, out)}
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# LM train step (the reference's make_lm_train_step, one device)
+# ---------------------------------------------------------------------------
+
+def init_lm_state(model: torch.nn.Module, optimizer: Optimizer) -> dict:
+    """LM train state: ``params`` (the model: its parameters are the fp32
+    masters) and ``opt`` (an ``OptState`` over them by key path)."""
+    return {"params": model, "opt": optimizer.init(param_dict(model))}
+
+
+def lm_value_and_grad(lm, cfg, model: torch.nn.Module, batch: dict, *,
+                      microbatch: int = None):
+    """(loss, gradients by key path) of ``lm.loss(model, cfg, batch)``
+    (``lm`` the family's module, ``models.get_model(cfg)``).  With
+    ``microbatch`` = n > 1 the batch's leading axis is split into n equal
+    parts, their losses and fp32 gradients summed and divided by n, as the
+    reference's scan over microbatches does."""
+    params = param_dict(model)
+    keys, leaves = list(params), list(params.values())
+
+    def one(part):
+        loss = lm.loss(model, cfg, part)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(leaves, grads)]
+
+    if not microbatch or microbatch <= 1:
+        loss, grads = one(batch)
+    else:
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        for i in range(microbatch):
+            part = {k: v.reshape(microbatch, v.shape[0] // microbatch,
+                                 *v.shape[1:])[i] for k, v in batch.items()}
+            l, g = one(part)
+            loss = loss + l
+            for acc, gi in zip(grads, g):
+                acc.add_(gi.float())
+        loss = loss / microbatch
+        grads = [g / microbatch for g in grads]
+    return loss, dict(zip(keys, grads))
+
+
+def make_lm_train_step(lm, cfg, optimizer: Optimizer, *,
+                       microbatch: int = None):
+    """Returns ``train_step(state, batch) -> (state, {"loss": 0-d
+    tensor})``: value and gradient of the family's ``loss``
+    (:func:`lm_value_and_grad`), then ``optimizer.update``, which writes the
+    parameters and moments of ``state`` in place and advances its step.
+
+    One device: the reference's ``constrain`` (sharding constraints at the
+    layer boundaries) is the identity here, and its ``state_shardings`` /
+    batch sharding have no counterpart until the LM partition rules are
+    ported."""
+    def train_step(state: dict, batch: dict):
+        loss, grads = lm_value_and_grad(lm, cfg, state["params"], batch,
+                                        microbatch=microbatch)
+        _, state["opt"] = optimizer.update(grads, state["opt"],
+                                           param_dict(state["params"]))
+        return state, {"loss": loss}
+
+    return train_step

@@ -1,7 +1,9 @@
 """The port's Evoformer block against the JAX block, at af2_tiny widths.
 
-Same randomized JAX params (carried by ``repro_torch.bridge``) and the same
-numpy inputs on both sides.  JAX runs its ``chunked`` impls (its Pallas
+Same randomized params on both sides (the port's block init plus N(0,
+0.02) numpy noise, carried into the reference's layout by
+``repro_torch.bridge``; ``tests/test_torch_bridge.py`` pins the port's
+init to the reference's shapes and rules) and the same numpy inputs.  JAX runs its ``chunked`` impls (its Pallas
 kernels do not run on the installed JAX); the port runs ``evo_pallas`` /
 ``pallas``, which on CPU tensors are the kernels' plain versions.
 
@@ -24,12 +26,12 @@ from repro.core import evoformer as jevo
 from repro.core.config import af2_tiny
 from repro.nn import layers as jnn
 
+from repro_torch import bridge
 from repro_torch.core import evoformer as tevo
 from repro_torch.core.config import EvoformerConfig
 from repro_torch.nn.layers import Policy
 
-from torch_util import load_into, to_np
-from util import randomize
+from torch_util import load_into, randomize_np, to_np
 
 CFG = af2_tiny()
 S, R = CFG.n_seq, CFG.n_res
@@ -37,14 +39,18 @@ S, R = CFG.n_seq, CFG.n_res
 
 @pytest.fixture(scope="module")
 def block_params():
-    """Randomized block params per stack (the variants share one tree)."""
+    """Randomized block params per stack (the variants share one tree),
+    drawn without JAX: its eager init and per-leaf noise compile every op
+    for every leaf shape (~15 s)."""
     cache = {}
 
     def get(stack):
         if stack not in cache:
-            p = jevo.evoformer_block_init(jax.random.PRNGKey(0),
-                                          getattr(CFG, stack))
-            cache[stack] = randomize(p, jax.random.PRNGKey(7))
+            block = tevo.EvoformerBlock(_port_cfg(getattr(CFG, stack)),
+                                        generator=torch.Generator()
+                                        .manual_seed(0))
+            cache[stack] = randomize_np(bridge.state_dict_to_params(
+                block.state_dict(), stacked=()), 7)
         return cache[stack]
     return get
 

@@ -44,7 +44,11 @@ LM_MODULES = ("repro_torch.models", "repro_torch.models.lmconfig",
               "repro_torch.models.hybrid",
               "repro_torch.configs.qwen2_moe_a2_7b",
               "repro_torch.configs.mamba2_2_7b",
-              "repro_torch.configs.zamba2_7b")
+              "repro_torch.configs.zamba2_7b",
+              "repro_torch.models.whisper", "repro_torch.models.vlm",
+              "repro_torch.data.tokens",
+              "repro_torch.configs.whisper_medium",
+              "repro_torch.configs.internvl2_26b")
 
 
 PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",

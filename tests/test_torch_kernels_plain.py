@@ -7,7 +7,6 @@ K1 (gated bias attention) vs ``repro.kernels.ref.evo_attention_ref``; K3
 throughout: attention 2e-4 and triangle 1e-5, the reference's own kernel
 tolerances (tests/test_kernels.py, tests/test_triangle.py).
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,12 +17,12 @@ from repro.core.config import af2_tiny
 from repro.kernels.ref import evo_attention_ref as jax_evo_attention_ref
 from repro.nn.attention import attention_reference as jax_attention
 
+from repro_torch import bridge
 from repro_torch.core import evoformer as tevo
 from repro_torch.core.config import EvoformerConfig
 from repro_torch.kernels import ops, ref
 
-from torch_util import load_into, max_abs, t
-from util import randomize
+from torch_util import load_into, max_abs, randomize_np, t
 
 
 @pytest.mark.parametrize("biased,gated", [(True, True), (False, True),
@@ -60,8 +59,13 @@ EV = af2_tiny().evoformer
 
 @pytest.fixture(scope="module")
 def tri_params():
-    p = jevo.triangle_mult_init(jax.random.PRNGKey(0), EV.c_z, EV.c_hidden_mul)
-    return randomize(p, jax.random.PRNGKey(3), scale=0.2)
+    """The reference's layout, drawn without JAX (its eager init and noise
+    compile every op for every leaf shape): the port's init plus N(0, 0.2)
+    numpy noise."""
+    mod = tevo.TriangleMult(EV.c_z, EV.c_hidden_mul,
+                            generator=torch.Generator().manual_seed(0))
+    return randomize_np(bridge.state_dict_to_params(mod.state_dict(),
+                                                    stacked=()), 3, 0.2)
 
 
 @pytest.mark.parametrize("outgoing", [True, False])

@@ -46,8 +46,8 @@ from repro_torch.nn.attention import attention
 from repro_torch.nn.layers import Policy
 from repro_torch.serve.engine import DecodeEngine, Request
 
-from test_torch_lm_model import assert_bf16_close, port_cfg, ref_jit
-from torch_util import max_abs, np_tree, randomize_np, t
+from test_torch_lm_model import assert_bf16_close, port_cfg, ref_serve_both
+from torch_util import lm_tree, max_abs, t
 
 CFGS = {
     "mamba2_smoke": lambda: jax_smoke_config("mamba2-2.7b", scan_layers=True),
@@ -67,9 +67,8 @@ PORT = {"ssm": tssm, "hybrid": thybrid}
 def loaded(name: str):
     """(config, JAX params (numpy), the port's model loaded with them)."""
     cfg = CFGS[name]()
-    params = randomize_np(np_tree(ref_jit(JAX[cfg.family].init_params, cfg)(
-        jax.random.PRNGKey(0))), 1, 0.05)
     model = PORT[cfg.family].init_params(port_cfg(cfg), device="cpu")
+    params = lm_tree(model, cfg, 1)
     bridge.load_jax_params(model, params, stacked=bridge.LM_STACKED)
     return cfg, params, model
 
@@ -82,18 +81,26 @@ def setup(request):
 def test_init_params_keys_shapes_and_bridge_round_trip(setup):
     """The port's init has the reference's keys and shapes (its
     deterministic leaves, dt_bias, A_log and D, its values); the loaded
-    model goes back to the reference's tree unchanged."""
+    model goes back to the reference's tree unchanged.  The reference's
+    shapes come from ``jax.eval_shape`` of its init, the deterministic
+    leaves from one of its blocks (jitted alone: the whole init's compile
+    takes 2.5-4 s)."""
     cfg, params, model = setup
-    want = bridge.params_to_state_dict(
-        np_tree(ref_jit(JAX[cfg.family].init_params, cfg)(
-            jax.random.PRNGKey(0))), stacked=bridge.LM_STACKED)
-    got = PORT[cfg.family].init_params(port_cfg(cfg), seed=0,
-                                       device="cpu").state_dict()
+    shapes = jax.eval_shape(lambda k: JAX[cfg.family].init_params(k, cfg),
+                            jax.random.PRNGKey(0))
+    want = {k: tuple(v.shape) for k, v in bridge.flatten(shapes).items()}
+    block = jax.jit(lambda k: jssm.block_init(k, cfg))(jax.random.PRNGKey(0))
+    got = bridge.flatten(bridge.state_dict_to_params(
+        PORT[cfg.family].init_params(port_cfg(cfg), seed=0,
+                                     device="cpu").state_dict(),
+        stacked=bridge.LM_STACKED))
     assert set(got) == set(want)
     for key, w in want.items():
-        assert got[key].shape == w.shape, key
-        if key.rsplit(".", 1)[-1] in ("dt_bias", "A_log", "D"):
-            assert max_abs(got[key], w) < 1e-6, key
+        assert got[key].shape == w, key
+        leaf = key.rsplit(".", 1)[-1]
+        if key.startswith("layers.") and leaf in ("dt_bias", "A_log", "D"):
+            for layer in got[key]:      # one row a stacked layer
+                assert max_abs(t(layer), block[leaf]) < 1e-6, key
     back = bridge.state_dict_to_params(model.state_dict(),
                                        stacked=bridge.LM_STACKED)
     assert set(back) == set(params)
@@ -172,23 +179,6 @@ def test_block_apply_and_block_decode_match_jax_fp32(chunked):
         assert max_abs(gst[key], wst[key]) < 1e-5
 
 
-def _jax_run(cfg, params, tokens, steps, f32: bool):
-    """The reference's forward, prefill and decode steps (jitted once per
-    config and policy): [forward logits, prefill logits, its cache, then
-    (logits, cache) per step]."""
-    jm = JAX[cfg.family]
-    dtype = jnp.float32 if f32 else jnp.bfloat16
-    out = [ref_jit(jm.forward, cfg, f32)(params, tokens)]
-    logits, cache = ref_jit(jm.prefill, cfg, f32)(
-        params, tokens, jm.init_cache(cfg, tokens.shape[0], 24, dtype))
-    out += [logits, cache]
-    step = ref_jit(jm.decode_step, cfg, f32)
-    for tok in steps:
-        out.append(step(params, tok, cache))
-        cache = out[-1][1]
-    return out
-
-
 def _port_run(cfg, model, tokens, steps, cache_dtype=torch.bfloat16):
     tm, pcfg = PORT[cfg.family], port_cfg(cfg)
     copy = lambda c: {k: v.clone() for k, v in c.items()}
@@ -225,8 +215,8 @@ def test_forward_prefill_and_decode_match_jax(setup, monkeypatch):
     tokens = rng.integers(0, cfg.vocab, (2, 13), dtype=np.int32)
     steps = [rng.integers(0, cfg.vocab, (2, 1), dtype=np.int32)
              for _ in range(3)]
-    want = _jax_run(cfg, params, tokens, steps, False)
-    want32 = _jax_run(cfg, params, tokens, steps, True)
+    want, want32 = ref_serve_both(
+        JAX[cfg.family], cfg, JAX[cfg.family].forward)(params, tokens, steps)
     got = _port_run(cfg, model, tokens, steps)
     assert got[0].dtype == torch.bfloat16
     assert got[0].shape == (2, 13, cfg.vocab)
@@ -308,8 +298,8 @@ def test_hybrid_engine_logits_follow_the_jax_engines_token_stream():
     # the compiled steps, of test_forward_prefill_and_decode_match_jax)
     steps = [np.array([[stream[0][j]], [stream[1][j]]], np.int32)
              for j in range(3)]
-    want = _jax_run(cfg, params, prompts, steps, False)
-    want32 = _jax_run(cfg, params, prompts, steps, True)
+    want, want32 = ref_serve_both(
+        JAX[cfg.family], cfg, JAX[cfg.family].forward)(params, prompts, steps)
     got = _port_run(cfg, model, prompts, steps)
     assert_bf16_close(got[1], want[1], "prefill", want32[1])
     for j in range(3):

@@ -13,22 +13,26 @@ import torch
 from repro.core import structure as jst
 from repro.core.config import af2_tiny
 
+from repro_torch import bridge
 from repro_torch.core import structure as tst
 from repro_torch.core.config import StructureConfig
 
-from torch_util import load_into, max_abs, t
-from util import randomize
+from torch_util import load_into, max_abs, randomize_np, t
 
 SC = af2_tiny().structure
 
 
 @pytest.fixture(scope="module")
 def params():
-    """The reference's randomized structure-module params, made once for
-    both cases under one jax.jit (op by op, JAX compiles each op)."""
-    return jax.jit(lambda k1, k2: randomize(
-        jst.structure_module_init(k1, SC), k2, scale=0.05))(
-        jax.random.PRNGKey(0), jax.random.PRNGKey(2))
+    """Randomized structure-module params in the reference's layout, made
+    once for both cases: the port's init plus N(0, 0.05) numpy noise
+    (``tests/test_torch_bridge.py`` pins the port's init to the
+    reference's shapes and rules; compiling the reference's init and noise
+    takes ~5 s)."""
+    mod = tst.StructureModule(StructureConfig(**SC.__dict__),
+                              generator=torch.Generator().manual_seed(0))
+    return randomize_np(bridge.state_dict_to_params(mod.state_dict(),
+                                                    stacked=()), 2, 0.05)
 
 
 @pytest.mark.parametrize("masked", [False, True])

@@ -38,6 +38,48 @@ def af2_tree(cfg, seed: int = 0) -> dict:
     return bridge.state_dict_to_params(model.state_dict())
 
 
+# the JAX oracles run a few times each: compile them with XLA's cheapest
+# backend passes (a third less compile time; the programs are the same)
+FAST_COMPILE = {"xla_backend_optimization_level": 0,
+                "xla_llvm_disable_expensive_passes": True}
+
+
+def fast_jit(fn):
+    """``jax.jit(fn)`` compiled with ``FAST_COMPILE``, once per argument
+    structure, shapes and dtypes."""
+    jitted, compiled = jax.jit(fn), {}
+
+    def call(*args):
+        leaves, tree = jax.tree_util.tree_flatten(args)
+        key = (tree, tuple((np.shape(x), np.result_type(x)) for x in leaves))
+        if key not in compiled:
+            compiled[key] = jitted.lower(*args).compile(
+                compiler_options=FAST_COMPILE)
+        return compiled[key](*args)
+    return call
+
+
+def listed(tree):
+    """``bridge``'s nested dicts with an unstacked stack's "0", "1", ...
+    keys as the reference's lists."""
+    if not isinstance(tree, dict):
+        return tree
+    if tree and all(k.isdigit() for k in tree):
+        return [listed(tree[str(i)]) for i in range(len(tree))]
+    return {k: listed(v) for k, v in tree.items()}
+
+
+def lm_tree(model, cfg, seed: int, scale: float = 0.05) -> dict:
+    """An LM's param tree in the reference's layout (numpy leaves; stacked
+    under ``cfg.scan_layers``), from the port's ``model``'s init plus
+    N(0, ``scale``) noise (``randomize_np``): the reference's shapes
+    (pinned by each family's init test), without compiling its
+    ``init_params`` (1.5-4 s a config on the CPU)."""
+    stacked = bridge.LM_STACKED if cfg.scan_layers else ()
+    return randomize_np(listed(bridge.state_dict_to_params(
+        model.state_dict(), stacked=stacked)), seed, scale)
+
+
 def load_into(module, params, *, stacked=bridge.STACKED):
     """Load a JAX param tree into a port module through the bridge."""
     return bridge.load_jax_params(module, np_tree(params), stacked=stacked)
