@@ -179,6 +179,25 @@ Phases, each raising on failure (exit code != 0, no result line):
      for the six families on the card and with ``--device cpu``: every
      loss within 2e-2 relative, K6 launched once per attention call a
      step.
+ 11d. the AF2 default impls and LM data parallelism: (a) one af2_initial
+     request (r 64 bucket) folded in fp32 at the config's own impls
+     (chunked attention, chunked triangle updates, fused OPM) and at
+     ``with_kernels``: max |coords diff| under phase 4's 1e-3; af2_tiny
+     at those impls on the card against the CPU, phase 4's fp32 and bf16
+     bounds; both walls.  (b) whisper-medium at full width and depth
+     (fsdp=True) trained 3 steps at 2 x 448 tokens by the train
+     launcher's ``run_lm`` on two gloo ranks sharing the card, as ``--arch
+     whisper-medium --devices 2`` runs it: the first step's loss within
+     2e-3 and gradient norm within 5e-2 of one device's on the same
+     weights and batch, the gathered parameters after it within 5e-2
+     (relative L2); each rank holds the parameter and moment bytes its
+     specs predict (about half of one device's), K6 launched 144 times a
+     step; peak memory, all-gathers / reduce-scatters / psums per step
+     with their bytes, step walls (gloo staging: no measure of speed).
+     (c) the six families at ``--smoke --devices 2`` against phase 11c
+     (e)'s one-device runs: every loss within 3.2e-4 relative.  (d)
+     ``bp_parallel_layer`` (a glm4-9b layer as a parallel block, S 512)
+     on the two ranks against ``layer_apply``, within K6's bound.
  12. static analysis (``repro_torch.analysis``): (a) ``python -m
      repro_torch.analysis.lint`` on the card (four gloo ranks sharing it)
      must exit 0 with "lint: OK", 8 programs, 40 pass runs, 0 skipped and
@@ -3554,6 +3573,333 @@ def av_phase(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11d: the AF2 default impls on the card; LM data-parallel FSDP
+# training over two gloo ranks sharing the card; bp_parallel_layer
+# ---------------------------------------------------------------------------
+
+FSDP_ARCH = "whisper-medium"
+FSDP_RANKS = 2
+# the launcher's run at phase 11c (d)'s batch: 2 x 448 tokens, 3 steps
+FSDP_ARGS = ("--arch", FSDP_ARCH, "--steps", "3", "--batch",
+             str(TRAIN_LM_BATCH), "--seq", str(TRAIN_LM_SEQ))
+# phase 11c (d)'s peak on one device at the same batch (an earlier run of
+# this script on an H100 80GB HBM3 at 700 W)
+ONE_DEVICE_PEAK_GIB = 15.99
+# the gathered parameters after step 1 against one device's: relative L2
+# over every leaf
+FSDP_PARAM_RTOL = 5e-2
+# the launcher's six families at --smoke, two ranks against one device:
+# every loss of the three steps within the 3.2e-4 relative that phase
+# 11c (e) has shown between the card and the CPU (each rank rounds its half
+# of a bf16 weight gradient before the sum, as two GEMM libraries round
+# differently; the first step's loss, on the same weights, agrees within
+# 1e-7)
+DP_RTOL = 3.2e-4
+DEFAULTS_BUCKET_FRAC = 0.25     # af2_initial's r 256 -> the r-64 bucket
+
+
+def af2_defaults_phase(dev) -> dict:
+    """11d (a): one af2_initial request folded at the r-64 bucket at the
+    config's own impls (chunked attention, chunked triangle updates, fused
+    OPM) and at ``with_kernels``, fp32, on the card: max |coords diff|
+    within phase 4's fp32 bound (1e-3); then af2_tiny at the defaults on
+    the card against the CPU, fp32 (1e-3) and bf16 (3x the CPU's own bf16
+    distance), as phase 4 holds the kernels.  Prints each fold's wall."""
+    from repro_torch.core import model as af2
+    from repro_torch.core.config import af2_initial, af2_tiny, with_kernels
+    from repro_torch.data.synthetic import make_fold_requests
+    from repro_torch.serve import fold_steps as fs
+    cfg = af2_initial()
+    (req,) = make_fold_requests(cfg, 1, seed=11,
+                                fracs=(DEFAULTS_BUCKET_FRAC,))
+    f = req.features
+    bucket = fs.Bucket(64, f["msa_feat"].shape[0],
+                       f["extra_msa_feat"].shape[0])
+    batch = fs.stack_padded([fs.pad_to_bucket(f, bucket)], 1)
+    model = seeded_model(cfg, seed=0).to(dev)
+    out, walls = {}, {}
+    for tag, c in (("defaults", cfg), ("kernels", with_kernels(cfg))):
+        for _ in range(2):          # the second call is the timed one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = af2.predict(model, c, batch, max_recycle=1, tol=0.0,
+                              dtype=torch.float32)
+            torch.cuda.synchronize()
+            walls[tag] = time.perf_counter() - t0
+        out[tag] = res["coords"].float().cpu()
+    d_init = (out["defaults"] - out["kernels"]).abs().max().item()
+    ev = cfg.evoformer
+    print(f"[af2 defaults] af2_initial ({cfg.n_evoformer} + "
+          f"{cfg.n_extra_msa_blocks} blocks) r {f['msa_feat'].shape[1]} in "
+          f"bucket {bucket}, fp32, one cycle: impls {ev.attention_impl} / "
+          f"{ev.tri_mult_impl} / {ev.opm_impl} {walls['defaults']:.3f} s, "
+          f"with_kernels {walls['kernels']:.3f} s; max |coords diff| "
+          f"{d_init:.3g}", flush=True)
+    if not (d_init < 1e-3 and out["defaults"].abs().max().item() > 0.1
+            and torch.isfinite(out["defaults"]).all()):
+        raise AssertionError(f"af2_initial at the defaults vs with_kernels: "
+                             f"max |coords diff| {d_init}")
+    del model
+    torch.cuda.empty_cache()
+    tiny = af2_tiny()
+    cpu_model = seeded_model(with_kernels(tiny), seed=3, noise=0.1)
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    reqs = make_fold_requests(tiny, 2, seed=3, fracs=(1.0, 0.7))
+    tb = fs.Bucket(tiny.n_res, tiny.n_seq, tiny.n_extra_seq)
+    tbatch = fs.stack_padded([fs.pad_to_bucket(r.features, tb)
+                              for r in reqs], 2)
+
+    def coords(m, dtype):
+        return af2.predict(m, tiny, tbatch, max_recycle=2, tol=0.0,
+                           dtype=dtype)["coords"].float().cpu()
+
+    cpu32 = coords(cpu_model, torch.float32)
+    err32 = (coords(card_model, torch.float32) - cpu32).abs().max().item()
+    err16 = (coords(card_model, torch.bfloat16) - cpu32).abs().max().item()
+    noise16 = (coords(cpu_model, torch.bfloat16) - cpu32).abs().max().item()
+    print(f"[af2 defaults] af2_tiny at the defaults, card vs CPU: fp32 max "
+          f"|coords diff| {err32:.3g}; bf16 card {err16:.3g} from the CPU's "
+          f"fp32 fold (CPU bf16 {noise16:.3g}, bound 3x)", flush=True)
+    if not (err32 < 1e-3 and err16 <= 3 * noise16):
+        raise AssertionError(f"af2_tiny at the defaults: card vs CPU fp32 "
+                             f"{err32}, bf16 {err16} (CPU bf16 {noise16})")
+    return {"initial_walls": walls, "initial_diff": d_init,
+            "tiny": [err32, err16, noise16]}
+
+
+def _one_device_first_step(args, dev) -> dict:
+    """One step of the launcher's recipe on one device (``args``): the
+    weights the launcher draws, its first batch and optimizer; returns the
+    loss, the gradient norm, the parameters before and after (on the
+    host, so that they do not count in the ranks' peaks)."""
+    from repro_torch import configs
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.models import get_model
+    from repro_torch.models.lmconfig import with_kernels
+    from repro_torch.train.optim import adamw, warmup_cosine
+    from repro_torch.train.trainstep import init_lm_state, make_lm_train_step
+    cfg = with_kernels(configs.get_config(args.arch))
+    lm = get_model(cfg)
+    opt = adamw(warmup_cosine(args.lr, 20, args.steps), clip_norm=1.0)
+    model = lm.init_params(cfg, seed=0, device=dev)
+    p0 = {k: p.detach().to("cpu", copy=True)
+          for k, p in model.named_parameters()}
+    b = token_batch(0, 0, args.batch, args.seq, cfg.vocab)
+    g = torch.Generator().manual_seed(0)
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "labels": torch.as_tensor(b["labels"], device=dev),
+             "frames": torch.randn(
+                 (args.batch, cfg.n_frontend_tokens, cfg.frontend_dim),
+                 generator=g).to(torch.bfloat16).to(dev)}
+    state = init_lm_state(model, opt)
+    _, m = make_lm_train_step(lm, cfg, opt)(state, batch)
+    out = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+           "p0": p0, "p1": {k: p.detach().to("cpu", copy=True)
+                            for k, p in model.named_parameters()}}
+    del state, model
+    return out
+
+
+def fsdp_rank(rank, world, dev, inp) -> dict:
+    """Phase 11d (b)-(d) on one of two gloo ranks sharing the card: the
+    launcher's ``run_lm`` at ``FSDP_ARGS`` (rank 0 first runs the
+    one-device step of the same recipe and holds the gathered step-1
+    parameters to it), then the six families at ``--smoke``, then
+    ``bp_parallel_layer``."""
+    import dataclasses as dc
+    from repro_torch import configs
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.models import dense
+    from repro_torch.models.lmconfig import with_kernels
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel.mesh_utils import Axis, make_mesh
+    from repro_torch.train.trainstep import param_dict
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    args = train.parse_args(list(FSDP_ARGS))
+    ref = _one_device_first_step(args, dev) if rank == 0 else None
+    torch.cuda.empty_cache()
+    row = {"step_s": [], "grad_norm": [], "collectives": [],
+           "k6_launches": []}
+    marks = {}
+
+    def mark():
+        torch.cuda.synchronize()
+        marks["counts"], marks["bytes"] = coll.counts(), coll.byte_counts()
+        ops.reset_launch_counts()
+
+    def on_step(step, state, metrics):
+        counts, nbytes = coll.counts(), coll.byte_counts()
+        row["collectives"].append({
+            k: [counts[k] - marks["counts"][k], nbytes[k] - marks["bytes"][k]]
+            for k in ("all_gather", "reduce_scatter", "psum")})
+        row["step_s"].append(metrics["step_s"])
+        row["grad_norm"].append(metrics["grad_norm"].item())
+        row["k6_launches"].append(ops.launch_counts()["flash_attention_fwd"])
+        layout = state["layout"]
+        if step == 0:
+            opt = state["opt"]
+            held = {"params": layout.bytes_held(param_dict(state["params"])),
+                    "mu": layout.bytes_held(opt.mu),
+                    "nu": layout.bytes_held(opt.nu)}
+            full = sum(4 * int(np.prod(s)) for s in layout.shapes.values())
+            rep = sum(4 * int(np.prod(layout.shapes[k]))
+                      for k, d in layout.dims.items() if d is None)
+            row["held"] = held
+            row["one_device_bytes"] = 3 * full
+            row["expected_bytes"] = 3 * (rep + (full - rep) // world)
+            row["leaves"] = [len(layout.sharded), len(layout.dims)]
+            sq = {"diff": 0.0, "ref": 0.0, "move": 0.0}
+            for k, p in param_dict(state["params"]).items():
+                full_p = layout.full(k, p.detach()).cpu()
+                if ref is not None:
+                    sq["diff"] += (full_p - ref["p1"][k]).float().square(
+                        ).sum().item()
+                    sq["ref"] += ref["p1"][k].float().square().sum().item()
+                    sq["move"] += (ref["p1"][k] - ref["p0"][k]).float(
+                        ).square().sum().item()
+                del full_p
+            if ref is not None:
+                row["first"] = {
+                    "loss": [metrics["loss"].item(), ref["loss"]],
+                    "grad_norm": [metrics["grad_norm"].item(),
+                                  ref["grad_norm"]],
+                    "params_rel": (sq["diff"] / sq["ref"]) ** 0.5,
+                    "params_rel_to_move": (sq["diff"] / sq["move"]) ** 0.5}
+        mark()
+
+    mark()
+    t0 = time.perf_counter()
+    row["losses"] = train.run_lm(args, rank=rank, world=world, device=dev,
+                                 on_step=on_step)
+    row["wall_s"] = time.perf_counter() - t0
+    row["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    del ref
+    torch.cuda.empty_cache()
+    out = {FSDP_ARCH: row, "families": {}}
+    t0 = time.perf_counter()
+    for arch in LAUNCH_ARCHS:
+        fargs = train.parse_args(["--arch", arch, *LAUNCH_ARGS])
+        out["families"][arch] = train.run_lm(fargs, rank=rank, world=world,
+                                             device=dev)
+    out["families_s"] = time.perf_counter() - t0
+    # (d): one glm4-9b layer at full width as a parallel block
+    cfg = dc.replace(with_kernels(configs.get_config(LM_ARCH)),
+                     parallel_block=True)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    layer = dense.Layer(cfg, generator=gen, device=dev).to(torch.bfloat16)
+    x = seeded_bf16((1, 512, cfg.d_model), 6, dev)
+    pos = torch.arange(512, dtype=torch.int32, device=dev)[None]
+    axis = Axis(make_mesh((world,), ("branch",)), "branch")
+    with torch.no_grad():
+        ops.reset_launch_counts()
+        got, _ = dense.bp_parallel_layer(layer, cfg, x, pos, axis=axis)
+        bp_k6 = ops.launch_counts()["flash_attention_fwd"]
+        want, _ = dense.layer_apply(layer, cfg, x, pos)
+    out["bp"] = {"max_abs_diff": (got.float() - want.float()).abs().max()
+                 .item(), "scale": want.float().abs().max().item(),
+                 "k6_launches": bp_k6}
+    return out
+
+
+def fsdp_phase(dev, card: str, one_device: dict) -> dict:
+    """Phase 11d (b)-(d) over FSDP_RANKS gloo ranks sharing the card, held
+    to the one-device runs: rank 0's first step and gathered parameters
+    (b), ``one_device`` {arch: {step: loss}} of the six families' launcher
+    runs on the card (c), ``layer_apply`` (d)."""
+    from repro_torch import configs
+    from repro_torch.parallel import ranks as ranks_lib
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = ranks_lib.spawn(fsdp_rank, FSDP_RANKS, None, device_type=dev.type,
+                          backend="gloo", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    for rank, res in enumerate(got):
+        row = res[FSDP_ARCH]
+        held = sum(sum(v.values()) for v in row["held"].values())
+        print(f"[fsdp] {FSDP_ARCH} rank {rank} of {FSDP_RANKS} ({card}): "
+              f"{row['leaves'][0]} of {row['leaves'][1]} leaves sharded; "
+              f"holds {held / 2 ** 30:.3f} GiB of parameters + mu + nu "
+              f"(specs predict {row['expected_bytes'] / 2 ** 30:.3f}; one "
+              f"device {row['one_device_bytes'] / 2 ** 30:.3f}, ratio "
+              f"{held / row['one_device_bytes']:.4f}; by kind "
+              f"{json.dumps(row['held'])}); peak allocated "
+              f"{row['peak_gib']:.2f} GiB over the steps (one device at the "
+              f"same batch: {ONE_DEVICE_PEAK_GIB} GiB, phase 11c (d)); per "
+              f"step [count, bytes] {json.dumps(row['collectives'])}; K6 "
+              f"{row['k6_launches']} a step; step walls "
+              f"{[round(w, 3) for w in row['step_s']]} s (gloo staged "
+              f"through host memory on one shared card: no measure of "
+              f"FSDP's speed); losses {json.dumps(row['losses'])}; grad "
+              f"norms {row['grad_norm']}", flush=True)
+        if held != row["expected_bytes"] or \
+                not 0.5 < held / row["one_device_bytes"] < 0.55:
+            raise AssertionError(f"rank {rank} holds {held} bytes; the specs "
+                                 f"say {row['expected_bytes']}")
+        if sorted(row["losses"]) != [0, 1, 2] or not np.isfinite(
+                list(row["losses"].values())).all():
+            raise AssertionError(f"rank {rank} losses {row['losses']}")
+        want_k6 = whisper_train_k6(configs.get_config(FSDP_ARCH))
+        if row["k6_launches"] != [want_k6] * 3:
+            raise AssertionError(f"rank {rank}: K6 {row['k6_launches']} a "
+                                 f"step, the path's {want_k6}")
+        for c in row["collectives"]:
+            if c["all_gather"][0] == 0 or c["reduce_scatter"][0] == 0:
+                raise AssertionError(f"rank {rank}: no FSDP collectives {c}")
+    first = got[0][FSDP_ARCH]["first"]
+    print(f"[fsdp] {FSDP_ARCH} first step, two ranks / one device: loss "
+          f"{first['loss'][0]:.6f} / {first['loss'][1]:.6f}, grad norm "
+          f"{first['grad_norm'][0]:.6f} / {first['grad_norm'][1]:.6f}; the "
+          f"gathered parameters after step 1 {first['params_rel']:.3g} "
+          f"relative L2 from one device's ({first['params_rel_to_move']:.3g} "
+          f"of one device's move)", flush=True)
+    (l2, l1), (n2, n1) = first["loss"], first["grad_norm"]
+    if abs(l2 - l1) > TRAIN_LM_LOSS_RTOL * abs(l1) or \
+            abs(n2 - n1) > TRAIN_LM_GNORM_RTOL * abs(n1) or \
+            not first["params_rel"] <= FSDP_PARAM_RTOL:
+        raise AssertionError(f"{FSDP_ARCH}: the two-rank first step left the "
+                             f"one-device bounds: {first}")
+    fam = {}
+    for arch, want in one_device.items():
+        two = got[0]["families"][arch]
+        rel = [abs(two[s] - want[s]) / abs(want[s]) for s in sorted(want)]
+        fam[arch] = rel
+        if got[1]["families"][arch] != two or sorted(two) != sorted(want) \
+                or max(rel) > DP_RTOL:
+            raise AssertionError(f"{arch} --smoke on two ranks {two} vs one "
+                                 f"device {want}")
+    print(f"[fsdp families] --smoke, two ranks against one device, relative "
+          f"loss gap by step: {json.dumps(fam)} (in "
+          f"{got[0]['families_s']:.1f} s)", flush=True)
+    for rank, res in enumerate(got):
+        bp = res["bp"]
+        print(f"[fsdp bp] rank {rank}: bp_parallel_layer vs layer_apply "
+              f"(glm4-9b layer, parallel block, bf16, S 512) max |diff| "
+              f"{bp['max_abs_diff']:.3g} (output scale {bp['scale']:.3g}); "
+              f"K6 {bp['k6_launches']}", flush=True)
+        if bp["max_abs_diff"] > K6_ATOL + RTOL * bp["scale"] or \
+                bp["k6_launches"] != (1 if rank == 0 else 0):
+            raise AssertionError(f"rank {rank}: BP layer {bp}")
+    return {"ranks": got, "spawn_s": spawn_s, "families": fam}
+
+
+def dp_phase(dev, card: str, launcher: dict) -> dict:
+    """Phase 11d: (a), then (b)-(d) (``launcher``: phase 11c (e)'s rows,
+    whose card losses are the one-device runs of (c))."""
+    t0 = time.perf_counter()
+    out = {"defaults": af2_defaults_phase(dev)}
+    t_a = time.perf_counter() - t0
+    one = {arch: {int(s): v for s, v in row["card"].items()}
+           for arch, row in launcher.items()}
+    out["fsdp"] = fsdp_phase(dev, card, one)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[dp phase] wall {out['wall_s']:.1f} s ((a) {t_a:.1f} s, the "
+          f"ranks {out['fsdp']['spawn_s']:.1f} s) on {card}", flush=True)
+    return out
+
+
 # phase 12: static analysis
 LINT_TIMEOUT_S = 300
 
@@ -3987,6 +4333,10 @@ def main() -> int:
     # training, the train launcher for every LM family
     av = av_phase(dev)
     stamp("phase 11c")
+    # phase 11d: the AF2 default impls, LM data-parallel FSDP training
+    # over two gloo ranks, bp_parallel_layer
+    dp = dp_phase(dev, card, av["launcher"])
+    stamp("phase 11d")
     lint_phase(dev, card)
     stamp("phase 12")
 
@@ -4056,7 +4406,9 @@ def main() -> int:
             "k6_launches_a_prefill"],
         f"{VLM_ARCH} prefill": av[VLM_ARCH]["graphed"][
             "k6_launches_a_prefill"],
-        f"{WHISPER_ARCH} train step": av["train"]["k6_launches_a_step"]})
+        f"{WHISPER_ARCH} train step": av["train"]["k6_launches_a_step"],
+        f"{FSDP_ARCH} FSDP train step, each of {FSDP_RANKS} ranks":
+            dp["fsdp"]["ranks"][0][FSDP_ARCH]["k6_launches"][0]})
     kernels[-1]["phase_11c_shapes"] = {
         r["shape"]: {k: r[k] for k in ("launches", "max_abs_err", "ms",
                                        "plain_ms", "bound_ms", "bound_by",

@@ -19,8 +19,13 @@ very same masks.
 Impls: ``attention_impl="evo_pallas"`` and ``tri_mult_impl="pallas"`` go
 through ``kernels.ops`` — the hand-written CUDA kernels for CUDA tensors,
 their plain versions for CPU tensors, with no fallback to anything else on
-the card; ``"reference"`` is plain torch.  The reference's XLA ``chunked``
-impls are not ported.
+the card.  The configs' defaults are plain torch, on any device, as the
+caller chose them: ``attention_impl="chunked"`` (online softmax over key
+chunks of ``attention_chunk``, ``nn.attention.attention_chunked``),
+``tri_mult_impl="chunked"`` (i-slabs and k-chunks of ``tri_mult_chunk``,
+an fp32 accumulation and a per-slab epilogue) and ``opm_impl="fused"``;
+``opm_impl="naive"`` materialises the (r, r, c²) outer product, and
+``"reference"`` is the naive attention or triangle update.
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ from torch import nn
 from repro_torch import trace_hooks
 from repro_torch.core.config import EvoformerConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.nn.attention import attention as nn_attention
 from repro_torch.nn.layers import Dense, LayerNorm, dense, layernorm
 
 
@@ -148,12 +154,6 @@ def shared_dropout(x: torch.Tensor, rate: float, *, shared_axis: int,
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
-def _not_ported(kind: str, impl: str):
-    return ValueError(
-        f"{kind}={impl!r} is not ported; the port has 'evo_pallas' / 'pallas' "
-        "(the CUDA kernels, plain torch on CPU tensors) and 'reference'")
-
-
 # ---------------------------------------------------------------------------
 # Gated attention (AF2 suppl. Algorithm 7): MSA row/column + triangle attention
 # ---------------------------------------------------------------------------
@@ -197,18 +197,20 @@ def gated_attention(p: GatedAttention, x: torch.Tensor, *, n_head: int,
                     c_hidden: int, bias_input: Optional[torch.Tensor] = None,
                     bias: Optional[torch.Tensor] = None,
                     key_mask: Optional[torch.Tensor] = None,
-                    attention_impl: str = "evo_pallas") -> torch.Tensor:
+                    attention_impl: str = "evo_pallas",
+                    attention_chunk: int = 256) -> torch.Tensor:
     """x (..., L, S, c): attention along S independently for each lead row.
 
     ``bias_input`` (S, S, c_z) is projected to the (h, S, S) bias; ``key_mask``
-    (S,) is folded into that bias, so the kernel masks through its bias add.
+    (S,) is folded into that bias, so every impl masks through its bias add.
     """
     h, q, k, v = attention_qkv(p, x, n_head=n_head, c_hidden=c_hidden)
     if bias_input is not None:
         assert bias is None
         bias = project_attention_bias(p, bias_input)            # (h, S, S)
     return attend(p, x, h, q, k, v, bias=bias, key_mask=key_mask,
-                  attention_impl=attention_impl)
+                  attention_impl=attention_impl,
+                  attention_chunk=attention_chunk)
 
 
 def attention_qkv(p: GatedAttention, x: torch.Tensor, *, n_head: int,
@@ -227,10 +229,14 @@ def attention_qkv(p: GatedAttention, x: torch.Tensor, *, n_head: int,
 def attend(p: GatedAttention, x: torch.Tensor, h, q, k, v, *,
            bias: Optional[torch.Tensor] = None,
            key_mask: Optional[torch.Tensor] = None,
-           attention_impl: str = "evo_pallas") -> torch.Tensor:
+           attention_impl: str = "evo_pallas",
+           attention_chunk: int = 256) -> torch.Tensor:
     """The rest of :func:`gated_attention` from :func:`attention_qkv`'s
     outputs: the gated attention with the (h, S, S) ``bias`` and
-    ``key_mask`` folded into it, and the output projection."""
+    ``key_mask`` folded into it, and the output projection.
+    ``"evo_pallas"`` gates inside the kernel; every other impl attends
+    through ``nn.attention`` (``"chunked"`` over key chunks of
+    ``attention_chunk``) and gates after it, as the reference does."""
     *lead, s, n_head, c_hidden = q.shape
     if key_mask is not None:
         base = 0.0 if bias is None else bias.float()
@@ -245,9 +251,11 @@ def attend(p: GatedAttention, x: torch.Tensor, h, q, k, v, *,
                                    bias.contiguous(), flat(gate))
         o = o.reshape(*lead, s, n_head * c_hidden).to(x.dtype)
         return dense(p.out, o)
-    if attention_impl != "reference":
-        raise _not_ported("attention_impl", attention_impl)
-    o = attention_reference(q, k, v, bias)
+    if attention_impl == "reference":
+        o = attention_reference(q, k, v, bias)
+    else:
+        o = nn_attention(q, k, v, bias=bias, impl=attention_impl,
+                         chunk_size=attention_chunk)
     g = torch.sigmoid(dense(p.gate, h))
     o = (g * o.reshape(*lead, s, n_head * c_hidden)).to(x.dtype)
     return dense(p.out, o)
@@ -314,7 +322,8 @@ def transition(p: Transition, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Outer product mean (Algorithm 10), fused: the (r, r, c^2) tensor never exists
+# Outer product mean (Algorithm 10): fused (the (r, r, c^2) tensor never
+# exists) or naive
 # ---------------------------------------------------------------------------
 
 class OuterProductMean(nn.Module):
@@ -326,6 +335,36 @@ class OuterProductMean(nn.Module):
         self.b = Dense(c_m, c_hidden, generator=generator)
         self.out = Dense(c_hidden * c_hidden, c_z, scale="zeros",
                          generator=generator)
+
+
+def mask_opm_operands(a, b, row_mask: Optional[torch.Tensor], n_rows):
+    """Zero padded MSA rows of the OPM operands (s, r, c) and return the
+    mean's denominator with them: the valid row count (at least 1) under
+    ``row_mask`` (s,), else ``n_rows``.  Every OPM path (fused, naive,
+    DAP) masks through this one rule."""
+    if row_mask is None:
+        return a, b, float(n_rows)
+    rm = row_mask.to(a.dtype)[:, None, None]
+    return a * rm, b * rm, torch.clamp(row_mask.float().sum(), min=1.0)
+
+
+def outer_product_mean(p: OuterProductMean, msa: torch.Tensor,
+                       row_mask: Optional[torch.Tensor] = None):
+    """msa (s, r, c_m) -> pair update (r, r, c_z), ``opm_impl="naive"``:
+    the full (r, r, c_hidden²) outer-product tensor is materialised before
+    the output projection."""
+    h = layernorm(p.ln, msa)
+    a = dense(p.a, h)                                         # (s, r, c)
+    b = dense(p.b, h)
+    a, b, denom = mask_opm_operands(a, b, row_mask, msa.shape[0])
+    return opm_project(p, torch.einsum("sic,sjd->ijcd", a, b) / denom,
+                       msa.dtype)
+
+
+def opm_project(p: OuterProductMean, outer, out_dtype):
+    """The naive OPM's projection of the (r_i, r_j, c, c) outer product."""
+    outer = outer.reshape(*outer.shape[:2], -1)
+    return dense(p.out, outer.to(out_dtype))
 
 
 def opm_contract(a, b, w, b_out, denom, out_dtype, row_chunk: int = 32):
@@ -349,21 +388,20 @@ def outer_product_mean_fused(p: OuterProductMean, msa: torch.Tensor, *,
     h = layernorm(p.ln, msa)
     a = dense(p.a, h)                                         # (s, r, c)
     b = dense(p.b, h)
-    denom = float(msa.shape[0])
-    if row_mask is not None:
-        rm = row_mask.to(a.dtype)[:, None, None]
-        a, b = a * rm, b * rm
-        denom = torch.clamp(row_mask.float().sum(), min=1.0)
+    a, b, denom = mask_opm_operands(a, b, row_mask, msa.shape[0])
     return opm_contract(a, b, p.out.w, p.out.b, denom, msa.dtype,
                         row_chunk=row_chunk)
 
 
 def opm_apply(p: OuterProductMean, cfg: EvoformerConfig, msa: torch.Tensor,
               row_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    if cfg.opm_impl != "fused":
-        raise _not_ported("opm_impl", cfg.opm_impl)
-    return outer_product_mean_fused(p, msa, row_chunk=cfg.opm_chunk,
-                                    row_mask=row_mask)
+    """Dispatch on ``cfg.opm_impl`` ('fused' | 'naive')."""
+    if cfg.opm_impl == "fused":
+        return outer_product_mean_fused(p, msa, row_chunk=cfg.opm_chunk,
+                                        row_mask=row_mask)
+    if cfg.opm_impl == "naive":
+        return outer_product_mean(p, msa, row_mask=row_mask)
+    raise ValueError(f"unknown opm impl {cfg.opm_impl!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -415,13 +453,21 @@ def tri_mult_packed_weights(p: TriangleMult):
 
 
 def triangle_mult_fused(p: TriangleMult, xa, xb, xg, *, impl: str,
-                        out_dtype=None,
+                        chunk: int = 64, out_dtype=None,
                         k_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Kernel K3 on oriented operands: ``o[i,j] = Σ_k a(xa[i,k]) ⊙ b(xb[j,k])``
-    then LN, out-projection and the gate from ``xg`` (see ``kernels.ref``)."""
-    if impl != "pallas":
-        raise _not_ported("tri_mult_impl", impl)
+    """The fused triangle update on oriented operands: ``o[i,j] = Σ_k
+    a(xa[i,k]) ⊙ b(xb[j,k])`` then LN, out-projection and the gate from
+    ``xg`` (the serial and DAP paths orient xa / xb / xg).
+
+    ``impl="pallas"``: kernel K3 (see ``kernels.ref``).  ``impl="chunked"``
+    (:func:`triangle_mult_chunked`): plain torch in slabs of ``chunk``.
+    ``k_mask`` (r_k,) drops padded-bucket residues from the contraction."""
     out_dtype = out_dtype or xg.dtype
+    if impl == "chunked":
+        return triangle_mult_chunked(p, xa, xb, xg, chunk=chunk,
+                                     out_dtype=out_dtype, k_mask=k_mask)
+    if impl != "pallas":
+        raise ValueError(f"unknown tri_mult impl {impl!r}")
     packed = (*tri_mult_packed_weights(p), p.ln_out.scale, p.ln_out.bias,
               p.out.w, p.out.b, p.gate.w, p.gate.b)
     if k_mask is None:
@@ -431,17 +477,61 @@ def triangle_mult_fused(p: TriangleMult, xa, xb, xg, *, impl: str,
     return y.to(out_dtype)
 
 
+def triangle_mult_chunked(p: TriangleMult, xa, xb, xg, *, chunk: int,
+                          out_dtype, k_mask: Optional[torch.Tensor] = None):
+    """``impl="chunked"`` of :func:`triangle_mult_fused` (the reference's
+    ``evoformer.py:418-461``): i-rows in slabs of ``chunk``, each an fp32
+    accumulation over k in chunks of ``chunk`` of the gated projections of
+    that k-chunk alone, then its out-LayerNorm, out-projection and gate; no
+    (r, r, 2·c_hidden) gated pair and no full pre-gate tensor exist.  The
+    k axis is zero-padded to whole chunks, and the padded columns (whose
+    gated projection sigmoid(b_gate) · b is not zero), like the columns
+    ``k_mask`` drops, are masked out of ``a``."""
+    r_i, r_k, _ = xa.shape
+    kc = max(1, min(chunk, r_k))
+    ic = max(1, min(chunk, r_i))
+    kpad = (-r_k) % kc
+    n_k = (r_k + kpad) // kc
+    k_valid = torch.arange(n_k * kc, device=xa.device) < r_k
+    if k_mask is not None:
+        k_valid = k_valid & torch.nn.functional.pad(k_mask.bool(), (0, kpad))
+    if kpad:
+        xa = torch.nn.functional.pad(xa, (0, 0, 0, kpad))
+        xb = torch.nn.functional.pad(xb, (0, 0, 0, kpad))
+
+    def gated(pa: Dense, pg: Dense, t):
+        return torch.sigmoid(dense(pg, t)) * dense(pa, t)
+
+    c_hidden = p.a.w.shape[1]
+    out = []
+    for i0 in range(0, r_i, ic):
+        xa_s = xa[i0:i0 + ic]
+        acc = torch.zeros((xa_s.shape[0], xb.shape[0], c_hidden),
+                          dtype=torch.float32, device=xa.device)
+        for k0 in range(0, n_k * kc, kc):
+            valid = k_valid[k0:k0 + kc, None]
+            a = gated(p.a, p.a_gate, xa_s[:, k0:k0 + kc]) * valid
+            b = gated(p.b, p.b_gate, xb[:, k0:k0 + kc])
+            acc = acc + torch.einsum("ikc,jkc->ijc", a.float(), b.float())
+        o = dense(p.out, layernorm(p.ln_out, acc.to(out_dtype)))
+        g = torch.sigmoid(dense(p.gate, xg[i0:i0 + ic]))
+        out.append((g * o).to(out_dtype))
+    return torch.cat(out, 0)
+
+
 def tri_mult_apply(p: TriangleMult, cfg: EvoformerConfig, z: torch.Tensor, *,
                    outgoing: bool,
                    k_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Dispatch on ``cfg.tri_mult_impl`` ('reference' | 'pallas').  No
-    fallback: the kernel masks ragged tiles, so it takes any r."""
+    """Dispatch on ``cfg.tri_mult_impl`` ('reference' | 'chunked' |
+    'pallas').  No fallback from 'pallas' to 'chunked': the kernel masks
+    ragged tiles, so it takes any r."""
     impl = cfg.tri_mult_impl
     if impl == "reference":
         return triangle_mult(p, z, outgoing=outgoing, k_mask=k_mask)
     x = layernorm(p.ln_in, z)
     xab = x if outgoing else x.transpose(0, 1)   # k on axis 1 either way
-    return triangle_mult_fused(p, xab, xab, x, impl=impl, out_dtype=z.dtype,
+    return triangle_mult_fused(p, xab, xab, x, impl=impl,
+                               chunk=cfg.tri_mult_chunk, out_dtype=z.dtype,
                                k_mask=k_mask)
 
 
@@ -482,9 +572,11 @@ def msa_branch(p: EvoformerBlock, cfg: EvoformerConfig, msa, z_bias_src, *,
     rows_mask = res_mask = None
     if masks is not None:
         rows_mask, res_mask = masks.rows, masks.res
+    chunk = cfg.attention_chunk
     upd = gated_attention(p.row_attn, msa, n_head=cfg.n_head_msa,
                           c_hidden=cfg.c_hidden_att, bias_input=z_bias_src,
-                          key_mask=res_mask, attention_impl=impl)
+                          key_mask=res_mask, attention_impl=impl,
+                          attention_chunk=chunk)
     msa = msa + shared_dropout(upd, cfg.dropout_msa, shared_axis=0,
                                rng=fold_in(rng, 0), deterministic=deterministic)
     cols = msa.transpose(0, 1)
@@ -494,7 +586,7 @@ def msa_branch(p: EvoformerBlock, cfg: EvoformerConfig, msa, z_bias_src, *,
     else:
         col = gated_attention(p.col_attn, cols, n_head=cfg.n_head_msa,
                               c_hidden=cfg.c_hidden_att, key_mask=rows_mask,
-                              attention_impl=impl)
+                              attention_impl=impl, attention_chunk=chunk)
     msa = msa + col.transpose(0, 1)
     return msa + transition(p.msa_trans, msa)
 
@@ -517,14 +609,13 @@ def pair_branch(p: EvoformerBlock, cfg: EvoformerConfig, z, *,
                                    k_mask=res_mask), 0)
     z = z + drop(1, tri_mult_apply(p.tri_mul_in, cfg, z, outgoing=False,
                                    k_mask=res_mask), 0)
-    z = z + drop(2, gated_attention(p.tri_att_start, z, n_head=cfg.n_head_pair,
-                                    c_hidden=cfg.c_hidden_pair_att,
-                                    bias_input=z, key_mask=res_mask,
-                                    attention_impl=impl), 0)
+    att = dict(n_head=cfg.n_head_pair, c_hidden=cfg.c_hidden_pair_att,
+               key_mask=res_mask, attention_impl=impl,
+               attention_chunk=cfg.attention_chunk)
+    z = z + drop(2, gated_attention(p.tri_att_start, z, bias_input=z, **att),
+                 0)
     zt = z.transpose(0, 1)
-    att_end = gated_attention(p.tri_att_end, zt, n_head=cfg.n_head_pair,
-                              c_hidden=cfg.c_hidden_pair_att, bias_input=zt,
-                              key_mask=res_mask, attention_impl=impl)
+    att_end = gated_attention(p.tri_att_end, zt, bias_input=zt, **att)
     z = z + drop(3, att_end.transpose(0, 1), 1)
     return z + transition(p.pair_trans, z)
 

@@ -55,8 +55,21 @@ through a ``ShardedLoader``, checkpoints of the parameters and moments,
 and a ``StepWatchdog``.  Whisper's frames and InternVL2's patches are drawn
 from a CPU ``torch.Generator`` seeded with the step (JAX's PRNG cannot be
 reproduced without JAX), so a run on the card and one on the CPU see the
-same inputs, as they see the same weights.  One device only: ``--devices``
-above 1 is refused until the LM partition rules are ported.
+same inputs, and at ``--smoke`` the same weights (drawn on the CPU; a
+full-size model is drawn on the run's device).  With ``--devices N`` (or under
+torchrun) the step is data-parallel over the reference's (N, 1) mesh over
+("data", "model"): ``--batch`` is the global batch and must divide by N,
+each rank takes its rows, and each parameter and its moments are sharded
+over ``data`` where the family's partition rules say so under
+``cfg.fsdp`` (True in every full config, False at ``--smoke``, as in the
+reference).  Checkpoints hold the full arrays (rank 0 gathers and writes),
+so a run resumes on any N; rank 0 prints the losses.
+
+  # two CPU ranks (gloo), then the same on one device: the same losses
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke --steps 2 --batch 2 --seq 32 --device cpu --devices 2
+  # whisper-medium at full size, FSDP over two ranks on the card (they
+  # share it through gloo when it is the only one)
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium --steps 3 --batch 2 --seq 448 --devices 2
 """
 from __future__ import annotations
 
@@ -65,7 +78,7 @@ import os
 import time
 
 
-def main(argv=None):
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     what = ap.add_mutually_exclusive_group(required=True)
     what.add_argument("--af2", choices=["tiny", "small", "initial"],
@@ -163,15 +176,16 @@ def main(argv=None):
                          "launch's plan (at the lint config) before "
                          "training, record lint/* metrics, and refuse to "
                          "train on a finding the baseline does not waive")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
     from repro_torch.device import resolve_device
     from repro_torch.parallel import ranks
     device_type = resolve_device(args.device).type
     if args.arch:
-        if args.devices > 1 or "WORLD_SIZE" in os.environ:
-            raise SystemExit("--arch trains on one device: the LM partition "
-                             "rules (tensor parallelism) are not ported yet")
-        return run_lm(args)
+        return launch_lm(args, device_type)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world, device, backend = ranks.from_env(device_type,
                                                       args.rank_timeout)
@@ -192,6 +206,38 @@ def main(argv=None):
                            threads=max(1, torch.get_num_threads() // args.devices)
                            if device_type == "cpu" else 0)
     return run_af2(args)
+
+
+def launch_lm(args, device_type: str):
+    """``run_lm`` on this process, on the ranks of a torchrun world, or on
+    ``--devices`` new rank processes; returns rank 0's {step: loss}."""
+    from repro_torch.parallel import ranks
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        rank, world, device, backend = ranks.from_env(device_type,
+                                                      args.rank_timeout)
+        if rank == 0:
+            print(ranks.describe_backend(device_type, backend, world))
+        return run_lm(args, rank=rank, world=world, device=device)
+    if args.devices <= 1:
+        return run_lm(args)
+    if args.batch % args.devices:
+        raise SystemExit(f"--batch {args.batch} (the global batch) does not "
+                         f"split over --devices {args.devices}")
+    import torch
+    backend = ranks.choose_backend(device_type, args.devices)
+    print(ranks.describe_backend(device_type, backend, args.devices))
+    if device_type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()       # once, before the ranks start
+    return ranks.spawn(_lm_rank_main, args.devices, args,
+                       device_type=device_type, backend=backend,
+                       timeout_s=args.rank_timeout,
+                       threads=max(1, torch.get_num_threads() // args.devices)
+                       if device_type == "cpu" else 0)[0]
+
+
+def _lm_rank_main(rank, world, device, args):
+    return run_lm(args, rank=rank, world=world, device=device)
 
 
 def _rank_main(rank, world, device, args):
@@ -374,9 +420,17 @@ def run_af2(args, *, rank: int = 0, world: int = 1, device=None):
     return runner
 
 
-def run_lm(args) -> dict:
-    """The reference's ``run_lm`` on one device; returns {step: loss} of the
-    steps this run took."""
+def run_lm(args, *, rank: int = 0, world: int = 1, device=None,
+           on_step=None) -> dict:
+    """The reference's ``run_lm``: on one device, or as rank ``rank`` of
+    ``world`` data-parallel ranks (every rank calls it together) on
+    ``device``.  The weights are drawn from seed 0 on the CPU at
+    ``--smoke`` (a run on the card and one on the CPU train the same
+    weights), on the run's device at full size (a CPU draw of whisper-
+    medium's 0.76 B parameters takes ~90 s); every rank draws the same.
+    ``on_step(step, state, metrics)``, if given, is called after each
+    step, ``metrics`` with the step's wall ``step_s``.  Returns {step:
+    loss} of the steps this run took."""
     import torch
 
     from repro_torch import bridge
@@ -386,28 +440,55 @@ def run_lm(args) -> dict:
     from repro_torch.device import resolve_device
     from repro_torch.models import get_model
     from repro_torch.models.lmconfig import with_kernels
-    from repro_torch.nn.layers import count_params
+    from repro_torch.parallel.mesh_utils import make_mesh
     from repro_torch.train.checkpoint import (CheckpointManager, StepWatchdog,
                                               train_state_tree)
     from repro_torch.train.optim import adamw, warmup_cosine
-    from repro_torch.train.trainstep import init_lm_state, make_lm_train_step
+    from repro_torch.train.trainstep import (init_lm_state, lm_full_state,
+                                             lm_full_state_like, lm_layout,
+                                             load_lm_full_state_,
+                                             make_lm_train_step)
 
+    print_ = print if rank == 0 else (lambda *a, **k: None)
     try:
         cfg = (cfglib.get_smoke_config(args.arch) if args.smoke
                else cfglib.get_config(args.arch))
     except KeyError as e:
         raise SystemExit(str(e))
+    if args.batch % world:
+        raise SystemExit(f"--batch {args.batch} (the global batch) does not "
+                         f"split over {world} ranks")
     cfg = with_kernels(cfg)
-    dev = resolve_device(args.device)
+    dev = device if device is not None else resolve_device(args.device)
     lm = get_model(cfg)
     opt = adamw(warmup_cosine(args.lr, 20, args.steps), clip_norm=1.0)
-    step_fn = make_lm_train_step(lm, cfg, opt)
-    # drawn on the CPU: the card and the CPU train the same weights
-    model = lm.init_params(cfg, seed=0, device="cpu").to(dev)
-    print(f"{cfg.arch_id}: {count_params(model):,} params (smoke="
-          f"{args.smoke}) on {dev}")
-    state = init_lm_state(model, opt)
-    tree = lambda: train_state_tree(state, stacked=bridge.LM_STACKED)
+    model = lm.init_params(cfg, seed=0,
+                           device="cpu" if args.smoke else dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    mesh = layout = None
+    if world > 1:
+        mesh = make_mesh((world, 1), ("data", "model"))
+        layout = lm_layout(lm, cfg, model, mesh)
+        layout.shard_(model)            # cut where drawn, then moved
+    model = model.to(dev)
+    state = init_lm_state(model, opt, layout=layout)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    step_fn = make_lm_train_step(lm, cfg, opt, mesh)
+    print_(f"{cfg.arch_id}: {n_params:,} params (smoke={args.smoke}) on "
+           f"{dev}")
+    if layout is not None:
+        held = layout.bytes_held(dict(model.named_parameters()))
+        print_(f"data parallel: {world} ranks over 'data', fsdp={cfg.fsdp}: "
+               f"{len(layout.sharded)} of {len(layout.dims)} leaves sharded; "
+               f"rank 0 holds {held['sharded'] / 2 ** 20:.1f} MiB sharded + "
+               f"{held['replicated'] / 2 ** 20:.1f} MiB replicated "
+               "parameters (and as much of each moment)")
+
+    def tree():
+        return train_state_tree(lm_full_state(state),
+                                stacked=bridge.LM_STACKED)
 
     def make_batch(step):
         b = token_batch(0, step, args.batch, args.seq, cfg.vocab)
@@ -421,13 +502,22 @@ def run_lm(args) -> dict:
                 generator=g).to(torch.bfloat16)
         return out
 
-    mgr = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
+    mgr = (CheckpointManager(args.ckpt_dir, keep=3, write=rank == 0)
+           if args.ckpt_dir else None)
     start = 0
     if mgr and args.resume:
         try:
-            restored, start = mgr.restore_latest(tree())
-            state["opt"] = state["opt"]._replace(step=int(restored["opt"].step))
-            print(f"resumed from step {start}")
+            if layout is None:
+                restored, start = mgr.restore_latest(tree())
+                state["opt"] = state["opt"]._replace(
+                    step=int(restored["opt"].step))
+            else:
+                full = lm_full_state_like(state)
+                restored, start = mgr.restore_latest(train_state_tree(
+                    full, stacked=bridge.LM_STACKED))
+                full["opt"] = full["opt"]._replace(step=restored["opt"].step)
+                load_lm_full_state_(state, full)
+            print_(f"resumed from step {start}")
         except FileNotFoundError:
             pass
     wd = StepWatchdog()
@@ -439,13 +529,18 @@ def run_lm(args) -> dict:
                 break
             batch = {k: v.to(dev, non_blocking=True) for k, v in batch.items()}
             wd.start_step()
+            t0 = time.perf_counter()
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
+            wall = time.perf_counter() - t0
             wd.end_step(step)
             losses[step] = loss
+            if on_step is not None:
+                on_step(step, state, {**metrics, "step_s": wall})
             if step % args.log_every == 0:
                 tokps = args.batch * args.seq / max(wd.ema or 1e-9, 1e-9)
-                print(f"step {step:5d}  loss {loss:.4f}  ({tokps:,.0f} tok/s)")
+                print_(f"step {step:5d}  loss {loss:.4f}  ({tokps:,.0f} "
+                       "tok/s)")
             if mgr and step and step % args.ckpt_every == 0:
                 mgr.save(step, tree())
     finally:
@@ -453,7 +548,10 @@ def run_lm(args) -> dict:
     if mgr:
         mgr.save(args.steps, tree())
         mgr.wait()
-    print("done")
+    if dev.type == "cuda":
+        print_(f"peak allocated {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.2f}"
+               " GiB (the steps)")
+    print_("done")
     return losses
 
 

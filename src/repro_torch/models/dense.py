@@ -1,8 +1,9 @@
 """Dense decoder-only transformer (GQA + RoPE + SwiGLU + RMSNorm):
 glm4-9b, qwen1.5-110b (QKV bias), deepseek-67b, deepseek-coder-33b.
-Counterpart of ``repro/models/dense.py``: serving and the training loss
-(``bp_parallel_layer`` and ``partition_rules`` come with the
-tensor-parallel slice).
+Counterpart of ``repro/models/dense.py``: serving, the training loss,
+the partition rules (``partition_rules``: the reference's Megatron-style
+TP plus FSDP over ``data``) and the Branch-Parallel layer
+(``bp_parallel_layer``).
 
 Parameters live in a :class:`DenseLM` under the reference's key paths
 (``embed.table``, ``layers.<i>.wq.w``, ``layers.<i>.mlp.w_gate.w``,
@@ -28,6 +29,7 @@ from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention, decode_attention
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
                                    dense, rmsnorm, swiglu)
+from repro_torch.nn.partition import P
 from repro_torch.nn.rope import apply_rope
 
 BF16 = Policy()
@@ -115,11 +117,42 @@ def layer_apply(p: Layer, cfg: LMConfig, x, positions, *, causal=True,
     return x.to(att.dtype), kv
 
 
+def bp_parallel_layer(p: Layer, cfg: LMConfig, x, positions, *, axis,
+                      causal=True):
+    """Branch-Parallel dense layer (the reference's ``bp_parallel_layer``):
+    over ``axis`` (a ``mesh_utils.Axis`` of extent 2, the branch axis) the
+    rank at coordinate 0 computes the attention branch and the rank at 1
+    the MLP branch of a PaLM-style parallel block, and one all-reduce
+    merges them (``parallel.branch.branch_parallel``).  Requires
+    ``cfg.parallel_block``; returns (out, None), as ``layer_apply`` returns
+    (out, kv) without the cache."""
+    from repro_torch.parallel.branch import branch_parallel
+    if not cfg.parallel_block:
+        raise ValueError("BP on dense LMs requires parallel_block=True "
+                         "(sequential blocks have a serial dependency)")
+
+    def attn_branch():
+        return (attention_block(p, cfg, x, positions, causal=causal)[0],)
+
+    def mlp_branch():
+        return (swiglu(p.mlp, rmsnorm(p.ln2, x)),)
+
+    like = (x.new_empty(x.shape),)
+    att, mlp = branch_parallel([attn_branch, mlp_branch], [like, like],
+                               axis=axis)()
+    return (x + att + mlp).to(x.dtype), None
+
+
 def remat(cfg: LMConfig, fn):
-    """``fn`` under ``cfg.remat``: for ``"layer"``, while autograd records,
-    one ``torch.utils.checkpoint`` a call (the reference's ``jax.checkpoint``
-    of its scanned layer body): the call keeps only its inputs, and the
-    backward recomputes its forward."""
+    """``fn(layer, *args)`` under ``cfg.remat``: for ``"layer"``, while
+    autograd records, one ``torch.utils.checkpoint`` a call (the
+    reference's ``jax.checkpoint`` of its scanned layer body): the call
+    keeps only its inputs, and the backward recomputes its forward.  A
+    layer whose parameters a data-parallel step holds sharded
+    (``parallel.fsdp``) is gathered inside the call, just before its use,
+    so the recompute gathers it again."""
+    from repro_torch.parallel import fsdp
+    fn = fsdp.gathering(fn)
     if cfg.remat != "layer":
         return fn
 
@@ -266,3 +299,28 @@ def decode_step(params: DenseLM, cfg: LMConfig, tokens1, cache):
     x = rmsnorm(params.ln_f, x)
     logits = logits_fn(params, cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}
+
+
+# ---------------------------------------------------------------------------
+# partitioning (TP over 'model'; optional FSDP over 'data')
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: LMConfig, *, tp_axis="model", fsdp_axis="data"):
+    """Megatron-style TP (heads / ffn / vocab) + optional ZeRO-3 FSDP over
+    data, the reference's rules: written for the stacked layer layout
+    (leading layer dim unsharded) when ``cfg.scan_layers``, which
+    ``nn.partition.make_param_specs(stacked=...)`` maps onto the port's
+    per-layer leaves."""
+    fs = fsdp_axis if cfg.fsdp else None
+    lay = ((lambda *sp: P(None, *sp)) if cfg.scan_layers else
+           (lambda *sp: P(*sp)))
+    return [
+        (r"embed/table", P(tp_axis, fs)),
+        (r"lm_head/w", P(fs, tp_axis)),
+        (r"w[qkv]/w", lay(fs, tp_axis)),
+        (r"w[qkv]/b", lay(tp_axis)),
+        (r"wo/w", lay(tp_axis, fs)),
+        (r"mlp/w_(gate|up)/w", lay(fs, tp_axis)),
+        (r"mlp/w_down/w", lay(tp_axis, fs)),
+        (r"ln", P()),
+    ]

@@ -1,6 +1,6 @@
 """Zamba2-style hybrid (arXiv:2411.15242): counterpart of
-``repro/models/hybrid.py`` (``partition_rules`` comes with the
-tensor-parallel slice).
+``repro/models/hybrid.py``, the partition rules (``partition_rules``)
+included.
 
 A Mamba2 backbone (``ssm.Block``) plus one weight-SHARED attention block
 applied after every layer i with ``i % shared_attn_every == 0``: it reads
@@ -25,6 +25,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import dense, ssm
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention
+from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
                                    dense as dense_apply, rmsnorm, swiglu)
 from repro_torch.nn.rope import apply_rope
@@ -207,3 +208,21 @@ def decode_step(params: HybridLM, cfg: LMConfig, tokens1, cache):
     x = rmsnorm(params.ln_f, x)
     logits = dense_apply(params.lm_head, x[:, None])
     return logits, {**cache, "length": length + 1}
+
+
+# ---------------------------------------------------------------------------
+# partitioning: the shared block's rules, then the Mamba2 backbone's
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: LMConfig, *, tp_axis="model", fsdp_axis="data"):
+    fs = fsdp_axis if cfg.fsdp else None
+    rules = ssm.partition_rules(cfg, tp_axis=tp_axis, fsdp_axis=fsdp_axis)
+    shared = [
+        (r"shared/fuse/w", P(fs, tp_axis)),
+        (r"shared/w[qkv]/w", P(fs, tp_axis)),
+        (r"shared/wo/w", P(tp_axis, fs)),
+        (r"shared/mlp/w_(gate|up)/w", P(fs, tp_axis)),
+        (r"shared/mlp/w_down/w", P(tp_axis, fs)),
+        (r"shared/ln", P()),
+    ]
+    return shared + rules

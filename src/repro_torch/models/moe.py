@@ -1,6 +1,6 @@
 """Mixture-of-Experts transformer (qwen2-moe, phi3.5-moe): counterpart of
-``repro/models/moe.py`` (``partition_rules`` comes with the tensor-parallel
-slice).
+``repro/models/moe.py``, the partition rules (``partition_rules``)
+included.
 
 Dense attention (``dense.attention_block``) plus a top-k routed FFN whose
 expert banks are padded for even expert-parallel sharding (qwen2-moe: 60
@@ -12,7 +12,12 @@ token's top-k choices into expert buffers of ``capacity`` slots
 (``moe_ffn``), by the one-hot dispatch (``capacity_dispatch``,
 ``cfg.moe_dispatch="einsum"``) or by a stable sort (``sorted_dispatch``,
 ``"sorted"``), which drop the same overflowing choices, and adds the
-router's load-balancing loss.
+router's load-balancing loss.  Under data parallelism
+(``parallel.fsdp.data_parallel``) the routing is the global batch's, as
+the reference's GSPMD step computes it: the capacity is the global token
+count's, a choice's buffer position counts the earlier choices of every
+rank (the (k, T) order over the rows of all ranks), and the load-balancing
+statistics are summed over the axis.
 
 Parameters live in a :class:`MoELM` under the reference's key paths
 (``layers.<i>.moe.router.w``, ``layers.<i>.moe.w_gate`` of shape (E_pad,
@@ -31,6 +36,9 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import dense
 from repro_torch.models.lmconfig import LMConfig
+from repro_torch.nn.partition import P
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import fsdp
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
                                    dense as dense_apply, rmsnorm, swiglu)
 
@@ -117,16 +125,21 @@ def moe_ffn_dense(p: MoEFFN, cfg: LMConfig, x):
     return y
 
 
-def capacity_dispatch(idx, gates, n_experts: int, capacity: int):
+def capacity_dispatch(idx, gates, n_experts: int, capacity: int,
+                      shift=None):
     """The one-hot dispatch (T, E, C) and combine (T, E, C) tensors.  A
     choice's position in its expert's buffer is the count of earlier
     choices of that expert in the flattened (k, T) order (every token's
-    first choice before any second); choices at positions past
+    first choice before any second), plus ``shift[j, e]`` for a choice j
+    of expert e (:func:`global_shift`); choices at positions past
     ``capacity`` are dropped (their residual passes through)."""
     t, k = idx.shape
     flat_idx = idx.T.reshape(-1)                             # (kT,)
     onehot = F.one_hot(flat_idx, n_experts)                  # (kT, E)
     pos = ((torch.cumsum(onehot, 0) - 1) * onehot).sum(-1)   # (kT,)
+    if shift is not None:
+        j = torch.arange(t * k, device=idx.device) // t
+        pos = pos + shift[j, flat_idx]
     keep = pos < capacity
     # jax.nn.one_hot gives a zero row past ``capacity``; those rows are
     # dropped here
@@ -138,11 +151,13 @@ def capacity_dispatch(idx, gates, n_experts: int, capacity: int):
     return disp.sum(0), combine.sum(0)
 
 
-def sorted_dispatch(idx, gates, xf, n_experts: int, capacity: int):
-    """The capacity dispatch of :func:`capacity_dispatch` by a stable sort
-    of the choices by expert and one scatter: returns (xe (E, C, D),
-    slot_by_tk (k, T), keep_by_tk (k, T)), each choice's buffer slot and
-    whether it was kept, so that the combine is a gather."""
+def sorted_dispatch(idx, gates, xf, n_experts: int, capacity: int,
+                    shift=None):
+    """The capacity dispatch of :func:`capacity_dispatch` (``shift``
+    likewise) by a stable sort of the choices by expert and one scatter:
+    returns (xe (E, C, D), slot_by_tk (k, T), keep_by_tk (k, T)), each
+    choice's buffer slot and whether it was kept, so that the combine is a
+    gather."""
     t, k = idx.shape
     d = xf.shape[-1]
     flat_e = idx.T.reshape(-1)                               # (kT,)
@@ -153,6 +168,8 @@ def sorted_dispatch(idx, gates, xf, n_experts: int, capacity: int):
                            dtype=sorted_e.dtype)
     seg_start = torch.searchsorted(sorted_e, experts, side="left")
     pos_sorted = ranks - seg_start[sorted_e]
+    if shift is not None:
+        pos_sorted = pos_sorted + shift[order // t, sorted_e]
     keep_sorted = pos_sorted < capacity
     token_sorted = order % t
     slot_sorted = sorted_e * capacity + torch.clamp(pos_sorted,
@@ -175,6 +192,23 @@ def _expert_ffn(p: MoEFFN, xe):
                         wd)
 
 
+@torch.no_grad()
+def global_shift(idx, n_experts: int, axis):
+    """(k, E): what a rank adds to its choices' buffer positions (counted
+    over its own (k, T) choices) to place them in the global (k, T) order
+    over the rows of every rank of ``axis`` (rank order): for choice slot
+    j of expert e, every rank's choices of e in slots before j plus the
+    choices of e in slot j of the ranks before this one, less this rank's
+    own choices of e in slots before j.  One all-gather of the (k, E)
+    counts."""
+    counts = F.one_hot(idx.T, n_experts).sum(1)              # (k, E)
+    every = coll.all_gather(counts[None], axis, 0)          # (N, k, E)
+    total = every.sum(0)
+    return ((torch.cumsum(total, 0) - total)
+            + every[:axis.index].sum(0)
+            - (torch.cumsum(counts, 0) - counts))
+
+
 def expert_capacity(cfg: LMConfig, t: int) -> int:
     """Slots of each expert's buffer for ``t`` tokens."""
     return int(cfg.capacity_factor * cfg.top_k * t / cfg.n_experts + 1)
@@ -184,23 +218,31 @@ def moe_ffn(p: MoEFFN, cfg: LMConfig, x, *, return_aux: bool = False):
     """Training's capacity-routed MoE: x (B, S, D) -> (B, S, D), with
     ``return_aux`` also the Switch/GShard load-balancing loss E * sum_e f_e
     P_e (f_e the share of first choices, P_e the mean router
-    probability)."""
+    probability).  Under ``fsdp.data_parallel`` the rows are this rank's
+    of the global batch, routed as the global batch is (see the module
+    docstring): the buffers have the global capacity, and hold this rank's
+    choices at their global positions."""
     b, s, d = x.shape
     t = b * s
     xf = x.reshape(t, d)
     logits = dense_apply(p.router, xf)                       # (T, E)
     gates, idx, probs = router_topk(logits, cfg.top_k)
-    cap = expert_capacity(cfg, t)
+    axis = fsdp.current_data_axis()
+    if axis is not None and axis.size == 1:
+        axis = None
+    t_all = t if axis is None else t * axis.size
+    cap = expert_capacity(cfg, t_all)
     e_pad = padded_experts(cfg)
+    shift = None if axis is None else global_shift(idx, e_pad, axis)
     if cfg.moe_dispatch == "sorted":
         xe, slot_by_tk, keep_by_tk = sorted_dispatch(idx, gates, xf, e_pad,
-                                                     cap)
+                                                     cap, shift)
         he = _expert_ffn(p, xe).reshape(e_pad * cap, d)
         picked = he[slot_by_tk]                              # (k, T, D)
         w = (gates.T * keep_by_tk).to(x.dtype)               # (k, T)
         y = torch.einsum("kt,ktd->td", *_promoted(w, picked))
     else:   # 'einsum': the GShard one-hot dispatch
-        disp, combine = capacity_dispatch(idx, gates, e_pad, cap)
+        disp, combine = capacity_dispatch(idx, gates, e_pad, cap, shift)
         xe = torch.einsum("tec,td->ecd", *_promoted(disp.to(x.dtype), xf))
         he = _expert_ffn(p, xe)
         y = torch.einsum("tec,ecd->td", *_promoted(combine.to(x.dtype), he))
@@ -209,8 +251,12 @@ def moe_ffn(p: MoEFFN, cfg: LMConfig, x, *, return_aux: bool = False):
         y = y + swiglu(p.shared, x)
     if not return_aux:
         return y
-    me = probs.mean(0)
-    fe = F.one_hot(idx[:, 0], cfg.n_experts).float().mean(0)
+    fe = F.one_hot(idx[:, 0], cfg.n_experts).float()
+    if axis is None:
+        me, fe = probs.mean(0), fe.mean(0)
+    else:
+        me = coll.psum(probs.sum(0), axis) / t_all
+        fe = coll.psum(fe.sum(0), axis) / t_all
     return y, cfg.n_experts * (me * fe).sum()
 
 
@@ -354,3 +400,26 @@ def decode_step(params: MoELM, cfg: LMConfig, tokens1, cache):
     x = rmsnorm(params.ln_f, x)
     logits = dense_apply(params.lm_head, x)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}
+
+
+# ---------------------------------------------------------------------------
+# partitioning: dense's rules, the expert banks over the expert axis
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: LMConfig, *, tp_axis="model", fsdp_axis="data"):
+    fs = fsdp_axis if cfg.fsdp else None
+    lay = ((lambda *sp: P(None, *sp)) if cfg.scan_layers else
+           (lambda *sp: P(*sp)))
+    return [
+        (r"embed/table", P(tp_axis, fs)),
+        (r"lm_head/w", P(fs, tp_axis)),
+        (r"w[qkv]/w", lay(fs, tp_axis)),
+        (r"w[qkv]/b", lay(tp_axis)),
+        (r"wo/w", lay(tp_axis, fs)),
+        # expert parallelism: expert banks sharded over the expert axis
+        (r"moe/w_(gate|up|down)", lay(tp_axis, fs, None)),
+        (r"moe/router/w", lay(fs, None)),
+        (r"moe/shared/w_(gate|up)/w", lay(fs, tp_axis)),
+        (r"moe/shared/w_down/w", lay(tp_axis, fs)),
+        (r"ln", P()),
+    ]

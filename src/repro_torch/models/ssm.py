@@ -1,6 +1,6 @@
 """Mamba2 (SSD, state-space duality, arXiv:2405.21060): counterpart of
-``repro/models/ssm.py`` (``partition_rules`` comes with the
-tensor-parallel slice).
+``repro/models/ssm.py``, the partition rules (``partition_rules``)
+included.
 
 Scalar decay per head: S_t = exp(dt_t A_h) S_{t-1} + dt_t B_t x_t^T;
 y_t = C_t S_t + D_h x_t.  ``ssd_chunked`` is the chunked form (intra-chunk
@@ -28,6 +28,7 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models.dense import cross_entropy, remat
 from repro_torch.models.lmconfig import LMConfig
+from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, dense,
                                    rmsnorm)
 
@@ -352,3 +353,24 @@ def decode_step(params: MambaLM, cfg: LMConfig, tokens1, cache):
     logits = dense(params.lm_head, x[:, None])
     return logits, {"conv": cache["conv"], "S": cache["S"],
                     "length": cache["length"] + 1}
+
+
+# ---------------------------------------------------------------------------
+# partitioning
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: LMConfig, *, tp_axis="model", fsdp_axis="data"):
+    fs = fsdp_axis if cfg.fsdp else None
+    lay = ((lambda *sp: P(None, *sp)) if cfg.scan_layers else
+           (lambda *sp: P(*sp)))
+    return [
+        (r"embed/table", P(tp_axis, fs)),
+        (r"lm_head/w", P(fs, tp_axis)),
+        (r"w[zx]/w", lay(fs, tp_axis)),       # heads shard
+        (r"w[BC]/w", lay(fs, None)),          # group-shared: replicate
+        (r"wdt/w", lay(fs, tp_axis)),
+        (r"(dt_bias|A_log|D)$", lay(tp_axis)),
+        (r"conv_w", lay(None, None)),
+        (r"out/w", lay(tp_axis, fs)),
+        (r"ln", P()),
+    ]

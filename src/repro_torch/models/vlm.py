@@ -1,6 +1,6 @@
 """InternVL2-style VLM (arXiv:2404.16821): counterpart of
-``repro/models/vlm.py`` (``partition_rules`` comes with the tensor-parallel
-slice).  The InternLM2 dense backbone (``models.dense``) with a ViT
+``repro/models/vlm.py``, the partition rules (``partition_rules``)
+included.  The InternLM2 dense backbone (``models.dense``) with a ViT
 frontend stub, as in the reference: the caller gives precomputed InternViT
 patch features (B, P, frontend_dim); a two-layer projector (LayerNorm over
 frontend_dim, ``w1``, tanh-GELU, ``w2``) maps them into the embedding space
@@ -19,6 +19,7 @@ from torch import nn
 
 from repro_torch.models import dense
 from repro_torch.models.lmconfig import LMConfig
+from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, LayerNorm, Policy, dense as linear,
                                    gelu, layernorm, rmsnorm)
 
@@ -104,3 +105,16 @@ def prefill(params: VLM, cfg: LMConfig, batch: dict, cache):
     return logits, {"k": cache["k"], "v": cache["v"],
                     "length": torch.full((b,), n, dtype=torch.int32,
                                          device=x.device)}
+
+
+# ---------------------------------------------------------------------------
+# partitioning: the projector's rules, then the dense backbone's
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: LMConfig, *, tp_axis="model", fsdp_axis="data"):
+    fs = fsdp_axis if cfg.fsdp else None
+    return [
+        (r"projector/w[12]/w", P(fs, tp_axis)),
+        (r"projector/w[12]/b", P(tp_axis)),
+        (r"projector/ln", P()),
+    ] + dense.partition_rules(cfg, tp_axis=tp_axis, fsdp_axis=fsdp_axis)

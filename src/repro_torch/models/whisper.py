@@ -1,6 +1,6 @@
 """Whisper-style encoder-decoder (arXiv:2212.04356), transformer backbone
-only: counterpart of ``repro/models/whisper.py`` (``partition_rules`` comes
-with the tensor-parallel slice).  The conv audio frontend is a stub, as in
+only: counterpart of ``repro/models/whisper.py``, the partition rules
+(``partition_rules``) included.  The conv audio frontend is a stub, as in
 the reference: the caller gives precomputed frame embeddings (B, T_frames,
 frontend_dim), projected to d_model by ``frame_proj`` only where
 frontend_dim differs from it.
@@ -32,6 +32,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.dense import cross_entropy, remat, write_kv_cache
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention, decode_attention
+from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, GeluMLP, LayerNorm, Policy,
                                    dense, gelu_mlp, layernorm)
 
@@ -267,3 +268,25 @@ def decode_step(params: WhisperLM, cfg: LMConfig, tokens1, cache):
     x = layernorm(params.dec_ln, x)
     logits = x @ params.embed.table.to(x.dtype).T
     return logits, {**cache, "length": length + 1}
+
+
+# ---------------------------------------------------------------------------
+# partitioning
+# ---------------------------------------------------------------------------
+
+def partition_rules(cfg: LMConfig, *, tp_axis="model", fsdp_axis="data"):
+    fs = fsdp_axis if cfg.fsdp else None
+    lay = ((lambda *sp: P(None, *sp)) if cfg.scan_layers else
+           (lambda *sp: P(*sp)))
+    return [
+        (r"embed/table", P(tp_axis, fs)),
+        (r"[wx][qkv]/w", lay(fs, tp_axis)),
+        (r"[wx][qkv]/b", lay(tp_axis)),
+        (r"[wx]o/w", lay(tp_axis, fs)),
+        (r"[wx]o/b", lay()),
+        (r"mlp/w_in/w", lay(fs, tp_axis)),
+        (r"mlp/w_in/b", lay(tp_axis)),
+        (r"mlp/w_out/w", lay(tp_axis, fs)),
+        (r"mlp/w_out/b", lay()),
+        (r"ln", P()),
+    ]

@@ -19,8 +19,9 @@ slice; a CUDA tensor under gloo (ranks sharing one card) is staged through
 host memory: copied to the host, reduced there, copied back.
 
 ``COUNTS`` counts the collectives issued, by the kind on the wire (the
-backward of a gather counts as a ``reduce_scatter``); a collective over an
-axis of extent 1 is the identity and issues nothing.  While an op trace
+backward of a gather counts as a ``reduce_scatter``), and ``BYTES`` the
+bytes of their outputs; a collective over an axis of extent 1 is the
+identity and issues nothing.  While an op trace
 records (``trace_hooks``), each collective is a node of it,
 with its kind, axis name and bytes (``op_walk.collective_axis_counts``
 counts them per (kind, axis)); the async gather of the overlapped DAP
@@ -39,20 +40,28 @@ from repro_torch.parallel.mesh_utils import Axis
 
 KINDS = ("psum", "pmax", "all_gather", "all_to_all", "reduce_scatter")
 COUNTS: collections.Counter = collections.Counter()
+BYTES: collections.Counter = collections.Counter()
 
 
 def reset_counts() -> None:
     COUNTS.clear()
+    BYTES.clear()
 
 
 def counts() -> dict:
     return {k: COUNTS[k] for k in KINDS}
 
 
+def byte_counts() -> dict:
+    """{kind: bytes of the outputs of the collectives issued}."""
+    return {k: BYTES[k] for k in KINDS}
+
+
 def _issued(kind: str, axis: Axis, nbytes: int, event: str = "sync"):
     """Count one collective of ``kind`` over ``axis`` moving ``nbytes``
     (its output); returns the trace's pair id of an async ``start``."""
     COUNTS[kind] += 1
+    BYTES[kind] += nbytes
     if trace_hooks.ACTIVE is not None:
         return trace_hooks.record_collective(kind, axis.name, nbytes,
                                              event=event)

@@ -8,8 +8,8 @@ axis i — and re-shards with collectives wherever an op needs the other axis:
 * row attention, transitions, triangle-start attention: local;
 * column attention, triangle-end attention: an all-to-all transpose;
 * triangle multiplications: an all-gather of the LayerNorm'd pair rep, the
-  kernel's operands oriented for the shard (the reference's fused route,
-  ``dap.py:188-213``);
+  fused impl's operands oriented for the shard (the reference's fused
+  route, ``dap.py:188-213``);
 * attention biases from the pair rep: projected locally, heads gathered;
 * outer-product mean: an all-to-all to residue shards and an all-gather of
   the right operand.
@@ -84,8 +84,10 @@ def dap_msa_branch(p: evo.EvoformerBlock, cfg: EvoformerConfig, msa_l, z_l, *,
     else:
         bias = coll.all_gather(evo.project_attention_bias(p.row_attn, z_l),
                                axis, dim=1)                        # (h, r, r)
+    chunk = cfg.attention_chunk
     upd = evo.attend(p.row_attn, msa_l, h, q, k, v, bias=bias,
-                     key_mask=res_mask, attention_impl=impl)
+                     key_mask=res_mask, attention_impl=impl,
+                     attention_chunk=chunk)
     msa_l = msa_l + evo.shared_dropout(
         upd, cfg.dropout_msa, shared_axis=0, rng=evo.fold_in(rng, 0),
         deterministic=deterministic)
@@ -98,7 +100,8 @@ def dap_msa_branch(p: evo.EvoformerBlock, cfg: EvoformerConfig, msa_l, z_l, *,
     else:
         col = evo.gated_attention(p.col_attn, cols, n_head=cfg.n_head_msa,
                                   c_hidden=cfg.c_hidden_att,
-                                  key_mask=rows_mask, attention_impl=impl)
+                                  key_mask=rows_mask, attention_impl=impl,
+                                  attention_chunk=chunk)
     msa_r = msa_r + col.transpose(0, 1)
     msa_l = _untranspose_shards(msa_r, axis)                       # (s/d, r, c)
     return msa_l + evo.transition(p.msa_trans, msa_l)
@@ -112,21 +115,24 @@ def dap_outer_product_mean(p: evo.OuterProductMean, msa_l, axis: Axis,
     ``n_seq_total``: the mean's denominator, the stack's total row count;
     None derives it from the shard (right for both stacks).  ``row_mask``
     (s,) zeroes padded rows once the operands are back at full s and makes
-    the denominator the valid row count."""
-    if opm_impl != "fused":
-        raise ValueError(f"opm_impl={opm_impl!r} is not ported; the port has "
-                         "'fused'")
+    the denominator the valid row count (``evo.mask_opm_operands``, the
+    serial paths' rule).  ``opm_impl="fused"`` contracts in row chunks
+    (``evo.opm_contract``); ``"naive"`` materialises this shard's (r/d, r,
+    c²) outer product."""
+    if opm_impl not in ("fused", "naive"):
+        raise ValueError(f"unknown opm impl {opm_impl!r}")
     if n_seq_total is None:
         n_seq_total = msa_l.shape[0] * axis.size
     h = layernorm(p.ln, msa_l)
     a_i = _transpose_shards(dense(p.a, h), axis)                   # (s, r/d, c)
     b_full = coll.all_gather(_transpose_shards(dense(p.b, h), axis),
                              axis, dim=1)                          # (s, r, c)
-    denom = float(n_seq_total)
-    if row_mask is not None:
-        rm = row_mask.to(a_i.dtype)[:, None, None]
-        a_i, b_full = a_i * rm, b_full * rm
-        denom = torch.clamp(row_mask.float().sum(), min=1.0)
+    a_i, b_full, denom = evo.mask_opm_operands(a_i, b_full, row_mask,
+                                               n_seq_total)
+    if opm_impl == "naive":
+        return evo.opm_project(
+            p, torch.einsum("sic,sjd->ijcd", a_i, b_full) / denom,
+            msa_l.dtype)
     return evo.opm_contract(a_i, b_full, p.out.w, p.out.b, denom,
                             msa_l.dtype, row_chunk=row_chunk)
 
@@ -136,22 +142,23 @@ def dap_outer_product_mean(p: evo.OuterProductMean, msa_l, axis: Axis,
 # ---------------------------------------------------------------------------
 
 def dap_triangle_mult(p: evo.TriangleMult, z_l, *, outgoing: bool,
-                      axis: Axis, impl: str = "pallas", k_mask=None,
-                      z_full=None):
+                      axis: Axis, impl: str = "pallas", chunk: int = 64,
+                      k_mask=None, z_full=None):
     """Triangle update of an i-sharded pair rep ``z_l`` (r/d, r, c_z) on the
-    fused kernels (K3 / K4 / K5; the reference's route for its fused impls,
-    ``dap.py:188-213``): the LayerNorm'd pair rep is gathered, and the
-    kernel gets the operands oriented for this shard — outgoing ``xa`` =
-    the shard's rows, ``xb`` = every row; incoming the shard's columns and
+    fused impls (the reference's route for them, ``dap.py:188-213``):
+    ``"pallas"`` (the kernels K3 / K4 / K5) or ``"chunked"`` (slabs of
+    ``chunk``).  The LayerNorm'd pair rep is gathered, and the fused core
+    gets the operands oriented for this shard — outgoing ``xa`` = the
+    shard's rows, ``xb`` = every row; incoming the shard's columns and
     every column (sliced locally out of the gathered rep, no extra
     all-to-all).  ``k_mask`` (r,) drops padded residues from the
     k-contraction, which is full length in every orientation.  ``z_full``
     (overlap schedule, outgoing update of the block input only): the
     gathered pair rep, from which the operand is computed with no
     collective."""
-    if impl != "pallas":
+    if impl not in ("chunked", "pallas"):
         raise ValueError(f"tri_mult_impl={impl!r}: DAP runs the fused "
-                         "triangle kernels ('pallas')")
+                         "triangle impls ('chunked' or 'pallas')")
     x_l = layernorm(p.ln_in, z_l)                                  # (r/d, r, c)
     if z_full is not None:
         x_full = layernorm(p.ln_in, z_full)                        # (r, r, c)
@@ -162,7 +169,7 @@ def dap_triangle_mult(p: evo.TriangleMult, z_l, *, outgoing: bool,
     else:                              # out[i_l, j] = sum_k a(x[k,i_l]) b(x[k,j])
         xa = local_slice(x_full, axis, 1).transpose(0, 1)
         xb = x_full.transpose(0, 1)
-    return evo.triangle_mult_fused(p, xa, xb, x_l, impl=impl,
+    return evo.triangle_mult_fused(p, xa, xb, x_l, impl=impl, chunk=chunk,
                                    out_dtype=z_l.dtype, k_mask=k_mask)
 
 
@@ -180,13 +187,15 @@ def dap_pair_branch(p: evo.EvoformerBlock, cfg: EvoformerConfig, z_l, *,
                                   rng=evo.fold_in(rng, site),
                                   deterministic=deterministic)
 
-    tri = dict(axis=axis, impl=cfg.tri_mult_impl, k_mask=res_mask)
+    tri = dict(axis=axis, impl=cfg.tri_mult_impl, chunk=cfg.tri_mult_chunk,
+               k_mask=res_mask)
     z_l = z_l + drop(0, dap_triangle_mult(p.tri_mul_out, z_l, outgoing=True,
                                           z_full=z_full, **tri), 0)
     z_l = z_l + drop(1, dap_triangle_mult(p.tri_mul_in, z_l, outgoing=False,
                                           **tri), 0)
     att = dict(n_head=cfg.n_head_pair, c_hidden=cfg.c_hidden_pair_att,
-               key_mask=res_mask, attention_impl=impl)
+               key_mask=res_mask, attention_impl=impl,
+               attention_chunk=cfg.attention_chunk)
     # starting node: rows local, bias heads gathered
     bias = coll.all_gather(evo.project_attention_bias(p.tri_att_start, z_l),
                            axis, dim=1)                            # (h, r, r)

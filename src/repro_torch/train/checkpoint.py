@@ -106,14 +106,16 @@ class _OptState(NamedTuple):
 
 def train_state_tree(state: dict, *, stacked=bridge.STACKED) -> dict:
     """The port's train state (``trainstep.init_state``) as the reference's
-    tree: ``params`` (the model's parameters), ``opt`` (``step`` as an int32
-    array, ``mu``, ``nu``), ``ema`` when kept and ``err`` (the int8 error
-    feedback of ``compress_pod_grads``) when kept; leaves are the live
-    tensors (stack blocks as :class:`Stacked`), so a restore into this tree
-    writes the training state itself."""
-    opt = state["opt"]
-    tree = {"params": bridge.nest(dict(state["params"].named_parameters()),
-                                  stacked=stacked),
+    tree: ``params`` (the model's parameters, or a dict of tensors by key
+    path), ``opt`` (``step`` as an int32 array, ``mu``, ``nu``), ``ema``
+    when kept and ``err`` (the int8 error feedback of
+    ``compress_pod_grads``) when kept; leaves are the live tensors (stack
+    blocks as :class:`Stacked`), so a restore into this tree writes the
+    training state itself."""
+    opt, params = state["opt"], state["params"]
+    if isinstance(params, torch.nn.Module):
+        params = dict(params.named_parameters())
+    tree = {"params": bridge.nest(params, stacked=stacked),
             "opt": _OptState(np.asarray(opt.step, np.int32),
                              bridge.nest(opt.mu, stacked=stacked),
                              bridge.nest(opt.nu, stacked=stacked))}

@@ -14,7 +14,10 @@ fp32 (AMP master copies).
 host from ``state.step``.  ``opt.apply(grads, state, params, step)`` is the
 same update with those scalars computed on the device from ``step``, a 0-d
 fp32 tensor holding ``state.step + 1``: a captured training step reads it
-from a static buffer, so its replays follow the schedule.  Both paths do
+from a static buffer, so its replays follow the schedule.  Both take
+``grad_norm``, the gradient's global norm where the caller has it (the
+clip of ``clip_norm`` then uses it: a sharded gradient's norm is not the
+norm of this rank's slices).  Both paths do
 the same fp32 operations in the same order; ``apply`` leaves
 ``state.step`` (a Python int) to the caller.
 """
@@ -108,9 +111,11 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(x.float().square().sum() for _, x in _items(tree)))
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled to global norm <= ``max_norm``, the norm before)."""
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, norm=None):
+    """(grads scaled to global norm <= ``max_norm``, the norm before).
+    ``norm``: the global norm, when the caller has it (a sharded gradient's
+    norm is not its slices' norm: ``parallel.fsdp.Layout.global_norm``)."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return _map(lambda g: (g.float() * scale).to(g.dtype), grads), norm
 
@@ -175,11 +180,11 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
                                       device=p.device)
         return OptState(step=0, mu=_map(zeros, params), nu=_map(zeros, params))
 
-    def step_params(grads, state, params, lr_t, c1, c2):
+    def step_params(grads, state, params, lr_t, c1, c2, grad_norm):
         """The moments and parameters in place; ``lr_t``, ``c1``, ``c2``
         Python floats or 0-d fp32 tensors of the same values."""
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, grad_norm)
         for k, p in _items(params):
             m, v, g = state.mu[k], state.nu[k], grads[k].float()
             m.mul_(b1).add_((1 - b1) * g)
@@ -190,18 +195,19 @@ def adamw(lr, *, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
             p.copy_(p.float() - lr_t * delta)
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_norm=None):
         step = state.step + 1
         st = torch.tensor(float(step), dtype=torch.float32)
         step_params(grads, state, params, sched(step),
                     float(_bias_correction(b1, st)),
-                    float(_bias_correction(b2, st)))
+                    float(_bias_correction(b2, st)), grad_norm)
         return params, OptState(step=step, mu=state.mu, nu=state.nu)
 
     @torch.no_grad()
-    def apply(grads, state, params, step: torch.Tensor):
+    def apply(grads, state, params, step: torch.Tensor, grad_norm=None):
         step_params(grads, state, params, _on_device(sched, step),
-                    _bias_correction(b1, step), _bias_correction(b2, step))
+                    _bias_correction(b1, step), _bias_correction(b2, step),
+                    grad_norm)
         return params
 
     return Optimizer(init=init, update=update, apply=apply,
@@ -218,23 +224,23 @@ def sgd(lr, *, momentum: float = 0.0, clip_norm: Optional[float] = None,
         # nu stays zeros (unused); its own tensors, as mu is updated in place
         return OptState(step=0, mu=_map(zeros, params), nu=_map(zeros, params))
 
-    def step_params(grads, state, params, lr_t):
+    def step_params(grads, state, params, lr_t, grad_norm):
         if clip_norm is not None:
-            grads, _ = clip_by_global_norm(grads, clip_norm)
+            grads, _ = clip_by_global_norm(grads, clip_norm, grad_norm)
         for k, p in _items(params):
             m = state.mu[k]
             m.mul_(momentum).add_(grads[k].float())
             p.copy_(p.float() - lr_t * m)
 
     @torch.no_grad()
-    def update(grads, state, params):
+    def update(grads, state, params, grad_norm=None):
         step = state.step + 1
-        step_params(grads, state, params, sched(step))
+        step_params(grads, state, params, sched(step), grad_norm)
         return params, OptState(step=step, mu=state.mu, nu=state.nu)
 
     @torch.no_grad()
-    def apply(grads, state, params, step: torch.Tensor):
-        step_params(grads, state, params, _on_device(sched, step))
+    def apply(grads, state, params, step: torch.Tensor, grad_norm=None):
+        step_params(grads, state, params, _on_device(sched, step), grad_norm)
         return params
 
     return Optimizer(init=init, update=update, apply=apply,

@@ -13,19 +13,32 @@ the metrics go out as 0-d tensors.  It reads nothing back to the host and
 copies nothing from it, so ``TrainRunner`` can capture it as a CUDA graph
 (one per drawn ``n_recycle``) and replay it with new inputs;
 :func:`make_af2_train_step` runs it eagerly.
+
+The LM zoo's step (:func:`make_lm_train_step`, the reference's
+``make_lm_train_step``) runs on one device, or data-parallel over the
+``data`` axis of a ("data", "model") mesh with each leaf sharded as the
+family's partition rules say under ``cfg.fsdp`` (``parallel.fsdp``); the
+reference's sharding helpers (``sanitize_spec``, ``shardings_for``,
+``state_shardings``) give the spec each rank holds its slice by.
 """
 from __future__ import annotations
 
+from typing import Mapping
+
 import torch
 
+from repro_torch import bridge
 from repro_torch.core import evoformer as evo
 from repro_torch.core import model as af2
 from repro_torch.device import resolve_device
+from repro_torch.nn.partition import P, make_param_specs
 from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import fsdp
+from repro_torch.parallel.mesh_utils import Axis, mesh_shape
 from repro_torch.parallel.plan import (BuiltPlan, ParallelPlan, as_plan,
                                        complete_partial_grads)
-from repro_torch.train.optim import (Ema, Optimizer, clip_by_global_norm,
-                                    global_norm)
+from repro_torch.train.optim import (Ema, Optimizer, OptState,
+                                    clip_by_global_norm, global_norm)
 
 # the step's outputs, in this order
 METRICS = ("loss", "fape", "distogram", "masked_msa", "plddt", "grad_norm",
@@ -206,13 +219,141 @@ def make_af2_train_step(cfg, optimizer: Optimizer, plan=None, *, ranks=None,
 
 
 # ---------------------------------------------------------------------------
-# LM train step (the reference's make_lm_train_step, one device)
+# LM sharding helpers (the reference's trainstep.py:27-145)
 # ---------------------------------------------------------------------------
 
-def init_lm_state(model: torch.nn.Module, optimizer: Optimizer) -> dict:
+def _extents(mesh) -> dict:
+    """{axis: extent} of a ``DeviceMesh`` (``mesh_utils.mesh_shape``) or of
+    a mapping of them."""
+    return dict(mesh) if isinstance(mesh, Mapping) else mesh_shape(mesh)
+
+
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else tuple(leaf)
+
+
+def sanitize_spec(spec, shape, mesh) -> P:
+    """Drop mesh axes from dims they do not divide (e.g. batch=1 decode):
+    the spec over every dim of ``shape``, each entry the axes (in order)
+    whose running product of extents divides that dim."""
+    ext = _extents(mesh)
+    out = []
+    for i, names in enumerate(tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if names is None:
+            out.append(None)
+            continue
+        names_t = names if isinstance(names, tuple) else (names,)
+        total, keep = 1, []
+        for n in names_t:
+            if shape[i] % (total * ext[n]) == 0:
+                keep.append(n)
+                total *= ext[n]
+        out.append(tuple(keep) if len(keep) > 1 else (keep[0] if keep
+                                                      else None))
+    return P(*out)
+
+
+def sanitize_spec_tree(shapes: Mapping, specs: Mapping, mesh) -> dict:
+    """{key: sanitized spec} for {key: shape or tensor} and {key: spec}."""
+    return {k: sanitize_spec(specs[k], _shape(v), mesh)
+            for k, v in shapes.items()}
+
+
+def shardings_for(shapes: Mapping, rules, mesh, *, stacked=()) -> dict:
+    """{key: shape or tensor} + rules -> {key: sanitized spec}: the spec by
+    which each rank holds its slice of the leaf (the reference's
+    ``NamedSharding``).  ``stacked``: as ``make_param_specs``."""
+    specs = make_param_specs({k: _shape(v) for k, v in shapes.items()},
+                             rules, stacked=stacked)
+    return sanitize_spec_tree(shapes, specs, mesh)
+
+
+def lm_stacked(cfg) -> tuple:
+    """The lists whose leaves' rules carry the stacked layer axis:
+    ``bridge.LM_STACKED`` under ``cfg.scan_layers``, else none."""
+    return bridge.LM_STACKED if cfg.scan_layers else ()
+
+
+def state_shardings(lm, cfg, mesh, params_shapes: Mapping,
+                    opt_shapes: OptState = None) -> dict:
+    """The reference's ``state_shardings``: {"params": {key: spec}, "opt":
+    OptState(step=P(), mu=..., nu=...)}, every spec sanitized over
+    ``mesh``'s extents; ``opt_shapes`` (an ``OptState`` of tensors or
+    shapes) fits each moment's spec to its shape
+    (:func:`_opt_branch_shardings`), else the moments take the params'."""
+    specs = shardings_for(params_shapes, lm.partition_rules(cfg), mesh,
+                          stacked=lm_stacked(cfg))
+    if opt_shapes is None:
+        return {"params": specs, "opt": OptState(step=P(), mu=specs,
+                                                 nu=specs)}
+    fit = lambda branch: _opt_branch_shardings(params_shapes, specs, branch)
+    return {"params": specs, "opt": OptState(step=P(), mu=fit(opt_shapes.mu),
+                                             nu=fit(opt_shapes.nu))}
+
+
+def _opt_branch_shardings(params_shapes: Mapping, pspecs: Mapping,
+                          branch: Mapping) -> dict:
+    """Specs for one optimizer-state branch whose leaves mirror params but
+    may be lower-rank (a factored second moment: a (row, col) tuple) or
+    scalars: the param's spec fitted to each leaf's shape."""
+    def fit(pshape, spec, leaf):
+        sp = tuple(spec) + (None,) * (len(pshape) - len(spec))
+
+        def one(x):
+            shape = _shape(x)
+            if shape == tuple(pshape):
+                return P(*sp)
+            if len(shape) == 0:
+                return P()
+            if shape == tuple(pshape[:-1]):                  # row factor
+                return P(*sp[:-1])
+            if shape == tuple(pshape[:-2]) + (pshape[-1],):  # col factor
+                return P(*sp[:-2], sp[-1])
+            return P()
+        if isinstance(leaf, (tuple, list)) and not isinstance(leaf, P) \
+                and leaf and hasattr(leaf[0], "shape"):
+            return tuple(one(x) for x in leaf)
+        return one(leaf)
+    return {k: fit(_shape(params_shapes[k]), pspecs[k], b)
+            for k, b in branch.items()}
+
+
+# ---------------------------------------------------------------------------
+# LM train step (the reference's make_lm_train_step)
+# ---------------------------------------------------------------------------
+
+def lm_layout(lm, cfg, model: torch.nn.Module, mesh,
+              data_axes=("data",)) -> fsdp.Layout:
+    """The data-parallel layout of ``model``'s full leaves over ``mesh``:
+    each leaf split over the data axis along the dim its sanitized spec
+    names it (``cfg.fsdp``), else replicated.  One data axis; the mesh's
+    other axes (``model``) must have extent 1: tensor parallelism is not
+    ported."""
+    if len(data_axes) != 1:
+        raise NotImplementedError(f"one data axis, got {data_axes}")
+    wide = {a: e for a, e in mesh_shape(mesh).items()
+            if a not in data_axes and e > 1}
+    if wide:
+        raise NotImplementedError(
+            f"tensor parallelism over {wide} is not ported: the LM step "
+            f"splits the batch and the parameters over {data_axes} only")
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+    specs = state_shardings(lm, cfg, mesh, shapes)["params"]
+    return fsdp.Layout(specs, shapes, Axis(mesh, data_axes[0]))
+
+
+def init_lm_state(model: torch.nn.Module, optimizer: Optimizer, *,
+                  layout: fsdp.Layout = None) -> dict:
     """LM train state: ``params`` (the model: its parameters are the fp32
-    masters) and ``opt`` (an ``OptState`` over them by key path)."""
-    return {"params": model, "opt": optimizer.init(param_dict(model))}
+    masters) and ``opt`` (an ``OptState`` over them by key path).  With a
+    ``layout`` (:func:`lm_layout`) the model is cut to this rank's slices
+    in place first (where it is not yet), the moments are made at the
+    slices' shapes, and the state keeps the layout."""
+    if layout is None:
+        return {"params": model, "opt": optimizer.init(param_dict(model))}
+    layout.shard_(model)
+    return {"params": model, "opt": optimizer.init(param_dict(model)),
+            "layout": layout}
 
 
 def lm_value_and_grad(lm, cfg, model: torch.nn.Module, batch: dict, *,
@@ -249,22 +390,150 @@ def lm_value_and_grad(lm, cfg, model: torch.nn.Module, batch: dict, *,
     return loss, dict(zip(keys, grads))
 
 
-def make_lm_train_step(lm, cfg, optimizer: Optimizer, *,
-                       microbatch: int = None):
-    """Returns ``train_step(state, batch) -> (state, {"loss": 0-d
-    tensor})``: value and gradient of the family's ``loss``
-    (:func:`lm_value_and_grad`), then ``optimizer.update``, which writes the
-    parameters and moments of ``state`` in place and advances its step.
+def data_rows(n: int, size: int, index: int, microbatch: int = 1) -> list:
+    """The rows of a global batch of ``n`` that the data rank at ``index``
+    of ``size`` takes, one slice per microbatch: microbatch i is the global
+    rows [i n/m, (i+1) n/m), as the reference's scan splits them, and the
+    rank holds its 1/size of them."""
+    if n % (size * microbatch):
+        raise ValueError(f"a global batch of {n} does not split into "
+                         f"{microbatch} microbatch(es) over {size} data "
+                         "ranks")
+    per_mb = n // microbatch
+    k = per_mb // size
+    return [slice(i * per_mb + index * k, i * per_mb + (index + 1) * k)
+            for i in range(microbatch)]
 
-    One device: the reference's ``constrain`` (sharding constraints at the
-    layer boundaries) is the identity here, and its ``state_shardings`` /
-    batch sharding have no counterpart until the LM partition rules are
-    ported."""
+
+def _tokens(part: dict) -> torch.Tensor:
+    """The weight of a rank's loss in the global mean: the tokens its
+    cross entropy averages over (the mask's sum, or every label)."""
+    if "mask" in part:
+        return part["mask"].float().sum()
+    labels = part["labels"]
+    return torch.tensor(float(labels.numel()), device=labels.device)
+
+
+def make_lm_train_step(lm, cfg, optimizer: Optimizer, mesh=None, *,
+                       data_axes=("data",), microbatch: int = None):
+    """Returns ``train_step(state, batch) -> (state, {"loss", "grad_norm"}
+    as 0-d tensors)``: value and gradient of the family's ``loss``, then
+    ``optimizer.update`` (its ``clip_norm`` on the global norm, which
+    ``grad_norm`` reports before the clip), which writes the parameters
+    and moments of ``state`` in place and advances its step.
+
+    ``mesh=None``: one device (:func:`lm_value_and_grad`); the reference's
+    ``constrain`` at the layer boundaries is the identity.
+
+    With a ``mesh`` (the reference's ``(N, 1)`` mesh over ("data",
+    "model"); ``state`` from :func:`init_lm_state` with the
+    :func:`lm_layout` over it), the step is data-parallel, and fully
+    sharded where the layout says: ``batch`` is the global batch, the same
+    on every rank, and each data rank takes its rows (:func:`data_rows`;
+    with ``microbatch`` m it runs its rows of each microbatch in turn).
+    The forward reads ``parallel.fsdp.Layout.view`` of the state's slices,
+    gathering each layer's leaves just before the layer, and the backward
+    reduce-scatters their gradients.  The reference's activation
+    ``constrain`` is again the identity: each rank already holds its rows.
+    Each rank's loss is weighted by its share of the global batch's tokens
+    (the mask's, where the batch has one), so the loss is the global
+    batch's mean and the reduce-scattered gradient its gradient; a
+    replicated leaf's gradient is summed over the axis.  The clip's global
+    norm counts each replicated element once (``Layout.global_norm``), and
+    the optimizer updates each rank's slices of the parameters and
+    moments."""
+    if mesh is None:
+        def train_step(state: dict, batch: dict):
+            loss, grads = lm_value_and_grad(lm, cfg, state["params"], batch,
+                                            microbatch=microbatch)
+            norm = global_norm(grads)
+            _, state["opt"] = optimizer.update(
+                grads, state["opt"], param_dict(state["params"]),
+                grad_norm=norm)
+            return state, {"loss": loss, "grad_norm": norm}
+        return train_step
+
+    micro = microbatch if microbatch and microbatch > 1 else 1
+    (name,) = data_axes
+    axis = Axis(mesh, name)
+
     def train_step(state: dict, batch: dict):
-        loss, grads = lm_value_and_grad(lm, cfg, state["params"], batch,
-                                        microbatch=microbatch)
-        _, state["opt"] = optimizer.update(grads, state["opt"],
-                                           param_dict(state["params"]))
-        return state, {"loss": loss}
+        layout = state.get("layout")
+        if layout is None or layout.axis.name != name:
+            raise ValueError("the state has no layout over the data axis "
+                             f"{name!r}: make it by init_lm_state(model, "
+                             "optimizer, layout=lm_layout(...))")
+        model = state["params"]
+        params = param_dict(model)
+        keys, leaves = list(params), list(params.values())
+        n = next(iter(batch.values())).shape[0]
+        parts = [{k: v[rows] for k, v in batch.items()}
+                 for rows in data_rows(n, axis.size, axis.index, micro)]
+        counts = torch.stack([_tokens(p) for p in parts])
+        weights = counts / torch.clamp(coll.psum(counts, axis), min=1.0)
+        dtype = lm.BF16.compute_dtype
+        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+               for p in leaves]
+        for part, w in zip(parts, weights):
+            # the backward's remat recompute runs the forward again: the
+            # same axis for it
+            with fsdp.data_parallel(axis):
+                obj = lm.loss(layout.view(model, dtype), cfg, part) * w
+                grads = torch.autograd.grad(obj, leaves, allow_unused=True)
+            loss = loss + obj.detach()
+            for a, g in zip(acc, grads):
+                if g is not None:
+                    a.add_(g.float())
+        loss = coll.psum(loss, axis) / micro
+        grads = {k: a / micro for k, a in zip(keys, acc)}
+        grads.update(coll.psum_tree(
+            {k: grads[k] for k in keys if layout.dims[k] is None}, [axis]))
+        norm = layout.global_norm(grads)
+        _, state["opt"] = optimizer.update(grads, state["opt"], params,
+                                           grad_norm=norm)
+        return state, {"loss": loss, "grad_norm": norm}
 
     return train_step
+
+
+def lm_full_state(state: dict) -> dict:
+    """``state`` with every leaf of the parameters and moments whole: under
+    a layout each sharded leaf gathered (every rank of the axis calls this
+    together) and copied to the host one leaf at a time; without one,
+    ``{"params": the parameters by key, "opt": the OptState}``.  The
+    checkpoint's tree is ``checkpoint.train_state_tree`` of it."""
+    params, opt = param_dict(state["params"]), state["opt"]
+    layout = state.get("layout")
+    if layout is None:
+        return {"params": params, "opt": opt}
+    full = lambda tree: {k: layout.full(k, t).cpu() for k, t in tree.items()}
+    return {"params": full(params),
+            "opt": OptState(step=opt.step, mu=full(opt.mu), nu=full(opt.nu))}
+
+
+def lm_full_state_like(state: dict) -> dict:
+    """A host tree shaped as :func:`lm_full_state`'s, of zeros: what a
+    checkpoint of the full arrays restores into."""
+    layout, opt = state["layout"], state["opt"]
+    zeros = lambda tree: {k: torch.zeros(layout.shapes[k], dtype=t.dtype)
+                          for k, t in tree.items()}
+    return {"params": zeros(param_dict(state["params"])),
+            "opt": OptState(step=opt.step, mu=zeros(opt.mu),
+                            nu=zeros(opt.nu))}
+
+
+@torch.no_grad()
+def load_lm_full_state_(state: dict, full: dict) -> dict:
+    """Copy this rank's slices of ``full`` (:func:`lm_full_state_like`,
+    restored) into ``state``'s parameters and moments in place, and take its
+    optimizer step."""
+    layout = state["layout"]
+    opt = state["opt"]
+    pairs = ((param_dict(state["params"]), full["params"]),
+             (opt.mu, full["opt"].mu), (opt.nu, full["opt"].nu))
+    for live, whole in pairs:
+        for k, t in live.items():
+            t.copy_(layout.local(k, whole[k]))
+    state["opt"] = opt._replace(step=int(full["opt"].step))
+    return state

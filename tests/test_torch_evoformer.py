@@ -115,10 +115,17 @@ def test_evoformer_block_matches_jax(block_params, stack, variant, masked,
             assert np.abs(got - want).max() <= 3e-2 * scale
 
 
-def test_unported_impl_raises_actionable():
-    ev = CFG.evoformer          # the reference default: attention 'chunked'
+@pytest.mark.parametrize("kind,match", [
+    ("attention_impl", "unknown attention impl"),
+    ("tri_mult_impl", "unknown tri_mult impl"),
+    ("opm_impl", "unknown opm impl")])
+def test_unported_impl_raises_actionable(kind, match):
+    """An impl that neither package has raises a ValueError naming it (the
+    reference's defaults, ``chunked`` / ``chunked`` / ``fused``, and
+    ``naive`` OPM run: ``tests/test_torch_evoformer_impls.py``)."""
+    ev = dataclasses.replace(CFG.evoformer, **{kind: "flash"})
     block = tevo.EvoformerBlock(ev, generator=torch.Generator().manual_seed(0))
     msa, z, _, _ = _inputs(ev)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match=match):
         tevo.evoformer_block(block, ev, torch.from_numpy(msa),
                              torch.from_numpy(z))

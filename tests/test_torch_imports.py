@@ -48,7 +48,8 @@ LM_MODULES = ("repro_torch.models", "repro_torch.models.lmconfig",
               "repro_torch.models.whisper", "repro_torch.models.vlm",
               "repro_torch.data.tokens",
               "repro_torch.configs.whisper_medium",
-              "repro_torch.configs.internvl2_26b")
+              "repro_torch.configs.internvl2_26b",
+              "repro_torch.nn.partition")
 
 
 PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",
@@ -56,7 +57,8 @@ PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",
                     "repro_torch.parallel.grad_sync",
                     "repro_torch.parallel.mesh_utils",
                     "repro_torch.parallel.collectives",
-                    "repro_torch.parallel.ranks", "repro_torch.analysis",
+                    "repro_torch.parallel.ranks",
+                    "repro_torch.parallel.fsdp", "repro_torch.analysis",
                     "repro_torch.analysis.roofline")
 
 

@@ -606,16 +606,17 @@ def jax_core_alias(monkeypatch):
                             raising=False)
 
 
-def _port_fold(name, dtype, **kw):
-    """The port's fold program at the lint config, its weights carried
-    across from the reference's layout by the bridge."""
+def _port_fold(name, dtype, cfg=CFG, **kw):
+    """The port's fold program at the lint config (``cfg``: the impls to
+    trace), its weights carried across from the reference's layout by the
+    bridge."""
     from repro_torch.analysis.static.program import capture_fold
     from repro_torch.core.model import AlphaFold2
     from repro_torch.parallel.plan import ParallelPlan
     from torch_util import af2_tree, load_into
-    model = AlphaFold2(CFG, seed=0, device="cpu")
+    model = AlphaFold2(cfg, seed=0, device="cpu")
     load_into(model, af2_tree(CFG, seed=1))
-    return capture_fold(name, ParallelPlan(), CFG, dtype=dtype, model=model,
+    return capture_fold(name, ParallelPlan(), cfg, dtype=dtype, model=model,
                         **kw)
 
 
@@ -624,16 +625,27 @@ def _run_all(prog) -> list:
     return [p.run(prog) for p in all_passes()]
 
 
+_JAX_FOLDS = {}
+
+
+def _jax_fold_results(name, dtype) -> list:
+    """The reference's pass results over its fold program ``name`` at its
+    own lint config (the chunked impls), captured once for the module."""
+    if (name, dtype) not in _JAX_FOLDS:
+        from repro.analysis.static import all_passes as jpasses
+        from repro.analysis.static.program import capture_fold as jcapture
+        from repro.analysis.static.program import fold_plan_matrix
+        from repro.analysis.static.program import lint_config as jlint
+        (plan,) = [p for n, p, _ in fold_plan_matrix() if n == name]
+        jprog = jcapture(name, plan, jlint(), dtype=dtype)
+        _JAX_FOLDS[name, dtype] = [p.run(jprog) for p in jpasses()]
+    return _JAX_FOLDS[name, dtype]
+
+
 @pytest.mark.parametrize("name,dtype", [("serial", "float32"),
                                         ("serial_bf16", "bfloat16")])
 def test_fold_program_matches_the_reference(name, dtype, jax_core_alias):
-    from repro.analysis.static import all_passes as jpasses
-    from repro.analysis.static.program import capture_fold as jcapture
-    from repro.analysis.static.program import fold_plan_matrix
-    from repro.analysis.static.program import lint_config as jlint
-    (plan,) = [p for n, p, _ in fold_plan_matrix() if n == name]
-    jprog = jcapture(name, plan, jlint(), dtype=dtype)
-    jres = [p.run(jprog) for p in jpasses()]
+    jres = _jax_fold_results(name, dtype)
     ours = _run_all(_port_fold(name, dtype))
     assert [(r.pass_name, r.skipped) for r in ours] == \
         [(r.pass_name, r.skipped) for r in jres]
@@ -643,6 +655,33 @@ def test_fold_program_matches_the_reference(name, dtype, jax_core_alias):
     jpeaks = jres[0].stats["peak_eqn_elems"]
     assert peaks == jpeaks == {"fwd": 61440, "step": 61440}
     assert ours[0].stats["thresholds"] == jres[0].stats["thresholds"]
+
+
+def test_fold_program_at_the_references_impls_matches_the_reference(
+        jax_core_alias):
+    """fold:serial at the reference's own lint config, without
+    ``with_kernels``: chunked attention (chunk 4) and chunked triangle
+    updates (chunk 4), the impls the reference's fold program runs.  The
+    materialization pass's chunked branch sees a real chunked trace: its
+    findings, thresholds, armed attention chunks and peak equal the
+    reference's."""
+    from repro.analysis.static.program import lint_config as jlint
+    from repro_torch.analysis.static.passes.materialization import (
+        attention_chunk_map)
+    from torch_util import port_cfg
+    cfg = port_cfg(jlint(), kernels=False)
+    assert (cfg.evoformer.attention_impl, cfg.evoformer.tri_mult_impl,
+            cfg.evoformer.attention_chunk) == ("chunked", "chunked", 4)
+    assert attention_chunk_map(cfg) == {R: 4, S: 4, CFG.n_extra_seq: 4}
+    jres = _jax_fold_results("serial", "float32")
+    ours = _run_all(_port_fold("serial", "float32", cfg=cfg))
+    assert [(r.pass_name, r.skipped) for r in ours] == \
+        [(r.pass_name, r.skipped) for r in jres]
+    codes = lambda res: sorted(f.code for r in res for f in r.findings)
+    assert codes(ours) == codes(jres) == []
+    assert ours[0].stats["thresholds"] == jres[0].stats["thresholds"]
+    assert ours[0].stats["peak_op_elems"] == \
+        jres[0].stats["peak_eqn_elems"] == {"fwd": 61440, "step": 61440}
 
 
 def test_kernel_boundary_is_what_keeps_the_fold_clean():

@@ -335,5 +335,5 @@ def test_launcher_trains_checkpoints_and_resumes(tmp_path, capsys):
     resumed = train.main(ck + ["--steps", "4", "--resume"])
     assert "resumed from step 2" in capsys.readouterr().out
     assert resumed == {k: whole[k] for k in (2, 3)}
-    with pytest.raises(SystemExit, match="one device"):
-        train.main(base + ["--devices", "2"])
+    with pytest.raises(SystemExit, match="does not split"):
+        train.main(base + ["--devices", "3"])

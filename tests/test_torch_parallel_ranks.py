@@ -27,6 +27,7 @@ import pytest
 from repro.core import heads as jheads
 from repro.core import model as jaf2
 from repro.core.config import af2_tiny
+from repro.core import evoformer as jevo
 from repro.parallel import dap as jdap
 from repro.parallel.grad_sync import compressed_psum_tree
 from repro.parallel.plan import _region_exit_fn
@@ -99,9 +100,13 @@ def _vmap_grads(p1, msa, z, block_fn, pre, post, axes):
     return _compile(fn, x)(x)
 
 
-def _oracles(params, msa, z, params_sgd, pod_grads):
+def _oracles(params, msa, z, params_sgd, pod_grads, opm_rows):
     ev = CFG.evoformer
     o = {}
+    opm = jax.tree_util.tree_map(lambda x: x[0], params["evoformer"]["opm"])
+    o["opm_naive"] = np.asarray(_compile(
+        lambda p, m, r: jevo.outer_product_mean(p, m, row_mask=r),
+        opm, msa, opm_rows)(opm, msa, opm_rows))
     o["stack"] = [np.asarray(t) for t in jax.jit(
         lambda p, m, zz: jaf2.evoformer_stack(p, ev, 2, m, zz, scan=True,
                                               remat=False))(
@@ -143,10 +148,12 @@ def world(tmp_path_factory):
     z = rng.standard_normal((CFG.n_res, CFG.n_res, ev.c_z)).astype(np.float32)
     pod_grads = {"w": rng.standard_normal((4, 64)).astype(np.float32),
                  "b": (1e-3 * rng.standard_normal((4, 8))).astype(np.float32)}
+    opm_rows = np.ones((CFG.n_seq,), np.float32)
+    opm_rows[-3:] = 0.0
     inp = {"cfg": port_cfg(CFG),
            "cfg_sgd": dataclasses.replace(port_cfg(CFG_SGD), remat="block"),
            "params": params, "params_sgd": params_sgd, "msa": msa, "z": z,
-           "pod_grads": pod_grads,
+           "pod_grads": pod_grads, "opm_rows": opm_rows,
            "ckpt_dir": str(tmp_path_factory.mktemp("ckpt"))}
     box = {}
 
@@ -160,13 +167,23 @@ def world(tmp_path_factory):
     thread = threading.Thread(target=spawn)
     thread.start()
     try:
-        oracles = _oracles(params, msa, z, params_sgd, pod_grads)
+        oracles = _oracles(params, msa, z, params_sgd, pod_grads, opm_rows)
     finally:
         thread.join(TIMEOUT_S + 30)
     assert not thread.is_alive(), "the ranks outlived their deadline"
     if "error" in box:
         raise box["error"]
     return box["ranks"], oracles, params_sgd
+
+
+def test_dap_naive_opm_matches_jax(world):
+    """``dap_outer_product_mean(opm_impl="naive")`` on DAP 2, three padded
+    MSA rows masked: the gathered update equals the reference's
+    ``outer_product_mean`` (fp32, 2e-4)."""
+    got = [world[0][r]["opm.dap_naive"] for r in (2, 3)]
+    want = world[1]["opm_naive"]
+    for g in got:
+        np.testing.assert_allclose(g, want, atol=2e-4, rtol=0)
 
 
 @pytest.mark.parametrize("name,ranks_of,tol", [

@@ -84,8 +84,22 @@ def _both(models, batch, **kw):
     return got, want
 
 
-def test_predict_matches_jax_tol0(models):
-    got, want = _both(models, _padded_batch(), max_recycle=2, tol=0.0)
+@pytest.fixture(scope="module")
+def tol0_want(models):
+    """The JAX package's fold of the padded batch (max_recycle 2, tol 0):
+    computed once for every port config it is held against."""
+    return _jax_predict(models[0], _padded_batch(), max_recycle=2, tol=0.0)
+
+
+@pytest.mark.parametrize("impls", ["kernels", "defaults"])
+def test_predict_matches_jax_tol0(models, tol0_want, impls):
+    """The port at its kernel impls (their plain versions here), and at the
+    config's own defaults (chunked attention and triangle updates, fused
+    OPM), which are the impls the JAX side runs."""
+    cfg = PCFG if impls == "kernels" else port_cfg(CFG, kernels=False)
+    got = taf2.predict(models[1], cfg, _padded_batch(), dtype=torch.float32,
+                       max_recycle=2, tol=0.0)
+    want = tol0_want
     assert set(got) == set(fs.PREDICT_OUTPUT_KEYS) == set(want)
     assert np.abs(to_np(want["coords"])).max() > 0.1     # a real structure
     for key in ("coords", "plddt_logits", "distogram_logits",

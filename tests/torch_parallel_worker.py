@@ -16,8 +16,9 @@ from repro_torch.data.protein import protein_batch
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel.grad_sync import (compressed_psum_tree,
                                             zeros_error_state)
-from repro_torch.parallel.mesh_utils import (make_mesh, mesh_shape,
-                                             refactor_mesh, rename_mesh)
+from repro_torch.parallel.mesh_utils import (local_slice, make_mesh,
+                                             mesh_shape, refactor_mesh,
+                                             rename_mesh)
 from repro_torch.parallel.plan import ParallelPlan
 from repro_torch.train.checkpoint import PlanMismatchError
 from repro_torch.train.optim import sgd
@@ -129,6 +130,17 @@ def run(rank, world, device, inp):
             if name in mine:
                 m, zz = _stack(mine[name], blocks, ev, msa, z)
                 res[f"stack.{name}"] = (_np(m), _np(zz))
+
+    # the naive OPM under DAP on dap_sync's ranks, masked rows: the
+    # gathered (r, r, c_z) update
+    if "dap_sync" in mine:
+        from repro_torch.parallel import dap
+        ax = mine["dap_sync"].axis("dap")
+        with torch.no_grad():
+            out = dap.dap_outer_product_mean(
+                blocks[0].opm, local_slice(msa, ax, 0), ax, opm_impl="naive",
+                row_mask=torch.from_numpy(inp["opm_rows"]))
+            res["opm.dap_naive"] = _np(coll.all_gather(out, ax, 0))
 
     # each rank's partial gradients through one block
     if rank == 0:

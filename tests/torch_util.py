@@ -85,9 +85,10 @@ def load_into(module, params, *, stacked=bridge.STACKED):
     return bridge.load_jax_params(module, np_tree(params), stacked=stacked)
 
 
-def port_cfg(cfg):
+def port_cfg(cfg, kernels: bool = True):
     """Port config: every attention / triangle update on the kernel impls
-    (their plain versions, on CPU tensors)."""
+    (their plain versions, on CPU tensors); ``kernels=False``: the
+    reference config's own impls."""
     from repro_torch.core import config as tcfg
     ev = tcfg.EvoformerConfig(**dataclasses.asdict(cfg.evoformer))
     ex = tcfg.EvoformerConfig(**dataclasses.asdict(cfg.extra))
@@ -95,8 +96,8 @@ def port_cfg(cfg):
     top = {f.name: getattr(cfg, f.name)
            for f in dataclasses.fields(cfg)
            if f.name not in ("evoformer", "extra", "structure")}
-    return tcfg.with_kernels(tcfg.AlphaFold2Config(
-        evoformer=ev, extra=ex, structure=st, **top))
+    out = tcfg.AlphaFold2Config(evoformer=ev, extra=ex, structure=st, **top)
+    return tcfg.with_kernels(out) if kernels else out
 
 
 def t(x, dtype=torch.float32):
