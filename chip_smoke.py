@@ -50,7 +50,7 @@ Phases, each raising on failure (exit code != 0, no result line):
      median step wall by bucket, host <-> device bytes a step beside the
      reference's host-carry bytes, memory: smoke readings, which at 10
      requests and light load compare no policies.  Then long_plan routing at
-     16 + 4 blocks, eager, 2 recycles, injected costs: a one-device engine
+     8 + 2 blocks, eager, 2 recycles, injected costs: a one-device engine
      here, then two gloo rank processes on the card (plan data=2, long_plan
      dap=2 from r 256); the r-256 request's K1 launches at half the lead
      rows, every fold within 2e-3 relative L2 of the one device's, an
@@ -71,10 +71,12 @@ Phases, each raising on failure (exit code != 0, no result line):
   8. small train step: af2_tiny loss and every parameter gradient on the
      card (kernels K1-K5) against the CPU (their plain versions), fp32 and
      bf16.
-  9. training main path: TrainRunner at af2_initial width and depth (48 + 4
-     blocks, r 256 s 128 se 1024), batch 1, its defaults (AdamW, per-sample
-     clipping, EMA, stochastic recycling 1..4, dropout, remat="block", the
-     synthetic stream through the DataPipeline with its device stage),
+  9. training main path: TrainRunner at af2_initial width (TRAIN_DEPTH =
+     16 + 4 blocks, cut from 48 + 4 to keep the script inside its time;
+     phase 13 (a) trains at 48 + 4; r 256 s 128 se 1024), batch 1, its
+     defaults (AdamW, per-sample clipping, EMA, stochastic recycling
+     1..4, dropout, remat="block", the synthetic stream through the
+     DataPipeline with its device stage),
      from the seeded model, three times over the same steps: eagerly
      (graphs=False), eagerly again (the yardstick of how far two eager runs
      agree) and graphed (one CUDA graph per drawn n_recycle).  Four warm-up
@@ -104,10 +106,11 @@ Phases, each raising on failure (exit code != 0, no result line):
      MFU, goodput); then steps 15-29, one run call each, with the file
      sinks and tracer at every other step of a draw and without them at
      the rest, and prints each draw's step walls with and without.
-  9b. training data and checkpoints, af2_initial at full width and depth,
-     batch 1: (a) the record-path DataPipeline (8 demo FASTA records,
-     length-bucketed, 2 workers) places 6 batches on the card, which must
-     equal the same pipeline's batches on the CPU bit for bit; (b) graphed
+  9b. training data and checkpoints, af2_initial at full width and
+     TRAIN_DEPTH, batch 1: (a) the record-path DataPipeline (8 demo FASTA
+     records, length-bucketed, 2 workers) places 6 batches on the card,
+     which must equal the same pipeline's batches on the CPU bit for bit;
+     (b) graphed
      TrainRunners on those records, one cycle a step, checkpoints every 3
      steps (2 kept): run A trains 6 steps, run B (a runner from another
      model seed) restores step 3 and trains to 6, run C (run A's runner)
@@ -213,6 +216,17 @@ Phases, each raising on failure (exit code != 0, no result line):
      trace that raised, recorded as skipped with the exception as its
      reason, fails.  The phase's wall is printed beside the card's name
      and power limit.
+ 13. the dry run (``repro_torch.launch.dryrun``) against the card: (a)
+     af2_initial's training step (48 + 4 blocks, batch 1, one recycle,
+     remat block, K1-K5) and (b) whisper-medium's (2 x 448 tokens, remat
+     layer, K6, AdamW) measured on the card and dry-run on ``meta``: each
+     predicted peak within 10 % of the step's own (``max_memory_allocated``
+     less what was allocated before it beyond its arguments), the
+     predicted arguments, FLOPs and kernel nodes beside the card's; (c)
+     each kernel's meta route against the kernel; (d) an af2_tiny cell on
+     a 2x4 virtual mesh (the fake process group of this torch).  The
+     kernel line's K2, K4 and K5 launches are (a)'s: one sample-cycle at
+     48 + 4, as their times and bounds are priced.
 Kernel and library times are medians of 5 timed repeats, each after a
 warm-up call, printed with their min-max spread.  Then one JSON line of
 kernel figures, the nvidia-smi line, and the result line ``{"ok": true,
@@ -222,6 +236,7 @@ import collections
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import pathlib
 import shutil
@@ -378,6 +393,7 @@ def path_shapes(cfg):
 
 
 def check_evo_attention(dev, shapes):
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import evo_attention as ka
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(0)
@@ -404,8 +420,8 @@ def check_evo_attention(dev, shapes):
         mask = None if bias is None else bias.to(torch.bfloat16)
         lib_ms = cuda_median(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=mask), iters)
-        flops = 4.0 * L * H * S * S * C
-        nbytes = 5 * L * S * H * C * 2 + (H * S * S * 4 if masked else 0)
+        flops, nbytes = kcost.evo_attention_fwd_cost(
+            L, S, H, C, 2, bias_el=4 if masked else 0)
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(shape=name, bucket_r=bucket_r, L=L, S=S, H=H, C=C,
                          masked=masked, per_cycle=per_cycle,
@@ -423,6 +439,7 @@ def check_evo_attention(dev, shapes):
 
 
 def check_triangle(dev, shapes, c_z: int, c: int):
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ref
     from repro_torch.kernels import triangle as kt
     g = torch.Generator(device=dev).manual_seed(1)
@@ -453,13 +470,9 @@ def check_triangle(dev, shapes, c_z: int, c: int):
         plain_ms = cuda_time(lambda: ref.triangle_mult_ref(xab, xab, x, *w, k_mask=km), 3)
         a = ref.gated_projection(xab, w[0], w[1]).to(torch.bfloat16)
         lib_ms = cuda_median(lambda: torch.einsum("ikc,jkc->ijc", a, a), 10)
-        flops = (2 * 2.0 * r * r * c_z * 2 * c     # gated projections a, b
-                 + 2.0 * r ** 3 * c                # k-contraction
-                 + 2.0 * r * r * c * c_z           # out-projection
-                 + 2.0 * r * r * c_z * c_z)        # gate projection
         # x is the one activation input (xa, xb, xg all view it)
-        nbytes = (2 * r * r * c_z * 2 + sum(t.numel() * 2 for t in w)
-                  + (r * 4 if masked else 0))
+        flops, nbytes = kcost.triangle_mult_fwd_cost(
+            r, r, r, c_z, c, 2, act_rows=r * r, masked=masked)
         b_ms, b_by = bound(flops, nbytes)
         rows.append(dict(shape=name, bucket_r=bucket_r, r=r, c_z=c_z, c=c,
                          masked=masked, per_cycle=per_cycle,
@@ -986,7 +999,7 @@ def serve_report(tag: str, cfg, engine, run, cycles: int) -> dict:
 
 
 # phase 5b (d): long_plan routing over two gloo ranks sharing the card
-LONG_DEPTH = (16, 4)
+LONG_DEPTH = (8, 2)
 LONG_MAX_RECYCLE = 2
 # the DAP results against the one-device engine's: relative L2 difference
 # of coordinates and of pLDDT (phase 9c's bound on losses)
@@ -1291,6 +1304,7 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
     """K1 with its log-sum-exp and K2, per shape: max |diff| against the
     plain versions, times, bounds.  Returns (rows, {K1-lse, K2} totals per
     sample-cycle of bf16 training)."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import evo_attention as ka
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1349,12 +1363,10 @@ def check_attention_train(dev, shapes, dtype, fp32_shape):
             lib_b = cuda_median(lambda: torch.autograd.grad(
                 o_lib, (qt, kt_, vt), do_t, retain_graph=True), iters)
         del o_lib, qt, kt_, vt
-        act = L * S * H * C * el
-        f_flops = 4.0 * L * H * S * S * C
-        f_bytes = 5 * act + (H * S * S * el if biased else 0) + L * H * S * 4
-        b_flops = 10.0 * L * H * S * S * C
-        b_bytes = (10 * act + (H * S * S * (el + 4) if biased else 0)
-                   + L * H * S * 4)
+        f_flops, f_bytes = kcost.evo_attention_fwd_cost(
+            L, S, H, C, el, bias_el=el if biased else 0, lse=True)
+        b_flops, b_bytes = kcost.evo_attention_bwd_cost(
+            L, S, H, C, el, bias_el=el if biased else 0)
         bf_ms, bf_by = bound(f_flops, f_bytes, peak)
         bb_ms, bb_by = bound(b_flops, b_bytes, peak)
         rows.append(dict(kernel="K1+lse", shape=name, dtype=str(dt)[6:], L=L,
@@ -1630,6 +1642,19 @@ def step_walls(tracer) -> list:
     return [e["dur"] / 1e6 for e in tracer.spans("step")]
 
 
+# (n_evoformer, n_extra_msa_blocks) of phases 9 and 9b, at af2_initial's
+# widths: cut from 48 + 4 to keep the whole script inside its time; their
+# checks (graphed against eager, eager against eager, launches by draw, the
+# evaluation, telemetry, resume into a captured graph) hold at any depth.
+# Phase 13 (a) runs the training step at the full 48 + 4
+TRAIN_DEPTH = (16, 4)
+
+
+def train_cfg(cfg):
+    return dataclasses.replace(cfg, n_evoformer=TRAIN_DEPTH[0],
+                               n_extra_msa_blocks=TRAIN_DEPTH[1])
+
+
 def train_main_path(cfg, dev, *, graphs: bool, warmup=TRAIN_WARMUP,
                     steps=TRAIN_STEPS, obs=None):
     """TrainRunner at ``cfg`` with its defaults, batch 1, from the seeded
@@ -1699,7 +1724,9 @@ def train_main_path(cfg, dev, *, graphs: bool, warmup=TRAIN_WARMUP,
 def train_report(tag, runner, counts, norms, peak, reserved,
                  warmup=TRAIN_WARMUP):
     step_s = step_walls(runner.tracer)[warmup:]
-    print(f"[train path {tag}] af2_initial (48+4 blocks) TrainRunner, batch "
+    cfg = runner.cfg
+    print(f"[train path {tag}] af2_initial ({cfg.n_evoformer}+"
+          f"{cfg.n_extra_msa_blocks} blocks) TrainRunner, batch "
           f"1: steps {list(range(warmup, runner.step))}, n_recycle "
           f"{runner.history['n_recycle'][warmup:]}, losses "
           f"{[round(x, 4) for x in runner.history['loss'][warmup:]]}, "
@@ -1989,6 +2016,7 @@ def check_triangle_dap(dev, r: int, d: int, c_z: int, c: int, per: int,
     columns and every column, as transposed views), against their plain
     versions; times and bounds per call.  ``per``: K4 launches per
     sample-cycle of one rank (K3 and K5 twice that)."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import ref
     from repro_torch.kernels import triangle as kt
     g = torch.Generator(device=dev).manual_seed(9)
@@ -2052,18 +2080,15 @@ def check_triangle_dap(dev, r: int, d: int, c_z: int, c: int, per: int,
         plain5 = [cuda_time(lambda args=args: ref.triangle_mult_bwd_dx_ref(
             *args), 2) for args in sides]
         P, Pb = ri * r, r * r
-        wbytes = sum(t.numel() * el for t in w)
-        f3 = (2.0 * (P + Pb) * c_z * 2 * c + 2.0 * P * r * c
-              + 2.0 * P * c * c_z + 2.0 * P * c_z * c_z)
-        by3 = (Pb + 2 * P) * c_z * el + wbytes + P * c * 4
-        f4 = 6 * 2.0 * P * c * c_z
-        by4 = P * c * 4 * 2 + 3 * P * c_z * el + (c * c_z + c_z * c_z) * (el + 4)
+        # xa and xg view the shard's rows, xb is every row
+        f3, by3 = kcost.triangle_mult_fwd_cost(ri, r, r, c_z, c, el,
+                                               act_rows=Pb + P, s=True)
+        f4, by4 = kcost.triangle_mult_bwd_epilogue_cost(P, c_z, c, el)
         # side 0: dx of the r/d xa rows, side 1: dx of all r xb rows
-        f5 = [2.0 * P * r * c + 2 * 2.0 * n * c_z * 2 * c + 2 * 2.0 * m * c_z * 2 * c
-              for n, m in ((P, Pb), (Pb, P))]
-        by5 = [P * c * 4 + (n + m) * c_z * el + n * c_z * el
-               + 2 * c_z * 2 * c * el + c_z * 2 * c * 4
-               for n, m in ((P, Pb), (Pb, P))]
+        (f5a, by5a), (f5b, by5b) = (
+            kcost.triangle_mult_bwd_dx_cost(ri, r, r, c_z, c, el),
+            kcost.triangle_mult_bwd_dx_cost(r, ri, r, c_z, c, el))
+        f5, by5 = [f5a, f5b], [by5a, by5b]
         for kernel, err, ms, plain, fl, by, n in (
                 ("K3+s", err3, ms3, plain3, f3, by3, 2 * per),
                 ("K4", err4, ms4, plain4, f4, by4, per),
@@ -2100,13 +2125,15 @@ PAR_PLANS = (("bp2", {"branch": 2}, (0, 1)),
              ("bp2_dap2", {"branch": 2, "dap": 2}, (0, 1, 2, 3)))
 # (n_evoformer, n_extra_msa_blocks) of every plan, at af2_initial's widths:
 # a plan shards each block alike, so more depth adds time and no path
-PAR_DEPTH = (16, 4)
+PAR_DEPTH = (8, 2)
 PAR_STEPS = 2
 # plain SGD, no clip: the update is the learning rate times the gradient,
-# so a gradient off by a factor (the group size, the data extent) moves
-# the parameters by that factor.  The gradient norm at the seeded start is
-# ~1.6e2 at 16 + 4 blocks (this phase's one-device run), so an update of
-# ~0.08 in L2
+# so a gradient off by a factor f (the group size, the data extent) moves
+# the update by |f - 1| of its norm, 0.5 or more for f = 2 or 1/2, ten
+# times PAR_UPDATE_RTOL.  At 8 + 2 blocks the one-device gradient norms of
+# the two steps are ~92 and ~25 on an H100, so the update, 5e-4 times the
+# sum of the two gradients, is at most ~0.06 in L2 (each plan's line prints
+# it), far above the ~1e-6 by which sums in another order move a parameter
 PAR_LR = 5e-4
 # a plan's step may differ from the one-device step by the order of its
 # sums (partial gradients summed across ranks, shards' reductions): the
@@ -2254,7 +2281,7 @@ def par_rank(rank, world, dev, cfg, serial_dir, plans):
                      "step_s": step_walls(runner.tracer),
                      "launches": counts, "want": par_launches(cfg, role),
                      "collectives": colls, "max_param_diff": d_max,
-                     "update_rel_diff": num / den,
+                     "update_rel_diff": num / den, "update_l2": den,
                      "peak_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
                                   if cuda else 0.0)}
         # every rank of the plan takes part in each timed collective
@@ -2309,7 +2336,8 @@ def parallel_phase(cfg, dev):
                   f"{[round(x, 3) for x in row['step_s']]} s, peak "
                   f"{row['peak_gib']:.2f} GiB, max |param diff| "
                   f"{row['max_param_diff']:.3g}, update rel L2 diff "
-                  f"{row['update_rel_diff']:.3g}, launches {row['launches']}, "
+                  f"{row['update_rel_diff']:.3g} (the one-device update's L2 "
+                  f"{row['update_l2']:.4g}), launches {row['launches']}, "
                   f"collectives {row['collectives']}", flush=True)
             want_launch = {k: v * PAR_STEPS for k, v in row["want"].items()}
             if row["launches"] != want_launch:
@@ -2548,12 +2576,6 @@ LM_NEW_TOKENS = 32
 LM_SLOTS, LM_MAX_LEN = 4, 4096
 
 
-def causal_pairs(s: int, t: int) -> int:
-    """(query, key) pairs a causal mask keeps: query i sees keys 0..i."""
-    k = min(s, t)
-    return k * (k + 1) // 2 + (s - k) * t
-
-
 def lm_kernel_shapes(cfg):
     """K6 rows: (name, (B, S, T, H, KV, D), causal, dtype, launches on the
     main path): one per prompt length of the path (one launch per layer per
@@ -2578,6 +2600,7 @@ def check_flash_attention(dev, shapes):
     RTOL |plain|; fp32: 2e-4 + 1e-5 |plain|, the reference's fp32 kernel
     tolerance), times, bound.  Returns (rows, totals over the main path's
     launches)."""
+    from repro_torch.kernels import cost as kcost
     from repro_torch.kernels import flash_attention as kf
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(13)
@@ -2600,9 +2623,8 @@ def check_flash_attention(dev, shapes):
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))    # (B, heads, S, D)
         lib_ms = cuda_median(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=True), iters)
-        pairs = causal_pairs(S, T) if causal else S * T
-        flops = 4.0 * B * H * D * pairs
-        nbytes = (2 * B * S * H * D + 2 * B * T * KV * D) * el
+        flops, nbytes = kcost.flash_attention_fwd_cost(B, S, T, H, KV, D, el,
+                                                       causal=causal)
         b_ms, b_by = bound(flops, nbytes, peak)
         rows.append(dict(shape=name, dtype=str(dt)[6:], B=B, S=S, T=T, H=H,
                          KV=KV, D=D, causal=causal, launches=launches,
@@ -4036,6 +4058,272 @@ def lint_phase(dev, card: str) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the dry run (launch/dryrun.py) against the card
+# ---------------------------------------------------------------------------
+
+# a predicted peak lies within this share of the measured one
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_SEED = 131
+# (d): an af2_tiny cell on a 2x4 virtual mesh, bp 2 x dap 2 x data 2
+DRYRUN_SMALL_MESH = ((2, 4), ("data", "model"))
+
+
+def measure_step(run, arguments) -> dict:
+    """The memory of a second call of ``run`` (the first builds what a step
+    keeps: cuBLAS workspaces, cached host constants): ``before`` (bytes
+    allocated before it), ``peak`` (``max_memory_allocated`` during it),
+    ``args`` (the storages of ``arguments``, the step's inputs), ``step``
+    (its own peak: ``peak`` less what was allocated before beyond its
+    arguments, i.e. workspaces and what earlier phases still hold) and
+    ``launches``."""
+    from repro_torch.kernels import ops
+    run()
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    args = sum({id(st): st.nbytes() for st in (
+        t.untyped_storage() for t in arguments)}.values())
+    return {"before": before, "peak": peak, "args": args,
+            "step": peak - (before - args), "launches": ops.launch_counts()}
+
+
+def check_peak(what: str, predicted: int, measured: int, full: dict) -> float:
+    """The predicted peak's relative error against the step's measured
+    peak; raises past DRYRUN_PEAK_RTOL, naming the largest storages the
+    trace held near its peak."""
+    rel = predicted / measured - 1.0
+    if abs(rel) > DRYRUN_PEAK_RTOL:
+        top = ", ".join(f"{b / 2 ** 20:.1f} MiB {lab}"
+                        for b, lab in full["peak_storages"][:8])
+        raise AssertionError(
+            f"{what}: predicted peak {predicted} B is {100 * rel:+.1f} % of "
+            f"the measured {measured} B (bound {100 * DRYRUN_PEAK_RTOL:.0f} "
+            f"%); the largest live storages at the trace's peak: {top}")
+    return rel
+
+
+def dryrun_af2(dev, card: str) -> dict:
+    """(a) af2_initial's training step at full width, batch 1, one recycle,
+    remat "block", K1-K5, eager on one device: measured on the card, then
+    dry-run (a 1x1 virtual mesh) and held to it."""
+    from repro_torch.analysis.roofline import af2_model_flops
+    from repro_torch.core.config import af2_initial, with_kernels
+    from repro_torch.core.model import AlphaFold2, to_device
+    from repro_torch.data.protein import protein_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.trainstep import init_state, make_step_body
+    cfg = with_kernels(af2_initial())
+    depth = f"{cfg.n_evoformer} + {cfg.n_extra_msa_blocks} blocks"
+    opt = adamw(1e-3, clip_norm=0.1)
+    state = init_state(AlphaFold2(cfg, device=dev), opt)
+    batch = to_device(protein_batch(DRYRUN_SEED, 0, 1, cfg), dev)
+    key = torch.zeros((2,), dtype=torch.int64, device=dev)
+    step = torch.ones((), device=dev)
+    body = make_step_body(cfg, opt)
+    t0 = time.perf_counter()
+    m = measure_step(lambda: body(state, batch, key, step, 1),
+                     dryrun._state_tensors(state) + list(batch.values())
+                     + [step])
+    card_s = time.perf_counter() - t0
+    launches = m["launches"]
+    del state, batch, body
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rec = dryrun.run_af2_cell("initial", False, bp=1, dap=1, global_batch=1,
+                              probes=False, mesh=((1, 1), ("data", "model")))
+    trace_s = time.perf_counter() - t0
+    if rec["status"] != "ok":
+        raise AssertionError(f"dry run of af2_initial: {rec.get('error')}")
+    full, mem = rec["full"], rec["full"]["memory"]
+    useful = 3.0 * af2_model_flops(cfg)
+    nodes = {k: full["kernel_nodes"].get(k, 0) for k in launches}
+    print(f"[dryrun af2] af2_initial ({depth}), batch 1, n_recycle 1, remat "
+          f"block, K1-K5, one device, {card}: predicted peak "
+          f"{mem['peak_bytes_estimate']} B vs the step's {m['step']} B "
+          f"(max_memory_allocated {m['peak']} B less {m['before'] - m['args']}"
+          f" B allocated before it beyond its arguments); predicted "
+          f"arguments {mem['argument_bytes']} B vs {m['args']} B on the card "
+          f"({m['before']} B allocated before the step); trace FLOPs "
+          f"{full['per_device_flops']:.6g} vs 3 x af2_model_flops "
+          f"{useful:.6g} (ratio {full['per_device_flops'] / useful:.4f}); "
+          f"kernel launches {json.dumps(launches)} vs trace nodes "
+          f"{json.dumps(nodes)}; two card steps {card_s:.1f} s, trace "
+          f"{trace_s:.1f} s ({full['aten_ops']} aten ops)", flush=True)
+    rel = check_peak("af2_initial", mem["peak_bytes_estimate"], m["step"],
+                     full)
+    if nodes != launches:
+        raise AssertionError(f"af2_initial: launches {launches} != the "
+                             f"trace's kernel nodes {nodes}")
+    return {"depth": depth, "predicted_peak": mem["peak_bytes_estimate"],
+            "measured": m, "peak_rel": rel,
+            "predicted_arguments": mem["argument_bytes"],
+            "flops": full["per_device_flops"],
+            "model_flops": useful, "launches": launches,
+            "trace_s": trace_s, "card_s": card_s}
+
+
+def dryrun_whisper(dev, card: str) -> dict:
+    """(b) whisper-medium's training step (TRAIN_LM_BATCH x TRAIN_LM_SEQ
+    tokens, remat "layer", K6, AdamW as phase 11c) on one device: measured
+    on the card, then dry-run and held to it."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.data.tokens import token_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import get_model
+    from repro_torch.models.lmconfig import with_kernels
+    from repro_torch.parallel.ranks import virtual_world
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.trainstep import init_lm_state, make_lm_train_step
+    cfg = dataclasses.replace(with_kernels(configs.get_config(WHISPER_ARCH)),
+                              remat="layer")
+    lm = get_model(cfg)
+    opt = adamw(TRAIN_LM_LR, clip_norm=1.0)
+    state = init_lm_state(lm.init_params(cfg, seed=0, device=dev), opt)
+    b = token_batch(0, 0, TRAIN_LM_BATCH, TRAIN_LM_SEQ, cfg.vocab)
+    batch = {"tokens": torch.as_tensor(b["tokens"], device=dev),
+             "labels": torch.as_tensor(b["labels"], device=dev),
+             "frames": seeded_bf16((TRAIN_LM_BATCH, cfg.n_frontend_tokens,
+                                    cfg.frontend_dim), 23, dev)}
+    step = make_lm_train_step(lm, cfg, opt)
+    m = measure_step(lambda: step(state, batch),
+                     dryrun._state_tensors(state) + list(batch.values()))
+    launches = m["launches"]
+    del state, batch, step
+    torch.cuda.empty_cache()
+    shape = ShapeSpec("train_448", "train", TRAIN_LM_SEQ, TRAIN_LM_BATCH)
+    t0 = time.perf_counter()
+    with virtual_world(1):
+        full = dryrun.trace_lm_step(cfg, shape, {"data": 1, "model": 1}, 1,
+                                    optimizer=opt)
+    trace_s = time.perf_counter() - t0
+    mem = full["memory"]
+    nodes = {k: full["kernel_nodes"].get(k, 0) for k in launches}
+    print(f"[dryrun whisper] {WHISPER_ARCH} training step, "
+          f"{TRAIN_LM_BATCH} x {TRAIN_LM_SEQ} tokens, remat layer, K6, AdamW, "
+          f"one device, {card}: predicted peak {mem['peak_bytes_estimate']} B "
+          f"vs the step's {m['step']} B (max_memory_allocated {m['peak']} B "
+          f"less {m['before'] - m['args']} B allocated before it beyond its "
+          f"arguments); predicted arguments {mem['argument_bytes']} B vs "
+          f"{m['args']} B on the card; trace FLOPs "
+          f"{full['per_device_flops']:.6g}; kernel launches "
+          f"{json.dumps(launches)} vs trace nodes {json.dumps(nodes)}; trace "
+          f"{trace_s:.1f} s ({full['aten_ops']} aten ops)", flush=True)
+    rel = check_peak(WHISPER_ARCH, mem["peak_bytes_estimate"], m["step"],
+                     full)
+    if nodes != launches:
+        raise AssertionError(f"{WHISPER_ARCH}: launches {launches} != the "
+                             f"trace's kernel nodes {nodes}")
+    return {"predicted_peak": mem["peak_bytes_estimate"], "measured": m,
+            "peak_rel": rel, "predicted_arguments": mem["argument_bytes"],
+            "flops": full["per_device_flops"],
+            "launches": launches, "trace_s": trace_s}
+
+
+def dryrun_meta_routes(dev) -> dict:
+    """(c) each kernel's meta route (``kernels.meta``) against the kernel at
+    one shape of each path: the outputs' shapes and dtypes.  (The scratch
+    both allocate is ``kernels/cost.py``'s, which each launch checks against
+    its kernel's layout.)"""
+    from repro_torch.kernels import evo_attention as ka
+    from repro_torch.kernels import flash_attention as kf
+    from repro_torch.kernels import meta as kmeta
+    from repro_torch.kernels import triangle as kt
+    g = torch.Generator(device=dev).manual_seed(DRYRUN_SEED)
+    rn = lambda *s, dt=torch.bfloat16: torch.randn(
+        s, generator=g, device=dev).to(dt)
+    on_meta = lambda args: [a.to("meta") if isinstance(a, torch.Tensor)
+                            else a for a in args]
+    layout = lambda out: [None if t is None else (tuple(t.shape), str(t.dtype))
+                          for t in (out if isinstance(out, tuple) else (out,))]
+    cases = []
+    # K1 / K2: af2_initial's MSA row attention (bias, gate) and a column
+    # attention (no bias), bf16
+    for L, S, H, C, biased in ((128, 256, 8, 32, True),
+                               (256, 128, 8, 32, False)):
+        q, k, v, gate, do = (rn(L, S, H, C) for _ in range(5))
+        bias = rn(H, S, S) if biased else None
+        out, lse = ka.evo_attention_fwd(q, k, v, bias, gate, return_lse=True)
+        cases.append((f"K1 ({L},{S},{H},{C})", kmeta.evo_attention_fwd,
+                      ka.evo_attention_fwd, (q, k, v, bias, gate),
+                      {"return_lse": True}))
+        cases.append((f"K2 ({L},{S},{H},{C})", kmeta.evo_attention_bwd,
+                      ka.evo_attention_bwd,
+                      (q, k, v, bias, gate, out, lse, do), {}))
+    # K3 / K4 / K5: the pair rep at r 256, c_z 128, c 128, bf16
+    r, c_z, c = 256, 128, 128
+    x = rn(r, r, c_z)
+    w = (rn(c_z, 2 * c), rn(2 * c), rn(c_z, 2 * c), rn(2 * c), rn(c), rn(c),
+         rn(c, c_z), rn(c_z), rn(c_z, c_z), rn(c_z))
+    s = rn(r, r, c, dt=torch.float32)
+    cases += [
+        ("K3 r 256", kmeta.triangle_mult_fwd, kt.triangle_mult_fwd,
+         (x, x, x, *w), {"return_s": True}),
+        ("K4 r 256", kmeta.triangle_mult_bwd_epilogue,
+         kt.triangle_mult_bwd_epilogue, (s, x, x, *w[4:]), {}),
+        ("K5 r 256", kmeta.triangle_mult_bwd_dx, kt.triangle_mult_bwd_dx,
+         (s, x, x, *w[:4]), {})]
+    # K6: whisper training's causal self-attention and its cross-attention
+    for name, (B, S, T, H, KV, D, causal) in (
+            ("K6 self", (2, 448, 448, 16, 16, 64, True)),
+            ("K6 cross", (2, 448, 1500, 16, 16, 64, False))):
+        cases.append((name, kmeta.flash_attention_fwd, kf.flash_attention_fwd,
+                      (rn(B, S, H, D), rn(B, T, KV, D), rn(B, T, KV, D),
+                       causal), {}))
+    rows = {}
+    for name, meta_fn, kernel, args, kwargs in cases:
+        want = layout(kernel(*args, **kwargs))
+        got = layout(meta_fn(*on_meta(args), **kwargs))
+        if got != want:
+            raise AssertionError(f"meta route {name}: {got} != the kernel's "
+                                 f"{want}")
+        rows[name] = want
+    torch.cuda.synchronize()
+    print(f"[dryrun meta] every meta route's outputs equal the kernel's "
+          f"({len(rows)} calls: {json.dumps(rows)})", flush=True)
+    return {"calls": len(rows)}
+
+
+def dryrun_small_cell() -> dict:
+    """(d) an af2_tiny cell on a 2x4 virtual mesh: the fake process group
+    of this installation of torch."""
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    rec = dryrun.run_af2_cell("tiny", False, bp=2, dap=2, global_batch=2,
+                              probes=False, mesh=DRYRUN_SMALL_MESH)
+    if rec["status"] != "ok":
+        raise AssertionError(f"af2_tiny on 2x4: {rec.get('error')}")
+    full = rec["full"]
+    print(f"[dryrun cell] af2_tiny bp 2 x dap 2 x data 2 on a 2x4 virtual "
+          f"mesh: peak {full['memory']['peak_bytes_estimate']} B, "
+          f"collectives {json.dumps(full['collectives'])}, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"collectives": full["collectives"]}
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """Phase 13: (a) af2_initial and (b) whisper-medium training steps,
+    predicted by the dry run and measured on the card; (c) the kernels'
+    meta routes; (d) a small cell on a virtual mesh."""
+    t0 = time.perf_counter()
+    out = {"af2": dryrun_af2(dev, card), "whisper": dryrun_whisper(dev, card),
+           "meta": dryrun_meta_routes(dev), "cell": dryrun_small_cell()}
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"[dryrun] phase 13 in {out['wall_s']:.1f} s: predicted / measured "
+          f"peak af2_initial {100 * out['af2']['peak_rel']:+.2f} %, "
+          f"{WHISPER_ARCH} {100 * out['whisper']['peak_rel']:+.2f} % (bound "
+          f"{100 * DRYRUN_PEAK_RTOL:.0f} %)", flush=True)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         raise SystemExit("chip_smoke.py: src/repro_torch not found — run it "
@@ -4147,9 +4435,10 @@ def main() -> int:
     train_obs = MetricRegistry(
         sinks=[train_mem, JsonlSink(f"{obs_dir}/metrics.jsonl")])
     runs = {}
+    tcfg = train_cfg(cfg)
     for tag, use in (("eager", False), ("eager again", False),
                      ("graphed", True)):
-        runs[tag] = train_main_path(cfg, dev, graphs=use,
+        runs[tag] = train_main_path(tcfg, dev, graphs=use,
                                     obs=train_obs if use else None)
         train_report(tag, *runs[tag])
         if tag == "eager again":
@@ -4229,10 +4518,11 @@ def main() -> int:
           f"{d['stall_fraction']}, transfer {d['transfer_ms_per_step']} "
           f"ms/step, mean fill {d['mean_fill']}, buckets {d['buckets']}",
           flush=True)
-    res = check_resume(cfg, dev, bound)
+    res = check_resume(tcfg, dev, bound)
     st = res["stats"]
-    print(f"[train resume] run A {RESUME_STEPS} graphed steps (n_recycle 1, "
-          f"FASTA records), checkpoints at {RESUME_AT} and {RESUME_STEPS}: "
+    print(f"[train resume] run A {RESUME_STEPS} graphed steps "
+          f"({tcfg.n_evoformer} + {tcfg.n_extra_msa_blocks} blocks, n_recycle "
+          f"1, FASTA records), checkpoints at {RESUME_AT} and {RESUME_STEPS}: "
           f"{res['bytes']} bytes on disk each; snapshot s {st['A']['snapshot_s']}, "
           f"save s {st['A']['save_s']}; run B restored step {RESUME_AT} in "
           f"{st['B']['restore_s']} s; max |diff| vs run A: B {json.dumps(res['b'])}, "
@@ -4242,7 +4532,7 @@ def main() -> int:
           f"{[round(x, 3) for x in res['b_step_s']]}, C "
           f"{[round(x, 3) for x in res['c_step_s']]} s; run A's data "
           f"{json.dumps(res['a_data'])}", flush=True)
-    rm = check_remat_dots(cfg, dev, bound)
+    rm = check_remat_dots(tcfg, dev, bound)
     print(f"[train remat] 2 graphed steps, remat=dots vs remat=block: max "
           f"|diff| {json.dumps(rm['diff'])}; peak allocated (with the "
           f"capture's eager run) block {rm['block']['peak_gib']:.2f} GiB, "
@@ -4339,6 +4629,9 @@ def main() -> int:
     stamp("phase 11d")
     lint_phase(dev, card)
     stamp("phase 12")
+    torch.cuda.empty_cache()
+    dry = dryrun_phase(dev, card)
+    stamp("phase 13")
 
     def entry(name, source, replaces, tot, err, launches, per):
         by = tot["flops"] / PEAK_BF16_FLOPS >= tot["bytes"] / PEAK_BYTES
@@ -4350,7 +4643,14 @@ def main() -> int:
                 "bound_by": "operations" if by else "bytes",
                 "library_ms": lib, "per": per}
     serve_per = "one sample-cycle of af2_initial serving, bucket r 256"
-    train_per = "the backward of one af2_initial training sample-cycle"
+    # K2, K4, K5: launches of phase 13 (a)'s af2_initial step at its full
+    # depth, one sample-cycle (n_recycle 1), as their times and bounds are
+    # priced; phase 9's runs, at TRAIN_DEPTH, under "launches_by_path"
+    train_per = ("the backward of one af2_initial training sample-cycle "
+                 f"({dry['af2']['depth']}; launches: phase 13 (a)'s step)")
+    t_launches = dry["af2"]["launches"]
+    t_path = (f"phase 9 training main path, {tcfg.n_evoformer} + "
+              f"{tcfg.n_extra_msa_blocks} blocks, graphed run")
     kernels = [
         {**entry("evo_attention_fwd",
                  "src/repro_torch/csrc/evo_attention_fwd.cu",
@@ -4362,20 +4662,26 @@ def main() -> int:
                  "src/repro/kernels/triangle.py:128", k3_tot, k3_err,
                  counts["triangle_mult_fwd"], serve_per),
          "continuous_launches": continuous["launches"]["triangle_mult_fwd"]},
-        entry("evo_attention_bwd", "src/repro_torch/csrc/evo_attention_bwd.cu",
-              "src/repro/kernels/flash_attention.py:347", att_tot["k2"],
-              att_tot["k2"]["err"], t_counts["evo_attention_bwd"], train_per),
+        {**entry("evo_attention_bwd",
+                 "src/repro_torch/csrc/evo_attention_bwd.cu",
+                 "src/repro/kernels/flash_attention.py:347", att_tot["k2"],
+                 att_tot["k2"]["err"], t_launches["evo_attention_bwd"],
+                 train_per),
+         "launches_by_path": {t_path: t_counts["evo_attention_bwd"]}},
         {**entry("triangle_mult_bwd_epilogue",
                  "src/repro_torch/csrc/triangle_mult_bwd.cu",
                  "src/repro/kernels/triangle.py:239", tri_tot["k4"],
-                 tri_tot["k4"]["err"], t_counts["triangle_mult_bwd_epilogue"],
+                 tri_tot["k4"]["err"],
+                 t_launches["triangle_mult_bwd_epilogue"], train_per),
+         "products_ms": tri_tot["k4"]["products_ms"],
+         "launches_by_path": {
+             t_path: t_counts["triangle_mult_bwd_epilogue"]}},
+        {**entry("triangle_mult_bwd_dx",
+                 "src/repro_torch/csrc/triangle_mult_bwd.cu",
+                 "src/repro/kernels/triangle.py:319", tri_tot["k5"],
+                 tri_tot["k5"]["err"], t_launches["triangle_mult_bwd_dx"],
                  train_per),
-         "products_ms": tri_tot["k4"]["products_ms"]},
-        entry("triangle_mult_bwd_dx",
-              "src/repro_torch/csrc/triangle_mult_bwd.cu",
-              "src/repro/kernels/triangle.py:319", tri_tot["k5"],
-              tri_tot["k5"]["err"], t_counts["triangle_mult_bwd_dx"],
-              train_per),
+         "launches_by_path": {t_path: t_counts["triangle_mult_bwd_dx"]}},
         entry("flash_attention_fwd",
               "src/repro_torch/csrc/flash_attention_fwd.cu",
               "src/repro/kernels/flash_attention.py:77", k6_tot,

@@ -2,12 +2,16 @@
 the AF2 configs are ``repro_torch.core.config``).
 
 ``get_config(arch_id)`` -> LMConfig; ``get_smoke_config(arch_id)`` -> reduced
-same-family config for CPU smoke tests.  The dry-run shape table
-(``repro/configs/shapes.py``) is not copied: nothing of the port reads it.
+same-family config for CPU smoke tests; ``SHAPES`` / ``arch_shapes`` the
+dry run's input shapes (``configs/shapes.py``) each architecture runs at
+(``launch/dryrun.py``).
 """
 from __future__ import annotations
 
 import importlib
+
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec,  # noqa: F401
+                                        applicable_shapes)
 
 _MODULES = {
     "phi3.5-moe-42b-a6.6b": "phi3_5_moe_42b",
@@ -34,3 +38,7 @@ def get_config(arch_id: str):
 
 def get_smoke_config(arch_id: str, **overrides):
     return get_config(arch_id).reduced(**overrides)
+
+
+def arch_shapes(arch_id: str) -> list[str]:
+    return applicable_shapes(get_config(arch_id).family)

@@ -7,12 +7,11 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.config import AlphaFold2Config
 from repro_torch.core.structure import rigid_invert_apply
-from repro_torch.nn.layers import Dense, LayerNorm, dense, layernorm
+from repro_torch.nn.layers import Dense, LayerNorm, dense, layernorm, one_hot
 
 
 class PlddtHead(nn.Module):
@@ -140,12 +139,12 @@ def distogram_loss(logits, true_coords, res_mask, *, n_bins: int,
                    + 1e-8)
     edges = distogram_edges(n_bins, min_dist, max_dist, d.device)
     bins = (d[..., None] > edges).sum(-1)                   # (r, r) in [0, n_bins)
-    onehot = F.one_hot(bins, n_bins).float()
+    onehot = one_hot(bins, n_bins).float()
     return softmax_xent(logits, onehot, res_mask[:, None] * res_mask[None, :])
 
 
 def masked_msa_loss(logits, true_msa, mask_positions):
-    onehot = F.one_hot(true_msa.long(), logits.shape[-1]).float()
+    onehot = one_hot(true_msa.long(), logits.shape[-1]).float()
     return softmax_xent(logits, onehot, mask_positions)
 
 
@@ -155,4 +154,4 @@ def plddt_loss(logits, pred_trans, true_coords, res_mask, *, n_bins: int):
     :func:`plddt_from_logits` decodes them)."""
     lddt = lddt_ca(pred_trans, true_coords, res_mask, per_residue=True).detach()
     bins = torch.clamp((lddt / 100.0 * n_bins).to(torch.int64), 0, n_bins - 1)
-    return softmax_xent(logits, F.one_hot(bins, n_bins).float(), res_mask)
+    return softmax_xent(logits, one_hot(bins, n_bins).float(), res_mask)

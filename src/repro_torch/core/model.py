@@ -20,7 +20,6 @@ import functools
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts,
@@ -32,7 +31,7 @@ from repro_torch.core import structure as struct
 from repro_torch.core.config import AlphaFold2Config
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import (Dense, LayerNorm, Policy, cast_params, dense,
-                                   layernorm)
+                                   layernorm, one_hot)
 
 
 # ---------------------------------------------------------------------------
@@ -61,13 +60,22 @@ class AlphaFold2(nn.Module):
     ``extra_stack.<i>.*``, ``evoformer.<i>.*``, ``structure.*``, ``heads.*``).
     Initialised from ``seed`` (or a CPU ``generator``), fp32, then moved to
     ``device``: ``cuda`` by default, raising without a card unless
-    ``device="cpu"`` is passed."""
+    ``device="cpu"`` is passed.  On ``device="meta"`` (the dry run) the
+    parameters are made there, shapes and dtypes only, with no draw."""
 
     def __init__(self, cfg: AlphaFold2Config, *, seed: int = 0,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         device = resolve_device(device)
-        g = generator if generator is not None else torch.Generator().manual_seed(seed)
+        if device.type == "meta":
+            with torch.device("meta"):
+                self._make(cfg, None)
+            return
+        self._make(cfg, generator if generator is not None
+                   else torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    def _make(self, cfg: AlphaFold2Config, g: Optional[torch.Generator]):
         self.embedder = Embedder(cfg, generator=g)
         self.extra_stack = nn.ModuleList(
             evo.EvoformerBlock(cfg.extra, generator=g)
@@ -77,7 +85,6 @@ class AlphaFold2(nn.Module):
             for _ in range(cfg.n_evoformer))
         self.structure = struct.StructureModule(cfg.structure, generator=g)
         self.heads = heads_lib.Heads(cfg, generator=g)
-        self.to(device)
 
 
 def embed_inputs(p: Embedder, cfg: AlphaFold2Config, batch: dict,
@@ -91,7 +98,7 @@ def embed_inputs(p: Embedder, cfg: AlphaFold2Config, batch: dict,
     ri = batch["residue_index"].long()
     m = cfg.max_relative_idx
     rel = torch.clamp(ri[:, None] - ri[None, :], -m, m) + m
-    z = z + dense(p.relpos, F.one_hot(rel, 2 * m + 1).to(dtype))
+    z = z + dense(p.relpos, one_hot(rel, 2 * m + 1).to(dtype))
     extra = dense(p.extra_msa_proj, batch["extra_msa_feat"].to(dtype))
     return msa, z, extra
 
@@ -129,7 +136,7 @@ def embed_recycle(p: Embedder, cfg: AlphaFold2Config, msa, z, prev):
     row0 = msa[0] + layernorm(p.rec_msa_ln, prev_msa0).to(msa.dtype)
     msa = torch.cat([row0[None], msa[1:]], 0)
     z = z + layernorm(p.rec_z_ln, prev_z).to(z.dtype)
-    bins = F.one_hot(recycle_distance_bins(prev_x).long(), 15).to(z.dtype)
+    bins = one_hot(recycle_distance_bins(prev_x).long(), 15).to(z.dtype)
     return msa, z + dense(p.rec_dist, bins)
 
 

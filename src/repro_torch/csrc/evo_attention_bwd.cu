@@ -1294,12 +1294,12 @@ size_t fp32_bytes(int L, int S, int H, bool biased, int n_chunks) {
 
 }  // namespace
 
-// Workspace bytes evo_attention_bwd needs for this call (the caller
-// allocates them; 16-byte aligned).  bias_misaligned: the bias's data does
-// not start on a 16-byte boundary.
-extern "C" long long evo_attention_bwd_workspace(int L, int S, int H, int C, int dtype,
-                                                 int bias_dtype, int has_bias, int has_gate,
-                                                 int bias_misaligned) {
+// Workspace bytes evo_attention_bwd needs for this call; the caller sizes
+// it by kernels/cost.py::evo_attention_bwd_scratch, and the launch refuses
+// less.  bias_misaligned: the bias's data does not start on a 16-byte
+// boundary.
+static long long workspace_need(int L, int S, int H, int C, int dtype, int bias_dtype,
+                                int has_bias, int has_gate, int bias_misaligned) {
   if (dtype == 0) return (long long)fp32_bytes(L, S, H, has_bias, dbias_chunks(L, S, H));
   const int per = bias_dtype == 1 ? 8 : 4;
   const bool pack = has_bias && (S % per != 0 || bias_misaligned);
@@ -1312,15 +1312,20 @@ extern "C" long long evo_attention_bwd_workspace(int L, int S, int H, int C, int
 // dtype codes: 0 = float32, 1 = bfloat16 (q/k/v/gate/out/dout/dq/dk/dv/dgate
 // share `dtype`; the bias has `bias_dtype`).  `bias` and `gate` may be null,
 // and then `dbias` and `dgate` are not touched.  lse is (L*H, S) fp32 from
-// the forward; dbias (H, S, S) fp32; `workspace` holds
-// evo_attention_bwd_workspace(...) bytes.  Returns the first cudaError_t
-// met (0 = success).
+// the forward; dbias (H, S, S) fp32; `workspace` holds `workspace_bytes`
+// bytes, 16-byte aligned, at least workspace_need(...).  Returns the first
+// cudaError_t met (0 = success).
 extern "C" int evo_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* gate, const void* out,
                                  const void* dout, const void* lse, void* dq, void* dk, void* dv,
-                                 void* dgate, void* dbias, void* workspace, int L, int S, int H,
-                                 int C, int dtype, int bias_dtype, float scale, void* stream) {
+                                 void* dgate, void* dbias, void* workspace,
+                                 long long workspace_bytes, int L, int S, int H, int C, int dtype,
+                                 int bias_dtype, float scale, void* stream) {
   if (L <= 0 || S <= 0 || H <= 0 || (C != 4 && C != 8 && C != 16 && C != 32))
+    return (int)cudaErrorInvalidValue;
+  if (workspace_bytes < workspace_need(L, S, H, C, dtype, bias_dtype, bias != nullptr,
+                                       gate != nullptr,
+                                       reinterpret_cast<uintptr_t>(bias) % 16 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* lse_ = static_cast<const float*>(lse);

@@ -1642,14 +1642,15 @@ cudaError_t run_dx_mma(const float* ds, i64 ds_sp, i64 ds_sq, const bf16* xl, i6
 
 }  // namespace
 
-// Scratch sizes in floats for the two entry points below.
-extern "C" long long triangle_mult_bwd_epilogue_scratch(long long P, int cz, int c, int dtype) {
+// Scratch floats the two entry points below need.  The caller sizes the
+// scratch by kernels/cost.py::triangle_mult_bwd_{epilogue,dx}_scratch, and
+// a launch refuses less.
+static long long epilogue_need(long long P, int cz, int c, int dtype) {
   if (dtype == 1) return (epi_plan(P, cz, c).bytes + 3) / 4;
   return epi_scratch(P, cz, c);
 }
 
-extern "C" long long triangle_mult_bwd_dx_scratch(int rp, int rq, int rk, int cz, int c,
-                                                  int dtype) {
+static long long dx_need(int rp, int rq, int rk, int cz, int c, int dtype) {
   if (dtype == 1) return (dx_plan(rp, rq, rk, cz, c).bytes + 3) / 4;
   return dx_scratch(rp, rq, rk, cz, c);
 }
@@ -1659,16 +1660,18 @@ extern "C" long long triangle_mult_bwd_dx_scratch(int rp, int rq, int rk, int cz
 // for float32; bfloat16 reads W_o and W_g in place and ignores them (it
 // takes c, cz multiples of 16, at most 128).  s and ds are (P, c) fp32; vec
 // receives [dln_s (c) | dln_b (c) | db_o (cz) | db_g (cz)], dw_o (c, cz) and
-// dw_g (cz, cz) fp32.  Every tensor contiguous.  Returns the first
-// cudaError_t met (0 = success).
+// dw_g (cz, cz) fp32.  Every tensor contiguous.  `scratch` holds
+// `scratch_bytes` bytes, at least 4 * epilogue_need(...).  Returns the
+// first cudaError_t met (0 = success).
 extern "C" int triangle_mult_bwd_epilogue(const void* s, const void* xg, const void* dy,
                                           const void* ln_s, const void* ln_b, const void* w_o,
                                           const void* b_o, const void* w_g, const void* b_g,
                                           const void* w_o_t, const void* w_g_t, void* ds,
                                           void* dxg, void* vec, void* dw_o, void* dw_g,
-                                          void* scratch, long long P, int cz, int c, int dtype,
-                                          void* stream) {
+                                          void* scratch, long long scratch_bytes, long long P,
+                                          int cz, int c, int dtype, void* stream) {
   if (P <= 0 || cz <= 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  if (scratch_bytes < 4 * epilogue_need(P, cz, c, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define EPI_ARGS(T)                                                                             \
   static_cast<const float*>(s), static_cast<const T*>(xg), static_cast<const T*>(dy),          \
@@ -1694,15 +1697,17 @@ extern "C" int triangle_mult_bwd_epilogue(const void* s, const void* xg, const v
 // x_loc (rp, rk, cz) and x_str (rq, rk, cz) by strides; w_loc, w_str
 // (cz, 2c) packed [value | gate], w_loc_t = W_loc^T (2c, cz), all of
 // `dtype`; dx (rp, rk, cz) contiguous of `dtype`; dw (cz, 2c) and db (2c)
-// fp32.  Returns the first cudaError_t met (0 = success).
+// fp32.  `scratch` holds `scratch_bytes` bytes, at least
+// 4 * dx_need(...).  Returns the first cudaError_t met (0 = success).
 extern "C" int triangle_mult_bwd_dx(const void* ds, long long ds_sp, long long ds_sq,
                                     const void* x_loc, long long xl_sp, long long xl_sk,
                                     const void* x_str, long long xs_sq, long long xs_sk,
                                     const void* w_loc, const void* b_loc, const void* w_str,
                                     const void* b_str, const void* w_loc_t, void* dx, void* dw,
-                                    void* db, void* scratch, int rp, int rq, int rk, int cz,
-                                    int c, int dtype, void* stream) {
+                                    void* db, void* scratch, long long scratch_bytes, int rp,
+                                    int rq, int rk, int cz, int c, int dtype, void* stream) {
   if (rp <= 0 || rq <= 0 || rk <= 0 || cz % 4 != 0 || c <= 0) return (int)cudaErrorInvalidValue;
+  if (scratch_bytes < 4 * dx_need(rp, rq, rk, cz, c, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define DX_ARGS(T)                                                                              \
   static_cast<const float*>(ds), ds_sp, ds_sq, static_cast<const T*>(x_loc), xl_sp, xl_sk,     \

@@ -619,15 +619,17 @@ cudaError_t run(const void* xa, long long xa_si, long long xa_sk, const void* xb
 }  // namespace
 
 // Scratch bytes of triangle_mult_fwd: a and b, (ri + rj) * rk * c floats
-// (float32); channel-major padded a, b and s (bfloat16, see run_mma).
-extern "C" long long triangle_mult_fwd_scratch(int ri, int rj, int rk, int c, int dtype) {
+// (float32); channel-major padded a, b and s (bfloat16, see run_mma).  The
+// caller sizes it by kernels/cost.py::triangle_mult_fwd_scratch, and the
+// launch refuses less.
+static long long scratch_need(int ri, int rj, int rk, int c, int dtype) {
   if (dtype == 1) return fwd_plan(ri, rj, rk, c).bytes;
   return (long long)(ri + rj) * rk * c * (long long)sizeof(float);
 }
 
 // dtype codes: 0 = float32, 1 = bfloat16 (every tensor argument but kmask,
-// which is float32 or null).  `scratch` holds triangle_mult_fwd_scratch
-// bytes.  cz and c must be multiples of 4 (float32) or 16 (bfloat16; xa and
+// which is float32 or null).  `scratch` holds `scratch_bytes` bytes, at
+// least scratch_need(...).  cz and c must be multiples of 4 (float32) or 16 (bfloat16; xa and
 // xb then with 16-byte aligned rows).  `s_out` may be null; when given it
 // receives the fp32 pre-LayerNorm contraction (ri, rj, c).  Returns the
 // first cudaError_t met (0 = success).
@@ -637,10 +639,11 @@ extern "C" int triangle_mult_fwd(const void* xa, long long xa_si, long long xa_s
                                  const void* b_a, const void* w_b, const void* b_b,
                                  const void* ln_s, const void* ln_b, const void* w_o,
                                  const void* b_o, const void* w_g, const void* b_g,
-                                 void* scratch, void* out, void* s_out, int ri, int rj, int rk,
-                                 int cz, int c, int dtype, void* stream) {
+                                 void* scratch, long long scratch_bytes, void* out, void* s_out,
+                                 int ri, int rj, int rk, int cz, int c, int dtype, void* stream) {
   if (ri <= 0 || rj <= 0 || rk <= 0 || cz % 4 != 0 || c % 4 != 0)
     return (int)cudaErrorInvalidValue;
+  if (scratch_bytes < scratch_need(ri, rj, rk, c, dtype)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* km = static_cast<const float*>(kmask);
   if (dtype == 0) {

@@ -77,6 +77,25 @@ def protein_sample(rng: np.random.Generator, cfg: AlphaFold2Config) -> dict:
     }
 
 
+def protein_sample_spec(cfg: AlphaFold2Config) -> dict:
+    """{feature: (shape, numpy dtype)} of :func:`protein_sample`, with no
+    data drawn: what the dry run (``launch/dryrun.py``) makes its ``meta``
+    batch from."""
+    s, se, r = cfg.n_seq, cfg.n_extra_seq, cfg.n_res
+    f32 = np.dtype(np.float32)
+    return {
+        "msa_feat": ((s, r, cfg.msa_feat_dim), f32),
+        "extra_msa_feat": ((se, r, cfg.msa_feat_dim), f32),
+        "target_feat": ((r, cfg.target_feat_dim), f32),
+        "residue_index": ((r,), np.dtype(np.int32)),
+        "res_mask": ((r,), f32),
+        "true_msa": ((s, r), np.dtype(np.int32)),
+        "msa_mask_positions": ((s, r), np.dtype(np.bool_)),
+        "true_rots": ((r, 3, 3), f32),
+        "true_trans": ((r, 3), f32),
+    }
+
+
 def protein_batch(seed: int, step: int, batch_size: int,
                   cfg: AlphaFold2Config, *, split: str = "train") -> dict:
     """Deterministic batch: sample i of step t is drawn from

@@ -11,7 +11,11 @@ the host per call.
   PyTorch asks for before a capture: library handles, kernel attributes,
   constants cached per device), and its result is that call's result.  Then
   the function is captured on the same static inputs; a capture records
-  work and runs none of it.
+  work and runs none of it.  The garbage collector is run before the
+  capture and held off during it: a dead graph freed inside another's
+  capture (a graph left in a reference cycle is freed whenever the
+  collector runs) calls ``cudaGraphExecDestroy``, which a capture does not
+  permit, and that invalidates the capture.
 * Every later call copies its arguments into the static input buffers,
   replays the graph and returns the static outputs.  They are overwritten
   by the next replay of any graph of the same memory pool: read or clone
@@ -25,6 +29,7 @@ A capture that fails raises; nothing falls back to the eager function.
 """
 from __future__ import annotations
 
+import gc
 from typing import Callable, Optional
 
 import torch
@@ -106,8 +111,15 @@ class CapturedStep:
         main.wait_stream(side)
         before = ops.launch_counts()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            self.outputs = self.fn(*self.inputs)
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.outputs = self.fn(*self.inputs)
+        finally:
+            if collecting:
+                gc.enable()
         after = ops.launch_counts()
         self.launches = {k: after[k] - before[k] for k in after
                          if after[k] != before[k]}

@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 NAME = "evo_attention_fwd"
 BWD_NAME = "evo_attention_bwd"
@@ -39,10 +39,9 @@ def _bwd_lib():
     fn = lib.evo_attention_bwd
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 14 + [i] * 6 + [ctypes.c_float, p]
+        fn.argtypes = ([p] * 14 + [ctypes.c_longlong] + [i] * 6
+                       + [ctypes.c_float, p])
         fn.restype = ctypes.c_int
-        lib.evo_attention_bwd_workspace.argtypes = [i] * 9
-        lib.evo_attention_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
@@ -137,10 +136,10 @@ def evo_attention_bwd(q, k, v, bias, gate, out, lse, do,
     lib = _bwd_lib()
     # scratch: delta, do_raw, a padded bias copy and the dbias partials, as
     # the kernel's layout needs them
-    nbytes = lib.evo_attention_bwd_workspace(
+    nbytes = cost.evo_attention_bwd_scratch(
         L, S, H, C, DTYPE_CODES[q.dtype], bias_code, int(bias is not None),
         int(gate is not None),
-        int(bias is not None and bias.data_ptr() % 16 != 0))
+        bias_misaligned=bias is not None and bias.data_ptr() % 16 != 0)
     ws = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     scale = C ** -0.5 if scale is None else float(scale)
     with torch.cuda.device(dev):
@@ -148,7 +147,7 @@ def evo_attention_bwd(q, k, v, bias, gate, out, lse, do,
         err = lib.evo_attention_bwd(
             _ptr(q), _ptr(k), _ptr(v), _ptr(bias), _ptr(gate), _ptr(out),
             _ptr(do), _ptr(lse), _ptr(dq), _ptr(dk), _ptr(dv), _ptr(dgate),
-            _ptr(dbias), _ptr(ws), L, S, H, C, DTYPE_CODES[q.dtype],
+            _ptr(dbias), _ptr(ws), nbytes, L, S, H, C, DTYPE_CODES[q.dtype],
             bias_code, scale, stream)
     if err != 0:
         raise RuntimeError(f"{BWD_NAME} launch failed: cudaError {err}")

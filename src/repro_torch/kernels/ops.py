@@ -3,8 +3,10 @@
 
 A tensor on the CPU goes to the kernel's plain version (``kernels.ref``); a
 CUDA tensor launches the hand-written kernel or raises — there is no
-fallback.  Without a gradient to track, the forward kernels K1, K3 and K6 take
-their serving launch.  When autograd needs the backward, each entry point
+fallback.  A ``meta`` tensor (the dry run) takes the kernel's meta route
+(``kernels.meta``): the kernel's output shapes and temporaries, no values;
+any other device raises.  Without a gradient to track, the forward kernels
+K1, K3 and K6 take their serving launch.  When autograd needs the backward, each entry point
 runs as a ``torch.autograd.Function`` whose forward also writes the
 residual (K1's log-sum-exp, K3's fp32 contraction s) and whose backward is
 the flash-attention backward K2, or the triangle backward K4 + K5 — the
@@ -23,6 +25,7 @@ import torch
 from repro_torch import trace_hooks
 from repro_torch.kernels import evo_attention as _ka
 from repro_torch.kernels import flash_attention as _kf
+from repro_torch.kernels import meta as _meta
 from repro_torch.kernels import ref
 from repro_torch.kernels import triangle as _kt
 from repro_torch.nn.attention import attention_chunked
@@ -71,6 +74,16 @@ def _on_cuda(*tensors) -> bool:
     return True
 
 
+def _route(kernel, plain, meta, *tensors):
+    """The function a call runs: on ``meta`` the kernel's meta route
+    (``kernels.meta``: its outputs' shapes and its temporaries, no values),
+    else the kernel on a CUDA tensor and its plain version on a CPU tensor
+    (:func:`_on_cuda`, which raises for any other device)."""
+    if tensors[0].device.type == "meta":
+        return meta
+    return kernel if _on_cuda(*tensors) else plain
+
+
 def _needs_grad(*tensors) -> bool:
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
@@ -85,7 +98,8 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, scale):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.scale = causal, scale
-        fwd = _kf.flash_attention_fwd if _on_cuda(q) else ref.flash_attention_ref
+        fwd = _route(_kf.flash_attention_fwd, ref.flash_attention_ref,
+                     _meta.flash_attention_fwd, q)
         return _k("flash_attention_fwd", fwd, q, k, v, causal, scale)
 
     @staticmethod
@@ -104,8 +118,8 @@ def flash_attention(q, k, v, causal: bool = True,
     multiple of KV; ``causal``: query i sees keys 0..i."""
     if _needs_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, causal, scale)
-    fwd = (_kf.flash_attention_fwd if _on_cuda(q, k, v)
-           else ref.flash_attention_ref)
+    fwd = _route(_kf.flash_attention_fwd, ref.flash_attention_ref,
+                 _meta.flash_attention_fwd, q, k, v)
     return _k("flash_attention_fwd", fwd, q, k, v, causal, scale)
 
 
@@ -119,8 +133,8 @@ class _EvoAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, gate, scale):
-        fwd = (_ka.evo_attention_fwd if _on_cuda(q)
-               else ref.evo_attention_ref)
+        fwd = _route(_ka.evo_attention_fwd, ref.evo_attention_ref,
+                     _meta.evo_attention_fwd, q)
         out, lse = _k("evo_attention_fwd", fwd, q, k, v, bias, gate, scale,
                       return_lse=True)
         ctx.save_for_backward(q, k, v, bias, gate, out, lse)
@@ -130,8 +144,8 @@ class _EvoAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, gate, out, lse = ctx.saved_tensors
-        bwd = (_ka.evo_attention_bwd if _on_cuda(q)
-               else ref.evo_attention_bwd_ref)
+        bwd = _route(_ka.evo_attention_bwd, ref.evo_attention_bwd_ref,
+                     _meta.evo_attention_bwd, q)
         dq, dk, dv, dbias, dgate = _k("evo_attention_bwd", bwd, q, k, v,
                                       bias, gate, out, lse, do.contiguous(),
                                       ctx.scale)
@@ -145,8 +159,8 @@ def evo_attention(q, k, v, bias, gate, scale: Optional[float] = None):
     bias (H, S, S) shared across the L rows."""
     if _needs_grad(q, k, v, bias, gate):
         return _EvoAttention.apply(q, k, v, bias, gate, scale)
-    fwd = (_ka.evo_attention_fwd if _on_cuda(q, k, v, bias, gate)
-           else ref.evo_attention_ref)
+    fwd = _route(_ka.evo_attention_fwd, ref.evo_attention_ref,
+                 _meta.evo_attention_fwd, q, k, v, bias, gate)
     return _k("evo_attention_fwd", fwd, q, k, v, bias, gate, scale)
 
 
@@ -154,8 +168,8 @@ def evo_attention_nobias(q, k, v, gate, scale: Optional[float] = None):
     """Gated attention with no pair bias (the bias add is compiled out)."""
     if _needs_grad(q, k, v, gate):
         return _EvoAttention.apply(q, k, v, None, gate, scale)
-    fwd = (_ka.evo_attention_fwd if _on_cuda(q, k, v, gate)
-           else ref.evo_attention_ref)
+    fwd = _route(_ka.evo_attention_fwd, ref.evo_attention_ref,
+                 _meta.evo_attention_fwd, q, k, v, gate)
     return _k("evo_attention_fwd", fwd, q, k, v, None, gate, scale)
 
 
@@ -165,8 +179,8 @@ def evo_attention_nogate(q, k, v, bias, scale: Optional[float] = None):
     bias=...)``.  q/k/v (L, S, H, C), bias (H, S, S)."""
     if _needs_grad(q, k, v, bias):
         return _EvoAttention.apply(q, k, v, bias, None, scale)
-    fwd = (_ka.evo_attention_fwd if _on_cuda(q, k, v, bias)
-           else ref.evo_attention_ref)
+    fwd = _route(_ka.evo_attention_fwd, ref.evo_attention_ref,
+                 _meta.evo_attention_fwd, q, k, v, bias)
     return _k("evo_attention_fwd", fwd, q, k, v, bias, None, scale)
 
 
@@ -183,7 +197,8 @@ class _TriangleMult(torch.autograd.Function):
     def forward(ctx, xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o,
                 w_g, b_g):
         args = (xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g)
-        fwd = _kt.triangle_mult_fwd if _on_cuda(xa) else ref.triangle_mult_ref
+        fwd = _route(_kt.triangle_mult_fwd, ref.triangle_mult_ref,
+                     _meta.triangle_mult_fwd, xa)
         y, s = _k("triangle_mult_fwd", fwd, *args, return_s=True)
         ctx.save_for_backward(*args, s)
         return y
@@ -192,11 +207,11 @@ class _TriangleMult(torch.autograd.Function):
     def backward(ctx, dy):
         (xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g,
          s) = ctx.saved_tensors
-        if _on_cuda(xa):
-            epi, bwd_dx = _kt.triangle_mult_bwd_epilogue, _kt.triangle_mult_bwd_dx
-        else:
-            epi, bwd_dx = (ref.triangle_mult_bwd_epilogue_ref,
-                           ref.triangle_mult_bwd_dx_ref)
+        epi = _route(_kt.triangle_mult_bwd_epilogue,
+                     ref.triangle_mult_bwd_epilogue_ref,
+                     _meta.triangle_mult_bwd_epilogue, xa)
+        bwd_dx = _route(_kt.triangle_mult_bwd_dx, ref.triangle_mult_bwd_dx_ref,
+                        _meta.triangle_mult_bwd_dx, xa)
         ds, dxg, dln_s, dln_b, dw_o, db_o, dw_g, db_g = _k(
             "triangle_mult_bwd_epilogue", epi, s, xg, dy.contiguous(), ln_s,
             ln_b, w_o, b_o, w_g, b_g)
@@ -218,7 +233,8 @@ def triangle_mult(xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o,
     args = (xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g)
     if _needs_grad(*args):
         return _TriangleMult.apply(*args)
-    fwd = _kt.triangle_mult_fwd if _on_cuda(*args) else ref.triangle_mult_ref
+    fwd = _route(_kt.triangle_mult_fwd, ref.triangle_mult_ref,
+                 _meta.triangle_mult_fwd, *args)
     return _k("triangle_mult_fwd", fwd, *args)
 
 
@@ -229,6 +245,9 @@ def triangle_mult_masked(xa, xb, xg, k_mask, w_a, b_a, w_b, b_b, ln_s, ln_b,
     Forward-only on the card, as the reference wires no VJP for it: a CUDA
     call that autograd would need a gradient from raises."""
     args = (xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o, w_g, b_g)
+    if xa.device.type == "meta":
+        return _k("triangle_mult_fwd", _meta.triangle_mult_fwd, *args,
+                  k_mask=k_mask.float())
     if _on_cuda(*args, k_mask):
         if _needs_grad(*args, k_mask):
             raise RuntimeError("triangle_mult_masked is forward-only (padded-"

@@ -90,7 +90,9 @@ def evo_attention_bwd_ref(q, k, v, bias, gate, out, lse, do,
     dk = torch.einsum("lhst,lshc->lthc", rnd(ds), qf) * scale
     dv = torch.einsum("lhst,lshc->lthc", rnd(p), do_raw)
     dbias = ds.sum(0) if bias is not None else None
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias, dgate
+    # contiguous (L, S, H, C), the layout K2 writes
+    return (dq.to(q.dtype).contiguous(), dk.to(k.dtype).contiguous(),
+            dv.to(v.dtype).contiguous(), dbias, dgate)
 
 
 def flash_attention_ref(q, k, v, causal: bool = True,

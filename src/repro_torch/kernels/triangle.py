@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, cost
 
 NAME = "triangle_mult_fwd"
 BWD_NAME = "triangle_mult_bwd"
@@ -32,11 +32,9 @@ def _lib():
     fn = lib.triangle_mult_fwd
     if fn.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = ([p, ll, ll, p, ll, ll] + [p] * 15
+        fn.argtypes = ([p, ll, ll, p, ll, ll] + [p] * 13 + [ll, p, p]
                        + [i, i, i, i, i, i, p])
         fn.restype = ctypes.c_int
-        lib.triangle_mult_fwd_scratch.argtypes = [i] * 5
-        lib.triangle_mult_fwd_scratch.restype = ll
     return lib
 
 
@@ -44,15 +42,11 @@ def _bwd_lib():
     lib = build.load(BWD_NAME)
     if lib.triangle_mult_bwd_epilogue.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.triangle_mult_bwd_epilogue_scratch.argtypes = [ll, i, i, i]
-        lib.triangle_mult_bwd_epilogue_scratch.restype = ll
-        lib.triangle_mult_bwd_dx_scratch.argtypes = [i] * 6
-        lib.triangle_mult_bwd_dx_scratch.restype = ll
         fn = lib.triangle_mult_bwd_epilogue
-        fn.argtypes = [p] * 17 + [ll, i, i, i, p]
+        fn.argtypes = [p] * 17 + [ll, ll, i, i, i, p]
         fn.restype = ctypes.c_int
         fn = lib.triangle_mult_bwd_dx
-        fn.argtypes = ([p, ll, ll, p, ll, ll, p, ll, ll] + [p] * 9
+        fn.argtypes = ([p, ll, ll, p, ll, ll, p, ll, ll] + [p] * 9 + [ll]
                        + [i] * 6 + [p])
         fn.restype = ctypes.c_int
     return lib
@@ -119,7 +113,7 @@ def triangle_mult_fwd(xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o,
     lib = _lib()
     # the gated projections a, b (and on the bf16 path the contraction s)
     scratch = torch.empty(
-        (lib.triangle_mult_fwd_scratch(r_i, r_j, r_k, c, DTYPE_CODES[dt]),),
+        (cost.triangle_mult_fwd_scratch(r_i, r_j, r_k, c, DTYPE_CODES[dt]),),
         dtype=torch.uint8, device=xa.device)
     with torch.cuda.device(xa.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -128,7 +122,7 @@ def triangle_mult_fwd(xa, xb, xg, w_a, b_a, w_b, b_b, ln_s, ln_b, w_o, b_o,
             _ptr(xb), xb.stride(0), xb.stride(1),
             _ptr(xg), _ptr(k_mask), _ptr(w_a), _ptr(b_a), _ptr(w_b), _ptr(b_b),
             _ptr(ln_s), _ptr(ln_b), _ptr(w_o), _ptr(b_o), _ptr(w_g), _ptr(b_g),
-            _ptr(scratch), _ptr(out), _ptr(s),
+            _ptr(scratch), scratch.numel(), _ptr(out), _ptr(s),
             r_i, r_j, r_k, c_z, c, DTYPE_CODES[dt], stream)
     if err != 0:
         raise RuntimeError(f"{NAME} launch failed: cudaError {err}")
@@ -193,7 +187,7 @@ def triangle_mult_bwd_epilogue(s, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g):
     dw_g = torch.empty((c_z, c_z), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     scratch = torch.empty(
-        (lib.triangle_mult_bwd_epilogue_scratch(P, c_z, c, DTYPE_CODES[dt]),),
+        (cost.triangle_mult_bwd_epilogue_scratch(P, c_z, c, DTYPE_CODES[dt]),),
         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -201,7 +195,8 @@ def triangle_mult_bwd_epilogue(s, xg, dy, ln_s, ln_b, w_o, b_o, w_g, b_g):
             _ptr(s), _ptr(xg), _ptr(dy), _ptr(ln_s), _ptr(ln_b), _ptr(w_o),
             _ptr(b_o), _ptr(w_g), _ptr(b_g), _ptr(w_o_t), _ptr(w_g_t),
             _ptr(ds), _ptr(dxg), _ptr(vec), _ptr(dw_o), _ptr(dw_g),
-            _ptr(scratch), P, c_z, c, DTYPE_CODES[dt], stream)
+            _ptr(scratch), 4 * scratch.numel(), P, c_z, c, DTYPE_CODES[dt],
+            stream)
     if err != 0:
         raise RuntimeError(f"{BWD_NAME} (K4) launch failed: cudaError {err}")
     epi_launches += 1
@@ -248,8 +243,8 @@ def triangle_mult_bwd_dx(ds, x_loc, x_str, w_loc, b_loc, w_str, b_str):
     db = torch.empty((2 * c,), dtype=torch.float32, device=dev)
     lib = _bwd_lib()
     scratch = torch.empty(
-        (lib.triangle_mult_bwd_dx_scratch(r_p, r_q, r_k, c_z, c,
-                                          DTYPE_CODES[dt]),),
+        (cost.triangle_mult_bwd_dx_scratch(r_p, r_q, r_k, c_z, c,
+                                           DTYPE_CODES[dt]),),
         dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
@@ -258,7 +253,7 @@ def triangle_mult_bwd_dx(ds, x_loc, x_str, w_loc, b_loc, w_str, b_str):
             _ptr(x_loc), x_loc.stride(0), x_loc.stride(1),
             _ptr(x_str), x_str.stride(0), x_str.stride(1),
             _ptr(w_loc), _ptr(b_loc), _ptr(w_str), _ptr(b_str), _ptr(w_loc_t),
-            _ptr(dx), _ptr(dw), _ptr(db), _ptr(scratch),
+            _ptr(dx), _ptr(dw), _ptr(db), _ptr(scratch), 4 * scratch.numel(),
             r_p, r_q, r_k, c_z, c, DTYPE_CODES[dt], stream)
     if err != 0:
         raise RuntimeError(f"{BWD_NAME} (K5) launch failed: cudaError {err}")

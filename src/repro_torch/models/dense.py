@@ -28,7 +28,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention, decode_attention
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
-                                   dense, rmsnorm, swiglu)
+                                   dense, rmsnorm, swiglu, make_generator)
 from repro_torch.nn.partition import P
 from repro_torch.nn.rope import apply_rope
 
@@ -65,7 +65,7 @@ class DenseLM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
         self.layers = nn.ModuleList(Layer(cfg, **kw).to(dtype)

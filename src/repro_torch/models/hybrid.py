@@ -27,7 +27,8 @@ from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention
 from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
-                                   dense as dense_apply, rmsnorm, swiglu)
+                                   dense as dense_apply, rmsnorm, swiglu,
+                                   make_generator)
 from repro_torch.nn.rope import apply_rope
 
 BF16 = Policy()
@@ -90,7 +91,7 @@ class HybridLM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
         self.layers = nn.ModuleList(ssm.Block(cfg, **kw).to(dtype)

@@ -40,7 +40,8 @@ from repro_torch.nn.partition import P
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import fsdp
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
-                                   dense as dense_apply, rmsnorm, swiglu)
+                                   dense as dense_apply, rmsnorm, swiglu,
+                                   make_generator)
 
 BF16 = Policy()
 
@@ -289,7 +290,7 @@ class MoELM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
         self.layers = nn.ModuleList(Layer(cfg, **kw).to(dtype)

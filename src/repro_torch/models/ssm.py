@@ -30,7 +30,7 @@ from repro_torch.models.dense import cross_entropy, remat
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, dense,
-                                   rmsnorm)
+                                   rmsnorm, make_generator)
 
 BF16 = Policy()
 
@@ -153,8 +153,11 @@ class Block(nn.Module):
             torch.log(torch.exp(lin(0.001, 0.1)) - 1.0))
         self.A_log = nn.Parameter(torch.log(lin(1.0, 16.0)))
         self.D = nn.Parameter(torch.ones((h,), device=device))
-        self.conv_w = nn.Parameter(0.1 * torch.randn(
-            (cfg.ssm_conv, di + 2 * n), generator=generator, device=device))
+        conv_w = torch.empty((cfg.ssm_conv, di + 2 * n), device=device)
+        if not conv_w.is_meta:
+            conv_w = 0.1 * torch.randn(conv_w.shape, generator=generator,
+                                       device=device)
+        self.conv_w = nn.Parameter(conv_w)
         self.gate_ln = RMSNorm(di, device=device)
         self.out = Dense(di, d, **kw)
 
@@ -260,7 +263,7 @@ class MambaLM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
         self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
         self.layers = nn.ModuleList(Block(cfg, **kw).to(dtype)

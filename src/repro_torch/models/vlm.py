@@ -21,7 +21,7 @@ from repro_torch.models import dense
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, LayerNorm, Policy, dense as linear,
-                                   gelu, layernorm, rmsnorm)
+                                   gelu, layernorm, rmsnorm, make_generator)
 
 BF16 = Policy()
 
@@ -45,7 +45,7 @@ class VLM(dense.DenseLM):
                  dtype: torch.dtype = torch.float32):
         super().__init__(cfg, seed=seed, device=device, dtype=dtype)
         device = self.embed.table.device
-        g = torch.Generator(device=device).manual_seed(seed + 1)
+        g = make_generator(device, seed + 1)
         self.projector = Projector(cfg, generator=g, device=device).to(dtype)
 
 

@@ -33,8 +33,9 @@ from repro_torch.models.dense import cross_entropy, remat, write_kv_cache
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention, decode_attention
 from repro_torch.nn.partition import P
-from repro_torch.nn.layers import (Dense, Embedding, GeluMLP, LayerNorm, Policy,
-                                   dense, gelu_mlp, layernorm)
+from repro_torch.nn.layers import (Dense, Embedding, GeluMLP, LayerNorm,
+                                   Policy, dense, gelu_mlp, layernorm,
+                                   make_generator)
 
 BF16 = Policy()
 # rows of the decoder's position table (the reference's decode step)
@@ -86,7 +87,7 @@ class WhisperLM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         device = resolve_device(device)
-        g = torch.Generator(device=device).manual_seed(seed)
+        g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
         self.enc_layers = nn.ModuleList(EncLayer(cfg, **kw).to(dtype)
                                         for _ in range(cfg.n_enc_layer))

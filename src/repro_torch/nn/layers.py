@@ -11,7 +11,9 @@ Counterpart of ``repro/nn/layers.py``.  Conventions:
   from a ``torch.Generator``: on the CPU by default (the same seed gives the
   same weights on any device; ``.to(device)`` then places them), or on the
   ``device`` of a generator made there (full-width LM weights are drawn on
-  the card, where the host could not hold their fp32 copy).
+  the card, where the host could not hold their fp32 copy).  On ``meta``
+  (the dry run) they make the parameters' shapes and dtypes and draw
+  nothing (:func:`make_generator` gives no generator there).
 * Parameters are fp32 masters; :class:`Policy` casts them to the compute
   dtype once at the model's entry (paper §5.1 AMP recipe), and
   :func:`cast_params` does so through autograd for training.
@@ -65,11 +67,22 @@ def cast_params(module: nn.Module, dtype: torch.dtype) -> nn.Module:
 # Linear / dense
 # ---------------------------------------------------------------------------
 
+def make_generator(device, seed: int):
+    """A generator on ``device`` seeded with ``seed``; None on ``meta``, where
+    the initialisers below make shapes only and draw nothing."""
+    if torch.device(device).type == "meta":
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def lecun_normal(shape, generator: torch.Generator, scale: float = 1.0,
                  device=None):
     """Truncated (±2σ) normal with σ = scale / sqrt(fan_in), fan_in = shape[0],
-    drawn on ``device`` (that of ``generator``; the CPU by default)."""
+    drawn on ``device`` (that of ``generator``; the CPU by default).  On
+    ``meta`` (the current device, or ``device``) the shape alone."""
     w = torch.empty(shape, dtype=torch.float32, device=device)
+    if w.is_meta:
+        return w
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return w.mul_(float(scale) / shape[0] ** 0.5)
 
@@ -115,11 +128,32 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros((dim,), device=device))
 
 
+# The normalised output's precision (the reference's §Perf H3 iteration 2):
+# statistics are always fp32; with False the output is computed in x's dtype
+# (one fp32 round trip of the activation less per LayerNorm).  The dry run's
+# ``--ln-bf16`` sets it; the default is the faithful fp32 io.
+LN_FP32_IO = True
+
+
+def set_ln_fp32_io(value: bool) -> None:
+    global LN_FP32_IO
+    LN_FP32_IO = value
+
+
 def layernorm(p: LayerNorm, x: torch.Tensor, *, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm with fp32 statistics and fp32 normalisation, output in x's
     dtype (the reference's default ``LN_FP32_IO=True`` path).  With the
     params in x's dtype this is one ``F.layer_norm`` call, which computes in
-    fp32 internally for bf16 inputs; otherwise x is upcast first."""
+    fp32 internally for bf16 inputs; otherwise x is upcast first.  Under
+    ``LN_FP32_IO = False`` the statistics stay fp32 and the output is
+    computed in x's dtype, as the reference's bf16-io branch does."""
+    if not LN_FP32_IO:
+        dt = x.dtype
+        x32 = x.float()
+        var, mu = torch.var_mean(x32, -1, unbiased=False, keepdim=True)
+        inv = torch.rsqrt(var + eps).to(dt)
+        y = (x - mu.to(dt)) * inv
+        return y * p.scale.to(dt) + p.bias.to(dt)
     if p.scale.dtype == x.dtype:
         return F.layer_norm(x, x.shape[-1:], p.scale, p.bias, eps)
     y = F.layer_norm(x.float(), x.shape[-1:], p.scale.float(), p.bias.float(),
@@ -150,8 +184,11 @@ class Embedding(nn.Module):
     def __init__(self, vocab: int, dim: int, *, generator: torch.Generator,
                  device=None):
         super().__init__()
-        t = torch.randn((vocab, dim), generator=generator, device=device)
-        self.table = nn.Parameter(t.mul_(dim ** -0.5))
+        t = torch.empty((vocab, dim), device=device)
+        if not t.is_meta:
+            t = torch.randn((vocab, dim), generator=generator, device=device)
+            t.mul_(dim ** -0.5)
+        self.table = nn.Parameter(t)
 
 
 class SwiGLU(nn.Module):
@@ -188,6 +225,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
     return dense(p.w_out, gelu(dense(p.w_in, x)))
+
+
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """int64 one-hot of ``idx`` over ``n`` classes, as a comparison with
+    ``arange(n)``: the same ops on every device, with no host read
+    (``F.one_hot`` reads the indices' range back on the CPU); an index
+    outside [0, n) gives a zero row, as ``jax.nn.one_hot`` does."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def count_params(module: nn.Module) -> int:

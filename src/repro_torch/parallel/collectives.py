@@ -16,7 +16,9 @@ and the tensor's device, chosen here explicitly and listed by
 error.  NCCL takes every kind natively.  gloo takes CPU tensors natively
 except the reduce-scatter, which runs as an all-reduce plus this rank's
 slice; a CUDA tensor under gloo (ranks sharing one card) is staged through
-host memory: copied to the host, reduced there, copied back.
+host memory: copied to the host, reduced there, copied back.  The dry
+run's fake group (``ranks.virtual_world``) stands for NCCL ranks and takes
+the native route of every kind, on ``meta`` tensors.
 
 ``COUNTS`` counts the collectives issued, by the kind on the wire (the
 backward of a gather counts as a ``reduce_scatter``), and ``BYTES`` the
@@ -79,6 +81,8 @@ def routes(group, device) -> dict:
     backend = dist.get_backend(group)
     if backend == "nccl":
         return {k: f"nccl {k}" for k in KINDS}
+    if backend == "fake":
+        return {k: f"fake {k} (shapes only, nothing moves)" for k in KINDS}
     stage = (", staged through host memory"
              if torch.device(device).type == "cuda" else "")
     return {"psum": "gloo all_reduce(SUM)" + stage,
@@ -136,7 +140,7 @@ def _reduce_scatter_stacked(inp: torch.Tensor, axis: Axis) -> torch.Tensor:
     """``inp`` (n, ...): the sum over ranks of chunk ``axis.index``."""
     inp = inp.contiguous()
     _issued("reduce_scatter", axis, inp[0].numel() * inp.element_size())
-    if dist.get_backend(axis.group) == "nccl":
+    if dist.get_backend(axis.group) in ("nccl", "fake"):
         out = torch.empty_like(inp[0])
         dist.reduce_scatter_tensor(out, inp, group=axis.group)
         return out

@@ -11,6 +11,7 @@ terminated.
 """
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import socket
@@ -152,3 +153,30 @@ def spawn(fn: Callable, world: int, *args, device_type: Optional[str] = None,
         for p in ctx.processes:
             p.join(timeout=10)
     return [results[r] for r in range(world)]
+
+
+@contextlib.contextmanager
+def virtual_world(world_size: int, rank: int = 0):
+    """This process as rank ``rank`` (0 by default) of a world of
+    ``world_size`` ranks that do not exist: torch's fake process group,
+    whose collectives return outputs of the right shapes and move nothing.
+    The dry run (``launch/dryrun.py``) traces one rank's step on ``meta``
+    tensors inside it, over meshes of the production size; every mesh and
+    plan builds as on a real world, from that rank's view.  The group is
+    destroyed on exit, so one process can open worlds of several sizes in
+    turn; opening one inside another raises."""
+    try:
+        from torch.testing._internal.distributed.fake_pg import FakeStore
+    except ImportError as e:   # the fake backend registers on this import
+        raise RuntimeError(
+            "this torch has no fake process group (torch.testing._internal."
+            "distributed.fake_pg): the dry run's virtual world needs it") from e
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already open: the virtual "
+                           "world needs the process to itself")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()

@@ -245,3 +245,134 @@ def sgd(lr, *, momentum: float = 0.0, clip_norm: Optional[float] = None,
 
     return Optimizer(init=init, update=update, apply=apply,
                      per_sample_clip=per_sample_clip)
+
+
+# ---------------------------------------------------------------------------
+# Adafactor-like (factored second moment), the dry run's LM optimizer
+# ---------------------------------------------------------------------------
+
+def stack_groups(keys, stacked=()) -> dict:
+    """{leaf key of the reference's tree: [the port's keys]}: a key under a
+    list of ``stacked`` (``layers.<i>.rest``) joins the group
+    ``layers.rest`` in block order, as the reference stacks its scanned
+    leaves; any other key is a group of its own."""
+    groups: dict = {}
+    for key in keys:
+        head, _, rest = key.partition(".")
+        idx, _, name = rest.partition(".")
+        if head in stacked and idx.isdigit():
+            groups.setdefault(f"{head}.{name}", []).append((int(idx), key))
+        else:
+            groups[key] = [(None, key)]
+    return {g: [k for _, k in sorted(m, key=lambda t: -1 if t[0] is None
+                                     else t[0])]
+            for g, m in groups.items()}
+
+
+def stacked_shape(shapes, group_keys, key) -> tuple:
+    """The reference's shape of group ``key``: its leaves' shape with the
+    block count in front when the group stacks blocks."""
+    members = group_keys[key]
+    one = tuple(shapes[members[0]])
+    return one if members == [key] else (len(members),) + one
+
+
+def adafactor_like(lr, *, eps: float = 1e-30, clip_norm: Optional[float] = None,
+                   per_sample_clip: Optional[float] = None,
+                   stacked=()) -> Optimizer:
+    """Factored second-moment optimizer (Shazeer & Stern), the reference's
+    ``adafactor_like``: for each leaf of the reference's tree a second
+    moment factored into row and column means ``(vr, vc)`` where the leaf
+    has two dims or more, dense below; a scalar ``mu`` (never updated, as in
+    the reference); ``b2 = 1 - step^-0.8``; update clipping at RMS 1.
+
+    ``stacked``: the lists whose per-block leaves the reference scans as one
+    stacked leaf (``bridge.LM_STACKED`` under ``cfg.scan_layers``).  Their
+    statistics are those of the stacked leaf: the state is keyed by the
+    reference's leaf (``stack_groups``), its factors carry the block axis,
+    and the update's RMS clip runs over every block of the leaf.  The
+    moments of a 2-d-or-more block are per block (the reference's factors
+    of a stack keep the block axis); those of a 1-d block span the stack.
+
+    Under a ``parallel.fsdp.Layout`` the statistics are those of this
+    rank's slices, not of the whole leaf (the dry run traces the step's
+    shapes, not its values)."""
+    sched = _schedule(lr)
+
+    def vshape(shape):
+        if len(shape) >= 2:
+            return (shape[:-1], shape[:-2] + shape[-1:])
+        return shape
+
+    def init(params):
+        params = dict(_items(params))
+        groups = stack_groups(params, stacked)
+        shapes = {k: tuple(p.shape) for k, p in params.items()}
+        mu, nu = {}, {}
+        for g, members in groups.items():
+            dev = params[members[0]].device
+            zeros = lambda s: torch.zeros(s, dtype=torch.float32, device=dev)
+            vs = vshape(stacked_shape(shapes, groups, g))
+            nu[g] = (tuple(zeros(s) for s in vs) if isinstance(vs[0], tuple)
+                     else zeros(vs))
+            mu[g] = zeros(())
+        return OptState(step=0, mu=mu, nu=nu)
+
+    def factored_update(g, vr, vc, b2):
+        """The reference's factored update direction of one (block of a)
+        leaf, updating ``vr`` / ``vc`` in place."""
+        g2 = g.square() + eps
+        vr.mul_(b2).add_((1 - b2) * g2.mean(-1))
+        vc.mul_(b2).add_((1 - b2) * g2.mean(-2))
+        denom = (vr[..., None] * vc[..., None, :]
+                 / torch.clamp(vr.mean(-1, keepdim=True), min=eps)[..., None])
+        return g / torch.sqrt(denom + eps)
+
+    def step_params(grads, state, params, lr_t, b2, grad_norm):
+        if clip_norm is not None:
+            grads, _ = clip_by_global_norm(grads, clip_norm, grad_norm)
+        params = dict(_items(params))
+        for gk, members in stack_groups(params, stacked).items():
+            v = state.nu[gk]
+            gs = [grads[k].float() for k in members]
+            if members == [gk] or params[members[0]].dim() == 0 or \
+                    params[members[0]].dim() == 1:
+                # one leaf, or a stack of vectors / scalars: the stacked
+                # leaf itself (small), as the reference computes it
+                g = gs[0] if members == [gk] else torch.stack(gs)
+                if isinstance(v, tuple):
+                    upd = factored_update(g, v[0], v[1], b2)
+                else:
+                    v.mul_(b2).add_((1 - b2) * (g.square() + eps))
+                    upd = g / torch.sqrt(v + eps)
+                upds = [upd] if members == [gk] else list(upd.unbind(0))
+            else:
+                # a stack of matrices: the factors are per block
+                upds = [factored_update(g, v[0][i], v[1][i], b2)
+                        for i, g in enumerate(gs)]
+            n = sum(u.numel() for u in upds)
+            rms = torch.sqrt(sum(u.square().sum() for u in upds) / n + eps)
+            clip = torch.clamp(rms, min=1.0)
+            for k, u in zip(members, upds):
+                p = params[k]
+                p.copy_(p.float() - lr_t * (u / clip))
+
+    def _b2(step: torch.Tensor) -> torch.Tensor:
+        return 1.0 - step ** -0.8
+
+    @torch.no_grad()
+    def update(grads, state, params, grad_norm=None):
+        step = state.step + 1
+        st = torch.tensor(float(step), dtype=torch.float32)
+        step_params(grads, state, params, sched(step), float(_b2(st)),
+                    grad_norm)
+        return params, OptState(step=step, mu=state.mu, nu=state.nu)
+
+    @torch.no_grad()
+    def apply(grads, state, params, step: torch.Tensor, grad_norm=None):
+        step_params(grads, state, params, _on_device(sched, step),
+                    _b2(step.float()), grad_norm)
+        return params
+
+    return Optimizer(init=init, update=update, apply=apply,
+                     per_sample_clip=per_sample_clip)

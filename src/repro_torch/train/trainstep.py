@@ -38,7 +38,8 @@ from repro_torch.parallel.mesh_utils import Axis, mesh_shape
 from repro_torch.parallel.plan import (BuiltPlan, ParallelPlan, as_plan,
                                        complete_partial_grads)
 from repro_torch.train.optim import (Ema, Optimizer, OptState,
-                                    clip_by_global_norm, global_norm)
+                                    clip_by_global_norm, global_norm,
+                                    stack_groups, stacked_shape)
 
 # the step's outputs, in this order
 METRICS = ("loss", "fape", "distogram", "masked_msa", "plddt", "grad_norm",
@@ -280,13 +281,22 @@ def state_shardings(lm, cfg, mesh, params_shapes: Mapping,
     OptState(step=P(), mu=..., nu=...)}, every spec sanitized over
     ``mesh``'s extents; ``opt_shapes`` (an ``OptState`` of tensors or
     shapes) fits each moment's spec to its shape
-    (:func:`_opt_branch_shardings`), else the moments take the params'."""
-    specs = shardings_for(params_shapes, lm.partition_rules(cfg), mesh,
-                          stacked=lm_stacked(cfg))
+    (:func:`_opt_branch_shardings`), else the moments take the params'.
+    Moments keyed by the reference's stacked leaves (``adafactor_like``
+    with ``stacked``) are fitted to the stacked leaf's shape and spec."""
+    rules = lm.partition_rules(cfg)
+    specs = shardings_for(params_shapes, rules, mesh, stacked=lm_stacked(cfg))
     if opt_shapes is None:
         return {"params": specs, "opt": OptState(step=P(), mu=specs,
                                                  nu=specs)}
-    fit = lambda branch: _opt_branch_shardings(params_shapes, specs, branch)
+    shapes, pspecs = params_shapes, specs
+    if any(k not in params_shapes for k in opt_shapes.nu):
+        groups = stack_groups(params_shapes, lm_stacked(cfg))
+        shapes = {g: stacked_shape({k: _shape(v) for k, v in
+                                    params_shapes.items()}, groups, g)
+                  for g in groups}
+        pspecs = shardings_for(shapes, rules, mesh)
+    fit = lambda branch: _opt_branch_shardings(shapes, pspecs, branch)
     return {"params": specs, "opt": OptState(step=P(), mu=fit(opt_shapes.mu),
                                              nu=fit(opt_shapes.nu))}
 

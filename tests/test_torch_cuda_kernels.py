@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import cost as kcost
 from repro_torch.kernels import evo_attention as ka
 from repro_torch.kernels import flash_attention as kf
 from repro_torch.kernels import ops
@@ -278,6 +279,38 @@ def test_triangle_bwd_kernels_match_plain(cuda_dev, dtype, r, c_z, c):
         again = kt.triangle_mult_bwd_dx(dsv, xl, xs_, wl, bl, ws, bs)
         for a, b in zip(got, again):   # no atomics: the same bits twice
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_launches_refuse_less_scratch_than_their_layout(cuda_dev, dtype,
+                                                        monkeypatch):
+    """The wrappers size K2-K5's scratch by kernels/cost.py; with one
+    element (K4, K5) or byte (K2, K3) fewer, each launch refuses."""
+    rng = np.random.default_rng(11)
+    r, c_z, c = 37, 16, 16
+    x, *w = _tri_args(rng, r, c_z, c, dtype, cuda_dev)
+    s = _t(rng, (r, r, c), torch.float32, cuda_dev)
+    L, S, H, C = 3, 37, 2, 8
+    q, k, v, g, do = (_t(rng, (L, S, H, C), dtype, cuda_dev) for _ in range(5))
+    bias = _t(rng, (H, S, S), dtype, cuda_dev)
+    out, lse = ref.evo_attention_ref(q, k, v, bias, g, return_lse=True)
+    calls = {
+        "evo_attention_bwd_scratch": lambda: ka.evo_attention_bwd(
+            q, k, v, bias, g, out, lse, do),
+        "triangle_mult_fwd_scratch": lambda: kt.triangle_mult_fwd(
+            x, x, x, *w),
+        "triangle_mult_bwd_epilogue_scratch":
+            lambda: kt.triangle_mult_bwd_epilogue(s, x, x, *w[4:]),
+        "triangle_mult_bwd_dx_scratch": lambda: kt.triangle_mult_bwd_dx(
+            s, x, x, *w[:4])}
+    for name, call in calls.items():
+        call()                              # the right size launches
+        sized = getattr(kcost, name)
+        with monkeypatch.context() as m:
+            m.setattr(kcost, name, lambda *a, _f=sized, **kw: _f(*a, **kw) - 1)
+            with pytest.raises(RuntimeError, match="launch failed"):
+                call()
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("r,c_z,c", [(256, 128, 128), (37, 16, 16)])

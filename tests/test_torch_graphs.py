@@ -19,6 +19,7 @@ gradients) may sum with atomics.
 """
 import contextlib
 import copy
+import gc
 
 import numpy as np
 import pytest
@@ -221,6 +222,51 @@ def test_captured_step_credits_a_captures_launches_once_per_replay(
     assert ops.launch_counts() == {**counts, "evo_attention_fwd": 5,
                                    "flash_attention_fwd": 0}
     ops.reset_launch_counts()
+
+
+def test_capture_collects_first_and_holds_the_collector_off(monkeypatch):
+    """With the CUDA calls stubbed: a dead object in a reference cycle is
+    collected before the capture begins, the collector is off while the
+    function is captured (so no dead graph is freed inside the capture),
+    and it is on again after the capture, also after one that raised."""
+    seen = {}
+
+    @contextlib.contextmanager
+    def fake_graph(g, pool=None):
+        seen["collected_before"] = seen.get("finalized", False)
+        yield
+
+    for name, fake in (("Stream", lambda device=None: _FakeStream()),
+                       ("current_stream", lambda: _FakeStream()),
+                       ("stream", lambda s: contextlib.nullcontext()),
+                       ("CUDAGraph", _FakeGraph), ("graph", fake_graph)):
+        monkeypatch.setattr(torch.cuda, name, fake)
+    monkeypatch.setattr(graphs, "_require_cuda", lambda args: None)
+
+    class Dead:
+        def __del__(self):
+            seen["finalized"] = True
+
+    calls = []
+
+    def fn(x):
+        calls.append(gc.isenabled())
+        if len(calls) == 4:
+            raise RuntimeError("capture failed")
+        return x + 1
+
+    assert gc.isenabled()
+    dead = Dead()
+    dead.self = dead
+    del dead
+    step = graphs.CapturedStep(fn)
+    step(torch.zeros(2))
+    assert seen["collected_before"]
+    assert calls == [True, False]            # warm-up on, capture off
+    assert gc.isenabled()
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graphs.CapturedStep(fn)(torch.zeros(2))
+    assert calls[2:] == [True, False] and gc.isenabled()
 
 
 # ---------------------------------------------------------------------------
@@ -488,3 +534,35 @@ def test_restore_into_a_captured_graph_replays_the_run(cuda_dev, captures,
                                           g.history["loss"][3:6])) <= bound
     for k, t in _train_tensors(g).items():
         assert (t.float() - final[k].float()).abs().max().item() <= bound, k
+
+
+@pytest.mark.cuda
+def test_capture_survives_a_dead_graph_in_a_reference_cycle(cuda_dev):
+    """A captured step whose last reference goes inside another step's
+    capture, in a reference cycle: if the collector ran there (it runs
+    whenever it is on and enough objects were made), the dead graph's
+    ``cudaGraphExecDestroy`` would invalidate the capture and the next
+    cuBLAS call in it fail.  The second step's replay equals its eager
+    result."""
+    w = torch.randn(64, 64, device=cuda_dev)
+    first = graphs.CapturedStep(lambda x: x @ w)
+    first(torch.randn(8, 64, device=cuda_dev))
+    first.cycle = first
+    box = [first]
+    del first
+
+    def fn(x):
+        y = torch.tanh(x @ w)
+        if box and torch.cuda.is_current_stream_capturing():
+            box.clear()              # the first graph is garbage in a cycle
+            if gc.isenabled():       # where an automatic collection may run
+                gc.collect()
+        return torch.tanh(y @ w)
+
+    second = graphs.CapturedStep(fn)
+    x = torch.randn(8, 64, device=cuda_dev)
+    eager = second(x).clone()
+    replay = second(x).clone()
+    torch.cuda.synchronize()
+    assert not box
+    assert torch.equal(replay, eager)
