@@ -226,7 +226,25 @@ Phases, each raising on failure (exit code != 0, no result line):
      each kernel's meta route against the kernel; (d) an af2_tiny cell on
      a 2x4 virtual mesh (the fake process group of this torch).  The
      kernel line's K2, K4 and K5 launches are (a)'s: one sample-cycle at
-     48 + 4, as their times and bounds are priced.
+     48 + 4, as their times and bounds are priced.  (e) phase 14 (c)'s
+     step traced for rank 0 of a (2, 2) virtual mesh: its predicted peak.
+ 14. tensor parallelism over 'model' (``parallel.tensor``) on four gloo
+     ranks sharing the card, eager: K6 at (a)'s local shape against SDPA;
+     (a) glm4-9b at full width and depth over (data 1, model 2) through
+     ``DecodeEngine(mesh=...)``, phase 11's requests: K6 320 a rank (16
+     query / 1 KV heads), bytes held a rank = the specs, tokens equal to
+     phase 11's or parting only at a near tie (the row's max less its
+     logit at one device's token within LM_NOISE_FACTOR x the plain bf16
+     path's distance from fp32), first-token logits within that rule;
+     (b) 2 layers over (1, 4) with ``factored_decode`` (KV split inside a
+     head, decode on (kvh 2, brep 2)) against one device at that depth;
+     (c) a 2-layer training step over (2, 2), fsdp, remat "layer", AdamW:
+     the first loss within 2e-3 and gradient norm within 5e-2 of one
+     device's, bytes held = the specs, the rank's peak within 10 % of
+     phase 13 (e)'s; (d) qwen2-moe, mamba2, zamba2 (6 layers), whisper and
+     internvl2 at 2 layers over (1, 2): one prefill and 3 decode steps fed
+     one device's tokens, logits against the fp32 value within
+     LM_NOISE_FACTOR x one device's bf16 distance, K6 a prefill.
 Kernel and library times are medians of 5 timed repeats, each after a
 warm-up call, printed with their min-max spread.  Then one JSON line of
 kernel figures, the nvidia-smi line, and the result line ``{"ok": true,
@@ -4309,18 +4327,634 @@ def dryrun_small_cell() -> dict:
     return {"collectives": full["collectives"]}
 
 
+def dryrun_tp_train() -> dict:
+    """(e) phase 14 (c)'s training step (glm4-9b, TP_C_DEPTH layers, a
+    (2, 2) mesh, fsdp, remat "layer", AdamW) traced for rank 0 in a
+    virtual world of four ranks: its predicted peak, which phase 14 holds
+    to the rank's measured peak."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.parallel.ranks import virtual_world
+    from repro_torch.train.optim import adamw
+    cfg = tp_config(LM_ARCH, TP_C_DEPTH, remat="layer", fsdp=True)
+    shape = ShapeSpec("train_tp", "train", TP_C_SEQ, TP_C_BATCH)
+    t0 = time.perf_counter()
+    with virtual_world(4):
+        full = dryrun.trace_lm_step(cfg, shape, {"data": 2, "model": 2}, 4,
+                                    optimizer=adamw(TRAIN_LM_LR,
+                                                    clip_norm=1.0))
+    mem = full["memory"]
+    print(f"[dryrun tp] {LM_ARCH} {TP_C_DEPTH} layers on (data 2, model 2), "
+          f"rank 0: predicted peak {mem['peak_bytes_estimate']} B, "
+          f"arguments {mem['argument_bytes']} B, collectives by axis "
+          f"{json.dumps(full['collectives_by_axis'])}; trace "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"predicted_peak": mem["peak_bytes_estimate"], "full": full}
+
+
 def dryrun_phase(dev, card: str) -> dict:
     """Phase 13: (a) af2_initial and (b) whisper-medium training steps,
     predicted by the dry run and measured on the card; (c) the kernels'
-    meta routes; (d) a small cell on a virtual mesh."""
+    meta routes; (d) a small cell on a virtual mesh; (e) the prediction of
+    phase 14 (c)'s peak a rank."""
     t0 = time.perf_counter()
     out = {"af2": dryrun_af2(dev, card), "whisper": dryrun_whisper(dev, card),
-           "meta": dryrun_meta_routes(dev), "cell": dryrun_small_cell()}
+           "meta": dryrun_meta_routes(dev), "cell": dryrun_small_cell(),
+           "tp": dryrun_tp_train()}
     out["wall_s"] = time.perf_counter() - t0
     print(f"[dryrun] phase 13 in {out['wall_s']:.1f} s: predicted / measured "
           f"peak af2_initial {100 * out['af2']['peak_rel']:+.2f} %, "
           f"{WHISPER_ARCH} {100 * out['whisper']['peak_rel']:+.2f} % (bound "
           f"{100 * DRYRUN_PEAK_RTOL:.0f} %)", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: tensor parallelism over 'model' (parallel.tensor)
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 4
+# (b): glm4-9b at full width, TP_B_DEPTH layers, (1, 4), factored decode
+TP_B_DEPTH, TP_B_PROMPTS, TP_B_NEW = 2, (512, 1000, 700, 300), 8
+# (c): glm4-9b training at full width, (2, 2), fsdp, remat "layer"
+TP_C_DEPTH, TP_C_BATCH, TP_C_SEQ = 2, 4, 1024
+# (d): the other families at full width, (1, 2): a batch of two prompts,
+# one prefill and TP_D_NEW - 1 decode steps
+TP_D_ARCHS = ("qwen2-moe-a2.7b", "mamba2-2.7b", "zamba2-7b",
+              "whisper-medium", "internvl2-26b")
+TP_D_DEPTH, TP_D_PROMPT, TP_D_NEW = 2, 512, 4
+
+
+def tp_config(arch: str, depth=None, **over):
+    """``arch``'s config on the kernels, cut to ``depth`` layers (whisper's
+    encoder too; a hybrid keeps at least one shared-block invocation)."""
+    from repro_torch import configs
+    from repro_torch.models.lmconfig import with_kernels
+    cfg = with_kernels(configs.get_config(arch))
+    if depth is not None:
+        over["n_layer"] = max(depth, 1 if cfg.family != "hybrid"
+                              else cfg.shared_attn_every)
+        if cfg.family == "audio":
+            over["n_enc_layer"] = depth
+    return dataclasses.replace(cfg, **over)
+
+
+def tp_meshes() -> dict:
+    """The phase's meshes over the TP_RANKS ranks (every rank builds each:
+    a mesh makes process groups)."""
+    from repro_torch.parallel.mesh_utils import make_mesh
+    return {s: make_mesh(s, ("data", "model"), ranks=range(s[0] * s[1]))
+            for s in ((1, 2), (1, 4), (2, 2))}
+
+
+def _delta(before: dict, after: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def spec_bytes(lm, cfg, extents: dict, itemsize: int) -> int:
+    """One rank's bytes of ``cfg``'s parameters at ``itemsize`` from the
+    sanitized specs of the family's rules (``launch.dryrun.local_bytes``),
+    computed apart from the layout that cut them."""
+    from repro_torch.launch import dryrun
+    from repro_torch.train.trainstep import lm_shapes, state_shardings
+    shapes = lm_shapes(lm, cfg)
+    specs = state_shardings(lm, cfg, extents, shapes)["params"]
+    return sum(dryrun.local_bytes(s, itemsize, specs[k], extents)
+               for k, s in shapes.items())
+
+
+class TPRecorder:
+    """Wraps a tensor-parallel DecodeEngine's ``_insert`` / ``_prefill1`` /
+    ``_decode``: for each request, each row's greedy token over the whole
+    vocabulary, the row's max and its logit at ``ref[rid][i]`` (the
+    one-device run's i-th token), the first row whole for the requests
+    ``keep``, and the collectives of the first recorded prefill and decode
+    step (the recorder's own gathers apart)."""
+
+    def __init__(self, engine, ref: dict, keep=()):
+        from repro_torch.parallel import collectives as coll
+        self.engine, self.ref, self.keep, self.coll = engine, ref, keep, coll
+        self.rows = collections.defaultdict(list)
+        self.first, self.counts, self.rid = {}, {}, None
+        self._steps = engine._insert, engine._prefill1, engine._decode
+        engine._insert, engine._prefill1, engine._decode = \
+            self._insert, self._prefill, self._decode
+
+    def _full(self, logits, axis):
+        from repro_torch.parallel import tensor
+        with tensor.model_parallel(axis):
+            return tensor.full_vocab(logits, self.engine.cfg.vocab).float()
+
+    def _keep(self, rid, row):
+        i = len(self.rows[rid])
+        want = self.ref.get(rid, [])
+        at = row[want[i]].item() if i < len(want) else float("nan")
+        self.rows[rid].append((int(row.argmax()), row.max().item(), at))
+        if i == 0 and rid in self.keep:
+            self.first[rid] = row.cpu().numpy()
+
+    def _insert(self, slot, req):
+        self.rid = req.rid
+        try:
+            return self._steps[0](slot, req)
+        finally:
+            self.rid = None
+
+    def _prefill(self, prompt):
+        before = self.coll.counts()
+        logits = self._steps[1](prompt)
+        if self.rid is not None:
+            self.counts.setdefault("prefill",
+                                   _delta(before, self.coll.counts()))
+            self._keep(self.rid, self._full(logits[0, -1], self.engine.tp))
+        return logits
+
+    def _decode(self, tokens):
+        before = self.coll.counts()
+        logits = self._steps[2](tokens)
+        self.counts.setdefault("decode", _delta(before, self.coll.counts()))
+        rows = self.coll.gather_rows(self._full(logits[:, 0],
+                                                self.engine.decode_tp),
+                                     self.engine.batch_axes)
+        for i, req in enumerate(self.engine.slots):
+            if req is not None:
+                self._keep(req.rid, rows[i])
+        return logits
+
+
+def tp_engine_run(cfg, mesh, dev, prompts, new_tokens, ref, keep,
+                  slots=LM_SLOTS, max_len=LM_MAX_LEN) -> dict:
+    """``cfg`` served through ``DecodeEngine(mesh=...)`` on this rank: its
+    slices of the seeded bf16 weights drawn on the card, the requests of
+    ``prompts`` (``new_tokens`` each), K6 and the collectives counted from
+    0 just before the run."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.parallel.mesh_utils import mesh_shape
+    from repro_torch.serve import steps
+    from repro_torch.serve.engine import DecodeEngine, Request
+    lm = get_model(cfg)
+    layout = steps.serve_layout(lm, cfg, mesh)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16,
+                            cut=layout.cut)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    held = sum(p.numel() * p.element_size() for p in params.parameters())
+    engine = DecodeEngine(lm, cfg, params, batch_slots=slots,
+                          max_len=max_len, device=dev, mesh=mesh)
+    rec = TPRecorder(engine, ref, keep)
+    # the rank's first prefill, unrecorded (K6 and cuBLAS set up)
+    engine._prefill1(torch.as_tensor(prompts[0][:64], device=dev)[None])
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=new_tokens)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = engine.run(reqs)
+    torch.cuda.synchronize()
+    out = {"tokens": done, "rows": dict(rec.rows), "first": rec.first,
+           "counts": rec.counts, "launches": ops.launch_counts(),
+           "wall_s": time.perf_counter() - t0, "init_s": init_s,
+           "held": held, "specs": spec_bytes(lm, cfg, mesh_shape(mesh), 2),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "heads": {"q": params.layers[0].wq.w.shape[-1] // cfg.d_head,
+                     "kv": params.layers[0].wk.w.shape[-1] / cfg.d_head},
+           "factored": engine.brep is not None}
+    del engine, rec, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_inputs(cfg, dev, batch: int, prompt: int) -> dict:
+    """(d)'s prefill batch: ``batch`` seeded prompts of ``prompt`` tokens
+    (whisper's prefill reads the first) and seeded frames / patches."""
+    rng = np.random.default_rng(17)
+    out = {"tokens": torch.as_tensor(rng.integers(
+        0, cfg.vocab, (batch, prompt), dtype=np.int64), device=dev)}
+    key = {"audio": "frames", "vlm": "patches"}.get(cfg.family)
+    if key:
+        out[key] = seeded_bf16((batch, cfg.n_frontend_tokens,
+                                cfg.frontend_dim), 19, dev)
+    return out
+
+
+@torch.no_grad()
+def tp_functional(lm, cfg, params, inputs: dict, fed, *, mesh=None,
+                  layout=None, dtype=torch.bfloat16) -> dict:
+    """A batched prefill of ``inputs``, then decode steps fed ``fed`` (B,
+    n - 1), the one-device run's tokens (None: the run's own greedy
+    tokens): every step's logits (n, B, V) over the whole vocabulary, fp32
+    on the host, its tokens, and on a mesh the prefill's and the first
+    decode step's collectives and K6 launches.  Whole on one device, or
+    this rank's slices on ``mesh`` (data 1) with the cache the cache rules
+    give it; caches in ``dtype``."""
+    from repro_torch.kernels import ops
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.mesh_utils import Axis, mesh_shape
+    from repro_torch.serve import steps
+    b, s = inputs["tokens"].shape
+    n_front = cfg.n_frontend_tokens if cfg.family == "vlm" else 0
+    max_len = n_front + s + TP_D_NEW + 1
+    dev = inputs["tokens"].device
+    if mesh is None:
+        cache = lm.init_cache(cfg, b, max_len, dtype, device=dev)
+    else:
+        cache = steps.init_local_cache(lm, cfg, b, max_len, mesh_shape(mesh),
+                                       layout, dtype=dtype, device=dev)
+    arg = inputs if cfg.family in ("audio", "vlm") else inputs["tokens"]
+    rows, toks, counts = [], [], {}
+    with tensor.model_parallel(Axis(mesh, "model")):
+        before = coll.counts()
+        ops.reset_launch_counts()
+        logits, cache = lm.prefill(params, cfg, arg, cache)
+        counts["prefill"] = _delta(before, coll.counts())
+        counts["k6_prefill"] = ops.launch_counts()["flash_attention_fwd"]
+        for i in range(TP_D_NEW):
+            row = tensor.full_vocab(logits[:, -1], cfg.vocab).float()
+            rows.append(row.cpu().numpy())
+            toks.append(rows[-1].argmax(-1))
+            if i == TP_D_NEW - 1:
+                break
+            nt = torch.as_tensor(toks[-1] if fed is None else fed[:, i],
+                                 device=dev)[:, None]
+            before = coll.counts()
+            logits, cache = lm.decode_step(params, cfg, nt, cache)
+            counts.setdefault("decode", _delta(before, coll.counts()))
+    return {"logits": np.stack(rows), "tokens": np.stack(toks, 1),
+            "counts": counts}
+
+
+def tp_rank(rank, world, dev, inp) -> dict:
+    """Phase 14 (a)-(d) on one of TP_RANKS gloo ranks sharing the card."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import get_model
+    from repro_torch.parallel import collectives as coll
+    from repro_torch.serve import steps
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.trainstep import (init_lm_state, lm_layout,
+                                             lm_shapes, make_lm_train_step,
+                                             param_dict)
+    from repro_torch.launch import dryrun
+    torch.backends.cuda.matmul.allow_tf32 = False
+    meshes = tp_meshes()
+    out = {}
+    t0 = time.perf_counter()
+    # (a) glm4-9b serving at full size over (1, 2)
+    if rank < 2:
+        out["a"] = tp_engine_run(tp_config(LM_ARCH), meshes[(1, 2)], dev,
+                                 inp["a"]["prompts"], LM_NEW_TOKENS,
+                                 inp["a"]["ref"], LM_CHECKED)
+    out["a_s"] = time.perf_counter() - t0
+    # (b) glm4-9b, TP_B_DEPTH layers, (1, 4), the factored decode plan
+    t0 = time.perf_counter()
+    out["b"] = tp_engine_run(
+        tp_config(LM_ARCH, TP_B_DEPTH, factored_decode=True), meshes[(1, 4)],
+        dev, inp["b"]["prompts"], TP_B_NEW, inp["b"]["ref"], (0,),
+        slots=len(TP_B_PROMPTS), max_len=max(TP_B_PROMPTS) + TP_B_NEW + 1)
+    out["b_s"] = time.perf_counter() - t0
+    # (c) glm4-9b training, TP_C_DEPTH layers, (2, 2), fsdp
+    t0 = time.perf_counter()
+    cfg = tp_config(LM_ARCH, TP_C_DEPTH, remat="layer", fsdp=True)
+    lm = get_model(cfg)
+    mesh = meshes[(2, 2)]
+    opt = adamw(TRAIN_LM_LR, clip_norm=1.0)
+    layout = lm_layout(lm, cfg, lm_shapes(lm, cfg), mesh)
+    model = lm.init_params(cfg, seed=0, device=dev, cut=layout.cut)
+    state = init_lm_state(model, opt, layout=layout)
+    batch = tp_train_batch(cfg, dev)
+    step = make_lm_train_step(lm, cfg, opt, mesh)
+    ops.reset_launch_counts()
+    coll.reset_counts()
+    _, m = step(state, batch)
+    first = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item(),
+             "launches": ops.launch_counts(), "counts": coll.counts()}
+    opt_state = state["opt"]
+    first["held"] = {k: layout.bytes_held(t) for k, t in (
+        ("params", param_dict(state["params"])), ("mu", opt_state.mu),
+        ("nu", opt_state.nu))}
+    first["specs"] = 3 * spec_bytes(lm, cfg, {"data": 2, "model": 2}, 4)
+    first["measured"] = measure_step(
+        lambda: step(state, batch),
+        dryrun._state_tensors(state) + list(batch.values()))
+    out["c"] = first
+    del state, model, step, batch, opt_state
+    torch.cuda.empty_cache()
+    out["c_s"] = time.perf_counter() - t0
+    # (d) the other five families, TP_D_DEPTH layers, (1, 2)
+    t0 = time.perf_counter()
+    out["d"] = {}
+    if rank < 2:
+        for arch in TP_D_ARCHS:
+            cfg = tp_config(arch, TP_D_DEPTH)
+            lm = get_model(cfg)
+            layout = steps.serve_layout(lm, cfg, meshes[(1, 2)])
+            params = lm.init_params(cfg, seed=0, device=dev,
+                                    dtype=torch.bfloat16, cut=layout.cut)
+            inputs = tp_inputs(cfg, dev, 2, TP_D_PROMPT)
+            res = tp_functional(lm, cfg, params, inputs,
+                                inp["d"][arch]["tokens"],
+                                mesh=meshes[(1, 2)], layout=layout)
+            res["local"] = tp_local_width(cfg, params)
+            res["held"] = sum(p.numel() * p.element_size()
+                              for p in params.parameters())
+            res["specs"] = spec_bytes(lm, cfg, {"data": 1, "model": 2}, 2)
+            out["d"][arch] = res
+            del params
+            torch.cuda.empty_cache()
+    out["d_s"] = time.perf_counter() - t0
+    return out
+
+
+def tp_local_width(cfg, params) -> dict:
+    """What a rank holds of the structure (d) reports: a MoE's bank
+    experts, an SSM's heads, attention's local query / KV heads."""
+    lp = (params.dec_layers if cfg.family == "audio" else params.layers)[0]
+    if cfg.family == "moe":
+        return {"experts": lp.moe.w_gate.shape[0]}
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"ssm_heads": lp.A_log.shape[0]}
+        if cfg.family == "hybrid":
+            sb = params.shared
+            out["q_heads"] = sb.wq.w.shape[-1] // cfg.d_head
+            out["kv_heads"] = sb.wk.w.shape[-1] // cfg.d_head
+        return out
+    att = lp.self_attn if hasattr(lp, "self_attn") else lp
+    return {"q_heads": att.wq.w.shape[-1] // cfg.d_head,
+            "kv_heads": att.wk.w.shape[-1] // cfg.d_head}
+
+
+def tp_train_batch(cfg, dev) -> dict:
+    from repro_torch.data.tokens import token_batch
+    b = token_batch(0, 0, TP_C_BATCH, TP_C_SEQ, cfg.vocab)
+    return {"tokens": torch.as_tensor(b["tokens"], device=dev),
+            "labels": torch.as_tensor(b["labels"], device=dev)}
+
+
+def tp_k6_per_prefill(cfg) -> int:
+    """K6 launches of one prefill: whisper's encoder layers; else each
+    attention call of the forward (``attention_calls``)."""
+    return cfg.n_enc_layer if cfg.family == "audio" else attention_calls(cfg)
+
+
+def tp_tokens_check(what: str, got: dict, want: dict, rows: dict,
+                    bound: float) -> dict:
+    """Tokens by request against the one-device run's: equal, or at the
+    first position where they part a near tie of the tensor-parallel
+    row (its max less its logit at the one-device token no more than
+    ``bound``, the bf16 noise of the path); raises otherwise.  Returns
+    {"differ": requests that part, "gaps": [(rid, position, gap)]}."""
+    gaps = []
+    for rid, ref in want.items():
+        mine = list(got[rid])
+        if mine == list(ref):
+            continue
+        p = next(i for i, (a, b) in enumerate(zip(mine, ref)) if a != b)
+        _, top, at = rows[rid][p]
+        gap = top - at
+        gaps.append((rid, p, gap))
+        if not gap <= bound:
+            raise AssertionError(
+                f"{what} request {rid}: token {p} is {mine[p]}, one device's "
+                f"{ref[p]}, {gap:.4g} below the row's max (bf16 noise bound "
+                f"{bound:.4g})")
+    return {"differ": len(gaps), "gaps": gaps}
+
+
+def tp_one_device_refs(dev, phase11: dict) -> dict:
+    """The one-device runs (b)-(d) are held to, made on the card before the
+    ranks start (and freed): (b) glm4-9b at TP_B_DEPTH layers through
+    DecodeEngine, its tokens, request 0's plain fp32 logits and the plain
+    bf16 path's distance from them; (c) the first training step's loss and
+    gradient norm; (d) each family's tokens, bf16 logits and the fp32
+    value of the same bf16 weights (compute and caches in fp32, fed the
+    bf16 run's tokens)."""
+    from repro_torch.models import dense, get_model
+    from repro_torch.serve.engine import DecodeEngine, Request
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.trainstep import init_lm_state, make_lm_train_step
+    out = {}
+    cfg = tp_config(LM_ARCH, TP_B_DEPTH, factored_decode=True)
+    lm = get_model(cfg)
+    params = lm.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in TP_B_PROMPTS]
+    engine = DecodeEngine(lm, cfg, params, batch_slots=len(TP_B_PROMPTS),
+                          max_len=max(TP_B_PROMPTS) + TP_B_NEW + 1,
+                          device=dev, graphs=False)
+    done = engine.run([Request(rid=i, prompt=p, max_new_tokens=TP_B_NEW)
+                       for i, p in enumerate(prompts)])
+    tokens = torch.as_tensor(np.concatenate([prompts[0], done[0][:-1]]),
+                             device=dev)[None]
+    start = len(prompts[0]) - 1
+    ref32 = plain_lm_logits(engine.params, cfg, tokens, start, torch.float32)
+    noise = (plain_lm_logits(engine.params, cfg, tokens, start,
+                             torch.bfloat16) - ref32).abs().max().item()
+    out["b"] = {"prompts": prompts, "tokens": done,
+                "first": ref32[0].cpu().numpy(), "noise": noise}
+    del engine, params, ref32
+    torch.cuda.empty_cache()
+    cfg = tp_config(LM_ARCH, TP_C_DEPTH, remat="layer", fsdp=True)
+    lm = get_model(cfg)
+    opt = adamw(TRAIN_LM_LR, clip_norm=1.0)
+    state = init_lm_state(lm.init_params(cfg, seed=0, device=dev), opt)
+    _, m = make_lm_train_step(lm, cfg, opt)(state, tp_train_batch(cfg, dev))
+    out["c"] = {"loss": m["loss"].item(), "grad_norm": m["grad_norm"].item()}
+    del state, m
+    torch.cuda.empty_cache()
+    out["d"] = {}
+    for arch in TP_D_ARCHS:
+        cfg = tp_config(arch, TP_D_DEPTH)
+        lm = get_model(cfg)
+        params = lm.init_params(cfg, seed=0, device=dev, dtype=torch.bfloat16)
+        inputs = tp_inputs(cfg, dev, 2, TP_D_PROMPT)
+        bf = tp_functional(lm, cfg, params, inputs, None)
+        fed = bf["tokens"][:, :-1]
+        with compute_dtype(lm, torch.float32), \
+                compute_dtype(dense, torch.float32):
+            f32 = tp_functional(lm, cfg, params, inputs, fed,
+                                dtype=torch.float32)
+        out["d"][arch] = {"tokens": bf["tokens"], "fed": fed,
+                          "logits32": f32["logits"],
+                          "noise": np.abs(bf["logits"] - f32["logits"]).max()}
+        del params, inputs
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp_phase(dev, card: str, phase11: dict, dry_tp: dict) -> dict:
+    """Phase 14: tensor parallelism over 'model' on TP_RANKS gloo ranks
+    sharing the card (eager; ranks on one card talk through host memory, so
+    no wall here measures tensor parallelism's speed).  ``phase11``: phase
+    11's requests, eager tokens and plain-path values (``refs``);
+    ``dry_tp``: phase 13's prediction of (c)'s peak."""
+    from repro_torch.parallel import ranks as ranks_lib
+    t_start = time.perf_counter()
+    k6_rows, k6_tot = check_flash_attention(dev, [
+        ("tp_prefill_S3000_H16_KV1", (1, 3000, 3000, 16, 1, 128), True,
+         torch.bfloat16, tp_config(LM_ARCH).n_layer
+         * sum(n == 3000 for n in LM_PROMPTS))])
+    for row in k6_rows:
+        print(f"[tp kernel] flash_attention_fwd {json.dumps(row)}",
+              flush=True)
+    t0 = time.perf_counter()
+    refs = tp_one_device_refs(dev, phase11)
+    refs_s = time.perf_counter() - t0
+    reqs, done11 = phase11["reqs"], phase11["tokens"]
+    inp = {"a": {"prompts": [r.prompt for r in reqs],
+                 "ref": {rid: list(t) for rid, t in done11.items()}},
+           "b": {"prompts": refs["b"]["prompts"],
+                 "ref": {rid: list(t) for rid, t in
+                         refs["b"]["tokens"].items()}},
+           "d": {a: {"tokens": r["fed"]} for a, r in refs["d"].items()}}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = ranks_lib.spawn(tp_rank, TP_RANKS, inp, device_type=dev.type,
+                          backend="gloo", timeout_s=900)
+    spawn_s = time.perf_counter() - t0
+    out = {"refs_s": refs_s, "spawn_s": spawn_s, "k6_row": k6_rows[0]}
+    # (a)
+    cfg = tp_config(LM_ARCH)
+    per = {key[0]: val for key, val in phase11["refs"].items()}
+    noise = max(v[1] for v in per.values())
+    for rank in (0, 1):
+        a = got[rank]["a"]
+        want = {"flash_attention_fwd": cfg.n_layer * len(reqs)}
+        launches = {k: v for k, v in a["launches"].items() if v}
+        heads = {"q": cfg.n_head // 2, "kv": cfg.n_kv_head / 2}
+        if launches != want or a["held"] != a["specs"] or \
+                a["heads"] != heads:
+            raise AssertionError(f"(a) rank {rank}: launches {launches} "
+                                 f"(want {want}), holds {a['held']} B (specs "
+                                 f"{a['specs']}), heads {a['heads']}")
+        toks = tp_tokens_check("(a)", a["tokens"], done11, a["rows"],
+                               LM_NOISE_FACTOR * noise)
+        first = {}
+        for rid, (ref32, nz, _) in per.items():
+            err = np.abs(a["first"][rid] - ref32[0].cpu().numpy()).max()
+            first[rid] = (err, nz)
+            if not err <= LM_NOISE_FACTOR * nz:
+                raise AssertionError(f"(a) rank {rank} request {rid}: first "
+                                     f"logits {err} from fp32, over "
+                                     f"{LM_NOISE_FACTOR} x {nz}")
+        print(f"[tp a] {LM_ARCH} serving, {cfg.n_layer} layers, mesh (data "
+              f"1, model 2), rank {rank} of 2 ({card}): {a['heads']['q']} "
+              f"query / {a['heads']['kv']:g} KV heads a rank; holds "
+              f"{a['held']} B of bf16 weights (specs {a['specs']} B); K6 "
+              f"{a['launches']['flash_attention_fwd']} launches over "
+              f"{len(reqs)} prefills; a prefill's collectives "
+              f"{json.dumps(a['counts']['prefill'])}, a decode step's "
+              f"{json.dumps(a['counts']['decode'])}; tokens against phase "
+              f"11's: {toks['differ']} of {len(done11)} requests part "
+              f"(first-part gaps {toks['gaps']}); first-token logits vs fp32 "
+              f"(rid: max |diff|, plain bf16's) {first}; drawn in "
+              f"{a['init_s']:.1f} s, served in {a['wall_s']:.1f} s, peak "
+              f"{a['peak_gib']:.2f} GiB", flush=True)
+    out["a"] = {"launches": got[0]["a"]["launches"]["flash_attention_fwd"],
+                "counts": got[0]["a"]["counts"], "held": got[0]["a"]["held"]}
+    # (b)
+    rb = refs["b"]
+    cfg_b = tp_config(LM_ARCH, TP_B_DEPTH, factored_decode=True)
+    for rank in range(TP_RANKS):
+        b = got[rank]["b"]
+        want = {"flash_attention_fwd": cfg_b.n_layer * len(TP_B_PROMPTS)}
+        launches = {k: v for k, v in b["launches"].items() if v}
+        if launches != want or b["held"] != b["specs"] or not b["factored"]:
+            raise AssertionError(f"(b) rank {rank}: launches {launches}, "
+                                 f"holds {b['held']} (specs {b['specs']}), "
+                                 f"factored {b['factored']}")
+        toks = tp_tokens_check("(b)", b["tokens"], rb["tokens"], b["rows"],
+                               LM_NOISE_FACTOR * rb["noise"])
+        err = np.abs(b["first"][0] - rb["first"]).max()
+        if not err <= LM_NOISE_FACTOR * rb["noise"]:
+            raise AssertionError(f"(b) rank {rank}: first logits {err} from "
+                                 f"fp32, over {LM_NOISE_FACTOR} x "
+                                 f"{rb['noise']}")
+        print(f"[tp b] {LM_ARCH} {TP_B_DEPTH} layers, mesh (data 1, model "
+              f"4), factored decode (kvh 2, brep 2), rank {rank}: "
+              f"{b['heads']['q']} query / {b['heads']['kv']:g} KV heads a "
+              f"rank (KV split inside a head); K6 "
+              f"{b['launches']['flash_attention_fwd']}; a prefill's "
+              f"collectives {json.dumps(b['counts']['prefill'])}, a decode "
+              f"step's {json.dumps(b['counts']['decode'])}; tokens against "
+              f"one device's: {toks['differ']} of {len(rb['tokens'])} part "
+              f"{toks['gaps']}; first logits {err:.4g} from fp32 (plain "
+              f"bf16 {rb['noise']:.4g})", flush=True)
+    out["b"] = {"launches": got[0]["b"]["launches"]["flash_attention_fwd"]}
+    # (c)
+    cfg_c = tp_config(LM_ARCH, TP_C_DEPTH, remat="layer", fsdp=True)
+    one = refs["c"]
+    c0 = got[0]["c"]
+    for rank in range(TP_RANKS):
+        c = got[rank]["c"]
+        held = sum(sum(v.values()) for v in c["held"].values())
+        want_k6 = 2 * attention_calls(cfg_c)
+        if (c["loss"], c["grad_norm"]) != (c0["loss"], c0["grad_norm"]) or \
+                held != c["specs"] or \
+                c["launches"]["flash_attention_fwd"] != want_k6:
+            raise AssertionError(f"(c) rank {rank}: loss {c['loss']} grad "
+                                 f"norm {c['grad_norm']}, holds {held} "
+                                 f"(specs {c['specs']}), K6 "
+                                 f"{c['launches']} (want {want_k6})")
+    if abs(c0["loss"] - one["loss"]) > TRAIN_LM_LOSS_RTOL * abs(one["loss"]) \
+            or abs(c0["grad_norm"] - one["grad_norm"]) > \
+            TRAIN_LM_GNORM_RTOL * abs(one["grad_norm"]):
+        raise AssertionError(f"(c) first step {c0['loss']} / "
+                             f"{c0['grad_norm']} vs one device {one}")
+    meas = c0["measured"]
+    rel = check_peak(f"{LM_ARCH} (2, 2) rank 0", dry_tp["predicted_peak"],
+                     meas["step"], dry_tp["full"])
+    print(f"[tp c] {LM_ARCH} training, {TP_C_DEPTH} layers, {TP_C_BATCH} x "
+          f"{TP_C_SEQ} tokens, mesh (data 2, model 2), fsdp, remat layer, "
+          f"AdamW ({card}): first loss {c0['loss']:.6f} (one device "
+          f"{one['loss']:.6f}), grad norm {c0['grad_norm']:.6f} (one device "
+          f"{one['grad_norm']:.6f}); rank 0 holds {json.dumps(c0['held'])} "
+          f"(specs: {c0['specs']} B of parameters + mu + nu); K6 "
+          f"{c0['launches']['flash_attention_fwd']} a step; collectives of "
+          f"the step {json.dumps(c0['counts'])}; peak: predicted by phase 13 "
+          f"{dry_tp['predicted_peak']} B, measured {meas['step']} B "
+          f"({100 * rel:+.2f} %)", flush=True)
+    out["c"] = {"launches": c0["launches"]["flash_attention_fwd"],
+                "peak_rel": rel}
+    # (d)
+    out["d"] = {}
+    for arch in TP_D_ARCHS:
+        cfg = tp_config(arch, TP_D_DEPTH)
+        r = refs["d"][arch]
+        bound = LM_NOISE_FACTOR * r["noise"]
+        for rank in (0, 1):
+            d = got[rank]["d"][arch]
+            err = np.abs(d["logits"] - r["logits32"]).max()
+            rows = {i: [(0, d["logits"][p, i].max(),
+                         d["logits"][p, i, r["tokens"][i, p]])
+                        for p in range(TP_D_NEW)] for i in range(2)}
+            toks = tp_tokens_check(
+                f"(d) {arch}", {i: d["tokens"][i].tolist() for i in range(2)},
+                {i: r["tokens"][i].tolist() for i in range(2)}, rows, bound)
+            k6 = d["counts"]["k6_prefill"]
+            if not err <= bound or k6 != tp_k6_per_prefill(cfg) or \
+                    d["held"] != d["specs"]:
+                raise AssertionError(f"(d) {arch} rank {rank}: logits {err} "
+                                     f"from fp32 (bound {bound}), K6 {k6} "
+                                     f"(want {tp_k6_per_prefill(cfg)}), "
+                                     f"holds {d['held']} (specs "
+                                     f"{d['specs']})")
+        print(f"[tp d] {arch} {cfg.n_layer} layers, mesh (data 1, model 2): "
+              f"a rank holds {json.dumps(d['local'])}; logits vs fp32 "
+              f"{err:.4g} (plain bf16 one device {r['noise']:.4g}); tokens "
+              f"part in {toks['differ']} of 2 rows {toks['gaps']}; K6 {k6} a "
+              f"prefill; collectives a prefill "
+              f"{json.dumps(d['counts']['prefill'])}, a decode step "
+              f"{json.dumps(d['counts']['decode'])}", flush=True)
+        out["d"][arch] = {"k6": k6, "local": d["local"]}
+    out["wall_s"] = time.perf_counter() - t_start
+    walls = {k: round(got[0][k + "_s"], 1) for k in "abcd"}
+    print(f"[tp phase] wall {out['wall_s']:.1f} s (one-device references "
+          f"{refs_s:.1f} s, ranks {spawn_s:.1f} s: rank 0 by part "
+          f"{json.dumps(walls)}) on {card}", flush=True)
     return out
 
 
@@ -4632,6 +5266,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     dry = dryrun_phase(dev, card)
     stamp("phase 13")
+    # phase 14: tensor parallelism over 'model' on four gloo ranks
+    tp = tp_phase(dev, card, {"reqs": lm_reqs, "tokens": e_done,
+                              "refs": refs}, dry["tp"])
+    stamp("phase 14")
 
     def entry(name, source, replaces, tot, err, launches, per):
         by = tot["flops"] / PEAK_BF16_FLOPS >= tot["bytes"] / PEAK_BYTES
@@ -4715,6 +5353,20 @@ def main() -> int:
         f"{WHISPER_ARCH} train step": av["train"]["k6_launches_a_step"],
         f"{FSDP_ARCH} FSDP train step, each of {FSDP_RANKS} ranks":
             dp["fsdp"]["ranks"][0][FSDP_ARCH]["k6_launches"][0]})
+    # K6 on phase 14's tensor-parallel paths (launches a rank), and its
+    # time at (a)'s local shape
+    kernels[-1]["launches_by_path"].update({
+        f"{LM_ARCH} tensor-parallel serving (data 1, model 2), each of 2 "
+        f"ranks, {len(LM_PROMPTS)} prefills": tp["a"]["launches"],
+        f"{LM_ARCH} {TP_B_DEPTH} layers (data 1, model 4), each of 4 ranks, "
+        f"{len(TP_B_PROMPTS)} prefills": tp["b"]["launches"],
+        f"{LM_ARCH} {TP_C_DEPTH}-layer train step (data 2, model 2), each of "
+        f"4 ranks": tp["c"]["launches"],
+        **{f"{a} prefill (data 1, model 2), each of 2 ranks": r["k6"]
+           for a, r in tp["d"].items()}})
+    kernels[-1]["tp_shape"] = {k: tp["k6_row"][k] for k in (
+        "shape", "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+        "bound_by", "library_ms")}
     kernels[-1]["phase_11c_shapes"] = {
         r["shape"]: {k: r[k] for k in ("launches", "max_abs_err", "ms",
                                        "plain_ms", "bound_ms", "bound_by",

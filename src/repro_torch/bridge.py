@@ -112,6 +112,24 @@ def state_dict_to_params(sd: dict, *, stacked=STACKED) -> dict:
     return _map_nested(to_numpy, nest(sd, stacked=stacked))
 
 
+def rank_state_dict(tree: dict, local, *, stacked=STACKED) -> dict:
+    """JAX param tree (numpy leaves) -> a rank's ``state_dict``: each
+    leaf, keyed as :func:`params_to_state_dict` keys it, cut by ``local(key,
+    tensor)`` (``parallel.fsdp.Layout.local``: the rank's slices over
+    ``data`` and ``model``) one leaf at a time."""
+    sd = {}
+    for key, arr in flatten(tree).items():
+        arr = np.asarray(arr)
+        head, _, rest = key.partition(".")
+        if head in stacked:
+            for i in range(arr.shape[0]):
+                k = f"{head}.{i}.{rest}"
+                sd[k] = local(k, torch.from_numpy(np.array(arr[i])))
+        else:
+            sd[key] = local(key, torch.from_numpy(np.array(arr)))
+    return sd
+
+
 def load_jax_params(module: torch.nn.Module, tree: dict, *,
                     stacked=STACKED) -> torch.nn.Module:
     """Load a JAX param tree into ``module`` (strict: every key must match)."""

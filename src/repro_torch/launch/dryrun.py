@@ -24,11 +24,10 @@ Nothing is allocated on any device.
 * **LM cells** (``--arch``/``--all``): **sized** from the shapes and the
   sanitized partition specs alone (argument, output and alias bytes: the
   train state with ``adafactor_like(1e-4, clip_norm=1.0)`` and the batch,
-  or the params, a cache of ``seq_len + 1`` and the tokens), and **traced**
-  only where the mesh's 'model' extent is 1 (e.g.
-  ``REPRO_DRYRUN_MESH=8x1``).  At a wider 'model' axis the record says
-  ``"status": "sized"`` and why the trace was skipped: the port has no
-  tensor parallelism over 'model' yet.
+  or the params, a cache of ``seq_len + 1`` and the tokens), and
+  **traced**: rank 0's tensor-parallel step over the production mesh
+  (``parallel.tensor`` over 'model' 16; the batch over ('pod', 'data')),
+  its slices cut as the model is drawn on ``meta``.
 * **Roofline**: ``analysis.roofline.roofline_terms`` with ``HW`` (H100 SXM,
   700 W datasheet); every collective is priced at ``HW.link_bw``, an
   assumption (the 'model' axis of 16 spans two NVLink domains, and
@@ -77,10 +76,6 @@ META = torch.device("meta")
 # LM step's loss and gradient norm, all 0-d fp32
 AF2_METRIC_BYTES = 7 * 4
 LM_METRIC_BYTES = 2 * 4
-TP_SKIPPED = ("the port has no tensor parallelism over 'model' yet (ROADMAP "
-              "queue 1's next item): a rank's program at a 'model' extent "
-              "of {tp} does not exist to trace; the record is sized from "
-              "the shapes and sanitized specs only")
 LINK_ASSUMPTION = ("every collective priced at HW.link_bw (NVLink 4, 450 "
                    "GB/s a direction); an axis that spans nodes runs over "
                    "InfiniBand, slower")
@@ -202,32 +197,38 @@ def size_lm_cell(cfg, shape, extents: dict) -> dict:
 
 def trace_lm_step(cfg, shape, extents: dict, n_devices: int, *,
                   optimizer=None) -> dict:
-    """Trace one rank's LM step at a 'model' extent of 1: the training
-    step over the data axis (``make_lm_train_step``, FSDP where
-    ``cfg.fsdp``; ``optimizer`` by default ``adafactor_like(1e-4,
-    clip_norm=1.0)``; the batch is the global batch, which every rank
-    holds and takes its rows of), or the one-device prefill / decode step
-    on this rank's rows of the batch and the cache, the weights in bf16 as
-    ``DecodeEngine`` holds them.  Must run inside a virtual world of
-    ``n_devices`` ranks."""
+    """Trace one rank's LM step on a mesh of ``extents``: the training step
+    (``make_lm_train_step``: tensor-parallel over 'model', data-parallel
+    over ('pod', 'data'), FSDP over 'data' where ``cfg.fsdp``;
+    ``optimizer`` by default ``adafactor_like(1e-4, clip_norm=1.0)``; the
+    batch is the global batch, which every rank holds and takes its rows
+    of), or the prefill / decode step on this rank's rows of the batch and
+    its cache (``serve.steps.init_local_cache``), the weights in bf16 as
+    ``DecodeEngine`` holds them, its slices by ``serve.steps.serve_layout``
+    (under ``factored_decode`` a decode step on the factored mesh,
+    gathering the weights over 'brep' inside the step, as the engine
+    does).  Each rank's slices are cut as the model is drawn.  Must run
+    inside a virtual world of ``n_devices`` ranks."""
+    from repro_torch.parallel import tensor
+    from repro_torch.parallel.mesh_utils import Axis, mesh_shape
+    from repro_torch.serve import steps
     from repro_torch.train import trainstep as ts
     lm = get_model(cfg)
-    model = lm.init_params(cfg, device=META)
-    data = math.prod(extents.get(a, 1) for a in ("pod", "data"))
+    mesh = make_mesh(tuple(extents.values()), tuple(extents))
+    data_axes = tuple(a for a in ("pod", "data") if a in extents)
     if shape.kind == "train":
         opt = optimizer or adafactor_like(1e-4, clip_norm=1.0,
                                           stacked=lm_stacked(cfg))
         batch = _meta(batch_shapes(cfg, shape))
-        if data > 1:
-            if "pod" in extents:
-                raise NotImplementedError("the port's LM step runs over one "
-                                          "data axis, not (pod, data)")
-            mesh = make_mesh(tuple(extents.values()), tuple(extents))
-            layout = ts.lm_layout(lm, cfg, model, mesh)
+        if math.prod(extents.values()) > 1:
+            layout = ts.lm_layout(lm, cfg, ts.lm_shapes(lm, cfg), mesh,
+                                  data_axes=data_axes)
+            model = lm.init_params(cfg, device=META, cut=layout.cut)
             state = ts.init_lm_state(model, opt, layout=layout)
-            step = ts.make_lm_train_step(lm, cfg, opt, mesh)
-        else:
-            state = ts.init_lm_state(model, opt)
+            step = ts.make_lm_train_step(lm, cfg, opt, mesh,
+                                         data_axes=data_axes)
+        else:       # one device: the step without a mesh
+            state = ts.init_lm_state(lm.init_params(cfg, device=META), opt)
             step = ts.make_lm_train_step(lm, cfg, opt)
         held = _state_tensors(state)
         with acost.counting(held + list(batch.values())) as tr:
@@ -237,12 +238,16 @@ def trace_lm_step(cfg, shape, extents: dict, n_devices: int, *,
         full["memory"].update(alias_bytes=alias,
                               output_bytes=alias + LM_METRIC_BYTES)
         return full
-    if shape.global_batch % data:
-        raise NotImplementedError(f"a batch of {shape.global_batch} does not "
-                                  f"split over {data} data ranks")
-    rows = shape.global_batch // data
-    params = lm.BF16.cast(model)
-    cache = lm.init_cache(cfg, rows, shape.seq_len + 1, device=META)
+    layout = steps.serve_layout(lm, cfg, mesh)
+    params = lm.BF16.cast(lm.init_params(cfg, device=META, cut=layout.cut))
+    factored = bool(shape.kind == "decode" and cfg.factored_decode
+                    and decode_split(cfg, extents))
+    dmesh = steps.decode_mesh_plan(cfg, mesh)[0] if factored else mesh
+    axis = Axis(dmesh, "kvh" if factored else "model")
+    cache = steps.init_local_cache(lm, cfg, shape.global_batch,
+                                   shape.seq_len + 1, mesh_shape(dmesh),
+                                   layout, factored=factored, device=META)
+    rows = cache["length"].shape[0]
     local = dataclasses.replace(shape, global_batch=rows)
     if shape.kind == "prefill":
         batch = _meta(batch_shapes(cfg, local, for_prefill=True))
@@ -253,7 +258,11 @@ def trace_lm_step(cfg, shape, extents: dict, n_devices: int, *,
         fn = lm.decode_step
     args = (list(param_dict(params).values()) + list(cache.values())
             + acost._tensors(inputs, []))
-    with acost.counting(args) as tr:
+    kvh = steps.kvh_shapes(lm, cfg, dmesh) if factored else None
+    with acost.counting(args) as tr, tensor.model_parallel(axis):
+        if factored:
+            params = steps.factored_params(params, layout, kvh,
+                                           Axis(dmesh, "brep"), axis)
         logits, _ = fn(params, cfg, inputs, cache)
     full = tr.analysis(n_devices)
     alias = sum(t.untyped_storage().nbytes() for t in cache.values())
@@ -284,14 +293,6 @@ def run_lm_cell(arch, shape_name, multi_pod, *, probes=True,
     t0 = time.time()
     sized = size_lm_cell(cfg, shape, extents)
     rec["sized"] = sized
-    tp = extents.get("model", 1)
-    if tp > 1:
-        mem = {k: sized[k] for k in ("argument_bytes", "output_bytes",
-                                     "alias_bytes")}
-        rec.update(status="sized", trace_skipped=TP_SKIPPED.format(tp=tp),
-                   lower_s=round(time.time() - t0, 2),
-                   full={"memory": mem, "n_devices": n_dev})
-        return rec
     with virtual_world(n_dev):
         rec["full"] = trace_lm_step(cfg, shape, extents, n_dev)
         rec["lower_s"] = round(time.time() - t0, 2)

@@ -1,6 +1,8 @@
 """Serving launcher of the PyTorch port: LM batched decode through
-``DecodeEngine`` on one device (``--arch``: the dense, moe, ssm and hybrid
-families; prefill attention on the flash kernel K6), or AF2 fold serving of
+``DecodeEngine`` on one device, or tensor-parallel over ``--devices``
+rank processes on a (devices / tp, tp) mesh over ("data", "model")
+(``--arch``: the dense, moe, ssm and hybrid families; prefill attention on
+the flash kernel K6), or AF2 fold serving of
 a mixed-length synthetic queue through ``FoldEngine`` (``--fold``; every
 attention and triangle update on the hand-written kernels), on one device
 or over ``--devices`` rank processes with a DAP plan for the long buckets.
@@ -16,6 +18,11 @@ or over ``--devices`` rank processes with a DAP plan for the long buckets.
   PYTHONPATH=src python -m repro_torch.launch.serve --fold tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-7b --smoke \
       --device cpu --requests 3 --slots 2 --max-new 4 --prompt-len 8 --max-len 32
+  # tensor-parallel over two CPU ranks: each holds its slices of the
+  # weights and its KV heads; rank 0 reports
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch glm4-9b --smoke \
+      --device cpu --devices 2 --tp 2 --requests 3 --slots 2 --max-new 4 \
+      --prompt-len 8 --max-len 32
   # two rank processes (CPU ranks over gloo; on the card, ranks that share
   # it talk over gloo and serve without graphs): the longest bucket runs
   # under long_plan = ParallelPlan(data=devices // dap, dap=dap), the
@@ -58,9 +65,13 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     # fold knobs
     ap.add_argument("--devices", type=int, default=1,
-                    help="--fold: rank processes to spawn (the reference's "
-                         "fake host devices; 1: this process alone); every "
-                         "rank serves the same requests")
+                    help="rank processes to spawn (the reference's fake "
+                         "host devices; 1: this process alone); every rank "
+                         "serves the same requests")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="--arch: tensor-parallel extent, the mesh's "
+                         "'model' axis ((devices / tp, tp) over ('data', "
+                         "'model'))")
     ap.add_argument("--dap", type=int, default=1,
                     help="--fold: dap extent of the long buckets' plan, "
                          "which must divide --devices")
@@ -106,11 +117,44 @@ def main(argv=None):
         raise SystemExit("pass one of --arch <lm-arch> (decode) and --fold "
                          "<tiny|small|initial|finetune> (AF2)")
     if args.fold:
+        if args.tp != 1:
+            raise SystemExit("--tp splits an LM over 'model' (--arch); "
+                             "fold serving takes --dap")
         return run_fold(args)
+    if args.devices > 1:
+        return launch_lm_decode(args)
     return run_lm_decode(args)
 
 
-def run_lm_decode(args):
+def launch_lm_decode(args):
+    """``run_lm_decode`` on ``--devices`` rank processes; rank 0's
+    result."""
+    import torch
+
+    from repro_torch.parallel import ranks
+    if args.devices % args.tp:
+        raise SystemExit(f"--tp {args.tp} does not divide --devices "
+                         f"{args.devices}")
+    device_type = ranks.resolve_device_type(args.device)
+    backend = ranks.choose_backend(device_type, args.devices)
+    print(ranks.describe_backend(device_type, backend, args.devices))
+    if device_type == "cuda":
+        from repro_torch.kernels import build
+        build.build_all()       # once, before the ranks start
+    return ranks.spawn(_lm_rank, args.devices, args, device_type=device_type,
+                       backend=backend,
+                       threads=max(1, torch.get_num_threads() // args.devices)
+                       if device_type == "cpu" else 0)[0]
+
+
+def _lm_rank(rank, world, device, args):
+    return run_lm_decode(args, rank=rank, world=world, device=device)
+
+
+def run_lm_decode(args, *, rank: int = 0, world: int = 1, device=None):
+    """Serve ``--requests`` prompts on one device, or as rank ``rank`` of
+    ``world`` on a (world / tp, tp) mesh, each rank drawing its slices of
+    the weights (``serve.steps.serve_layout``); rank 0 prints."""
     import numpy as np
     import torch
 
@@ -133,11 +177,17 @@ def run_lm_decode(args):
                          "audio/vlm prefill needs frames/patches — see tests")
     cfg = with_kernels(cfg)
     model = get_model(cfg)
-    dev = resolve_device(args.device)
+    dev = device if device is not None else resolve_device(args.device)
+    mesh = cut = None
+    if world > 1:
+        from repro_torch.parallel.mesh_utils import make_mesh
+        from repro_torch.serve.steps import serve_layout
+        mesh = make_mesh((world // args.tp, args.tp), ("data", "model"))
+        cut = serve_layout(model, cfg, mesh).cut
     params = model.init_params(cfg, seed=args.seed, device=dev,
-                               dtype=torch.bfloat16)
+                               dtype=torch.bfloat16, cut=cut)
     engine = DecodeEngine(model, cfg, params, batch_slots=args.slots,
-                          max_len=args.max_len, device=dev)
+                          max_len=args.max_len, device=dev, mesh=mesh)
     rng = np.random.default_rng(args.seed)
     reqs = [Request(rid=i,
                     prompt=rng.integers(0, cfg.vocab, args.prompt_len,
@@ -148,8 +198,12 @@ def run_lm_decode(args):
     done = engine.run(reqs)
     dt = time.perf_counter() - t0
     total = sum(len(v) for v in done.values())
+    if rank:
+        return done
+    where = (f"{world} ranks, mesh (data {world // args.tp}, model "
+             f"{args.tp})" if world > 1 else str(engine.device))
     print(f"{cfg.arch_id} ({cfg.n_layer} layers, d {cfg.d_model}) on "
-          f"{engine.device}: served {len(done)} requests, {total} tokens in "
+          f"{where}: served {len(done)} requests, {total} tokens in "
           f"{dt:.1f}s ({total / dt:.1f} tok/s aggregate)")
     for rid in sorted(done)[:3]:
         print(f"  req {rid}: {done[rid][:10]}...")

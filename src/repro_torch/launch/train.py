@@ -62,11 +62,19 @@ torchrun) the step is data-parallel over the reference's (N, 1) mesh over
 each rank takes its rows, and each parameter and its moments are sharded
 over ``data`` where the family's partition rules say so under
 ``cfg.fsdp`` (True in every full config, False at ``--smoke``, as in the
-reference).  Checkpoints hold the full arrays (rank 0 gathers and writes),
-so a run resumes on any N; rank 0 prints the losses.
+reference).  ``--tp M`` makes the mesh (N / M, M): each rank holds its
+slices over ``model`` of every leaf its spec splits there, and the step
+is tensor-parallel over them (``parallel.tensor``); ``--batch`` then
+splits over the N / M data ranks.  The default ``--tp 1`` is the
+reference's (N, 1).  A full-size model is cut to each rank's slices
+module by module as it is drawn.  Checkpoints hold the full arrays (rank 0
+gathers and writes), so a run resumes on any N and M; rank 0 prints the
+losses.
 
   # two CPU ranks (gloo), then the same on one device: the same losses
   PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke --steps 2 --batch 2 --seq 32 --device cpu --devices 2
+  # four CPU ranks, a (2, 2) mesh: data 2 x tensor-parallel 2
+  PYTHONPATH=src python -m repro_torch.launch.train --arch glm4-9b --smoke --device cpu --devices 4 --tp 2 --steps 2 --batch 2 --seq 32
   # whisper-medium at full size, FSDP over two ranks on the card (they
   # share it through gloo when it is the only one)
   PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-medium --steps 3 --batch 2 --seq 448 --devices 2
@@ -74,6 +82,7 @@ so a run resumes on any N; rank 0 prints the losses.
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -133,6 +142,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--devices", type=int, default=1,
                     help="rank processes to spawn (1: this process alone; "
                          "ignored under torchrun)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="LM: tensor-parallel extent, the mesh's 'model' "
+                         "axis ((devices / tp, tp) over ('data', 'model'))")
     ap.add_argument("--bp", type=int, default=1)
     ap.add_argument("--dap", type=int, default=1)
     ap.add_argument("--pods", type=int, default=1)
@@ -186,6 +198,9 @@ def main(argv=None):
     device_type = resolve_device(args.device).type
     if args.arch:
         return launch_lm(args, device_type)
+    if args.tp != 1:
+        raise SystemExit("--tp splits an LM over 'model' (--arch); AF2 "
+                         "plans take --bp / --dap")
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         rank, world, device, backend = ranks.from_env(device_type,
                                                       args.rank_timeout)
@@ -220,9 +235,10 @@ def launch_lm(args, device_type: str):
         return run_lm(args, rank=rank, world=world, device=device)
     if args.devices <= 1:
         return run_lm(args)
-    if args.batch % args.devices:
+    if args.devices % args.tp or args.batch % (args.devices // args.tp):
         raise SystemExit(f"--batch {args.batch} (the global batch) does not "
-                         f"split over --devices {args.devices}")
+                         f"split over the {args.devices // args.tp} data "
+                         f"ranks of --devices {args.devices} --tp {args.tp}")
     import torch
     backend = ranks.choose_backend(device_type, args.devices)
     print(ranks.describe_backend(device_type, backend, args.devices))
@@ -424,10 +440,12 @@ def run_lm(args, *, rank: int = 0, world: int = 1, device=None,
            on_step=None) -> dict:
     """The reference's ``run_lm``: on one device, or as rank ``rank`` of
     ``world`` data-parallel ranks (every rank calls it together) on
-    ``device``.  The weights are drawn from seed 0 on the CPU at
-    ``--smoke`` (a run on the card and one on the CPU train the same
-    weights), on the run's device at full size (a CPU draw of whisper-
-    medium's 0.76 B parameters takes ~90 s); every rank draws the same.
+    ``device`` (a (world / tp, tp) mesh over ("data", "model")).  The
+    weights are drawn from seed 0 on the CPU at ``--smoke`` (a run on the
+    card and one on the CPU train the same weights), on the run's device
+    at full size (a CPU draw of whisper-medium's 0.76 B parameters takes
+    ~90 s), each module cut to the rank's slices as it is drawn; every rank
+    draws the same.
     ``on_step(step, state, metrics)``, if given, is called after each
     step, ``metrics`` with the step's wall ``step_s``.  Returns {step:
     loss} of the steps this run took."""
@@ -446,7 +464,7 @@ def run_lm(args, *, rank: int = 0, world: int = 1, device=None,
     from repro_torch.train.optim import adamw, warmup_cosine
     from repro_torch.train.trainstep import (init_lm_state, lm_full_state,
                                              lm_full_state_like, lm_layout,
-                                             load_lm_full_state_,
+                                             lm_shapes, load_lm_full_state_,
                                              make_lm_train_step)
 
     print_ = print if rank == 0 else (lambda *a, **k: None)
@@ -455,21 +473,23 @@ def run_lm(args, *, rank: int = 0, world: int = 1, device=None,
                else cfglib.get_config(args.arch))
     except KeyError as e:
         raise SystemExit(str(e))
-    if args.batch % world:
+    tp = getattr(args, "tp", 1)
+    if world % tp or args.batch % (world // tp):
         raise SystemExit(f"--batch {args.batch} (the global batch) does not "
-                         f"split over {world} ranks")
+                         f"split over the {world // tp} data ranks of "
+                         f"{world} ranks at --tp {tp}")
     cfg = with_kernels(cfg)
     dev = device if device is not None else resolve_device(args.device)
     lm = get_model(cfg)
     opt = adamw(warmup_cosine(args.lr, 20, args.steps), clip_norm=1.0)
-    model = lm.init_params(cfg, seed=0,
-                           device="cpu" if args.smoke else dev)
-    n_params = sum(p.numel() for p in model.parameters())
+    shapes = lm_shapes(lm, cfg)
+    n_params = sum(math.prod(s) for s in shapes.values())
     mesh = layout = None
     if world > 1:
-        mesh = make_mesh((world, 1), ("data", "model"))
-        layout = lm_layout(lm, cfg, model, mesh)
-        layout.shard_(model)            # cut where drawn, then moved
+        mesh = make_mesh((world // tp, tp), ("data", "model"))
+        layout = lm_layout(lm, cfg, shapes, mesh)
+    model = lm.init_params(cfg, seed=0, device="cpu" if args.smoke else dev,
+                           cut=None if layout is None else layout.cut)
     model = model.to(dev)
     state = init_lm_state(model, opt, layout=layout)
     if dev.type == "cuda":
@@ -480,11 +500,16 @@ def run_lm(args, *, rank: int = 0, world: int = 1, device=None,
            f"{dev}")
     if layout is not None:
         held = layout.bytes_held(dict(model.named_parameters()))
-        print_(f"data parallel: {world} ranks over 'data', fsdp={cfg.fsdp}: "
-               f"{len(layout.sharded)} of {len(layout.dims)} leaves sharded; "
-               f"rank 0 holds {held['sharded'] / 2 ** 20:.1f} MiB sharded + "
-               f"{held['replicated'] / 2 ** 20:.1f} MiB replicated "
-               "parameters (and as much of each moment)")
+        split = sum(d is not None for d in layout.mdims.values())
+        print_(f"data parallel: {world // tp} ranks over 'data', "
+               f"fsdp={cfg.fsdp}: {len(layout.sharded)} of "
+               f"{len(layout.dims)} leaves sharded; tensor parallel: {tp} "
+               f"over 'model', {split} leaves split; rank 0 holds "
+               f"{(held['sharded'] + held['both']) / 2 ** 20:.1f} MiB "
+               "sharded over 'data', "
+               f"{(held['model_split'] + held['both']) / 2 ** 20:.1f} MiB "
+               f"split over 'model', {held['replicated'] / 2 ** 20:.1f} MiB "
+               "replicated (parameters; as much of each moment)")
 
     def tree():
         return train_state_tree(lm_full_state(state),

@@ -15,12 +15,22 @@ cache's tensors in place and return the cache: the reference's functional
 updates would copy the whole cache at every layer of every token.  Like the
 reference's ``dynamic_update_slice``, a write at a position past the end of
 the cache lands on its last slot.
+
+Under tensor parallelism (``parallel.tensor.model_parallel``) the
+parameters are this rank's slices: the attention blocks take their heads
+from ``tensor.block_heads`` (local heads where the split falls on them,
+else the gathered projections), the MLP is column- then row-parallel, the
+embedding, head and cross entropy vocab-parallel; ``prefill`` and
+``decode_step`` return logits over this rank's share of the vocabulary
+(``tensor.full_vocab`` / ``tensor.greedy`` read them), and a cache holds
+the KV heads its cache rule names.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
@@ -28,9 +38,11 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention, decode_attention
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
-                                   dense, rmsnorm, swiglu, make_generator)
+                                   dense, drawn, rmsnorm, swiglu,
+                                   make_generator)
 from repro_torch.nn.partition import P
 from repro_torch.nn.rope import apply_rope
+from repro_torch.parallel import tensor
 
 BF16 = Policy()
 
@@ -59,61 +71,95 @@ class DenseLM(nn.Module):
     without a card unless ``device="cpu"``) from a generator there seeded
     with ``seed``, one module at a time, each cast to ``dtype`` as soon as it
     is drawn: at bf16 the card holds at most one module (a layer, the
-    embedding or the head) in fp32 besides the bf16 weights."""
+    embedding or the head) in fp32 besides the bf16 weights.  With ``cut``
+    (a rank's ``parallel.fsdp.Layout.cut``) each module is cut to the
+    rank's slices as soon as it is drawn: the slices of the one-device
+    model's weights, as every family's ``init_params`` takes it."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cut=None):
         super().__init__()
         device = resolve_device(device)
         g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
-        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
-        self.layers = nn.ModuleList(Layer(cfg, **kw).to(dtype)
-                                    for _ in range(cfg.n_layer))
-        self.ln_f = RMSNorm(cfg.d_model, device=device).to(dtype)
+        self.embed = drawn(Embedding(cfg.vocab, cfg.d_model, **kw), dtype,
+                           cut, "embed.")
+        self.layers = nn.ModuleList(
+            drawn(Layer(cfg, **kw), dtype, cut, f"layers.{i}.")
+            for i in range(cfg.n_layer))
+        self.ln_f = drawn(RMSNorm(cfg.d_model, device=device), dtype, cut,
+                          "ln_f.")
         if not cfg.tie_embeddings:
-            self.lm_head = Dense(cfg.d_model, cfg.vocab, use_bias=False,
-                                 **kw).to(dtype)
+            self.lm_head = drawn(Dense(cfg.d_model, cfg.vocab,
+                                       use_bias=False, **kw), dtype, cut,
+                                 "lm_head.")
 
 
 def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> DenseLM:
-    return DenseLM(cfg, seed=seed, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, cut=None) -> DenseLM:
+    return DenseLM(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
+def heads_of(p, cfg: LMConfig) -> tensor.Heads:
+    """The block's ``tensor.Heads`` plan (all heads, off tensor
+    parallelism)."""
+    return tensor.block_heads(p, cfg.n_head, cfg.n_kv_head, cfg.d_head)
+
+
 def attention_block(p: Layer, cfg: LMConfig, x, positions, *, causal=True,
-                    kv_cache: Optional[tuple] = None, cache_lengths=None):
-    """Returns (out, (k, v)): the new K/V for cache maintenance."""
-    b, s, _ = x.shape
-    h = rmsnorm(p.ln1, x)
-    q = dense(p.wq, h).reshape(b, s, cfg.n_head, cfg.d_head)
-    k = dense(p.wk, h).reshape(b, s, cfg.n_kv_head, cfg.d_head)
-    v = dense(p.wv, h).reshape(b, s, cfg.n_kv_head, cfg.d_head)
+                    kv_cache: Optional[tuple] = None, cache_lengths=None,
+                    cache=None):
+    """Returns (out, (k, v)): the new K/V for cache maintenance; under
+    tensor parallelism the K/V heads that the cache ``cache`` (a layer's k
+    tensor: all heads, or this rank's) takes, or for None the computed
+    heads'."""
+    hp = heads_of(p, cfg)
+    h = hp.copy_in(rmsnorm(p.ln1, x))
+    # q, k, v in the reference's order: autograd sums their gradients into
+    # h in that order (bf16: another order rounds otherwise)
+    qp, kp, vp = dense(p.wq, h), dense(p.wk, h), dense(p.wv, h)
+    q, k, v = hp.q(qp), hp.kv(kp), hp.kv(vp)
     q = apply_rope(q, positions, theta=cfg.rope_theta)
     k = apply_rope(k, positions, theta=cfg.rope_theta)
     if kv_cache is not None:
-        o = decode_attention(q, kv_cache[0], kv_cache[1], lengths=cache_lengths)
+        o = decode_attention(q, hp.from_cache(kv_cache[0]),
+                             hp.from_cache(kv_cache[1]), lengths=cache_lengths)
     else:
         o = attention(q, k, v, causal=causal, impl=cfg.attention_impl,
                       chunk_size=cfg.attention_chunk)
-    o = dense(p.wo, o.reshape(b, s, cfg.n_head * cfg.d_head))
+    o = hp.out(o, p.wo)
+    if cache is not None and hp.split:
+        k = apply_rope(hp.for_cache(kp, cache), positions,
+                       theta=cfg.rope_theta)
+        v = hp.for_cache(vp, cache)
     return o, (k, v)
 
 
+def mlp(p: SwiGLU, x, d_ff: int):
+    """The SwiGLU MLP, column- then row-parallel (``swiglu`` off tensor
+    parallelism)."""
+    if tensor.split_of(p.w_gate.w.shape[-1], d_ff, "mlp/w_gate") is None:
+        return swiglu(p, x)
+    x = tensor.copy_in(x)
+    return tensor.row_dense(p.w_down, F.silu(dense(p.w_gate, x))
+                            * dense(p.w_up, x), d_ff, "mlp/w_down")
+
+
 def layer_apply(p: Layer, cfg: LMConfig, x, positions, *, causal=True,
-                kv_cache=None, cache_lengths=None):
+                kv_cache=None, cache_lengths=None, cache=None):
     att, kv = attention_block(p, cfg, x, positions, causal=causal,
-                              kv_cache=kv_cache, cache_lengths=cache_lengths)
+                              kv_cache=kv_cache, cache_lengths=cache_lengths,
+                              cache=cache)
     if cfg.parallel_block:
         # PaLM-style: x + Attn(LN1 x) + MLP(LN2 x), two independent branches
-        mlp = swiglu(p.mlp, rmsnorm(p.ln2, x))
-        return (x + att + mlp).to(att.dtype), kv
+        y = mlp(p.mlp, rmsnorm(p.ln2, x), cfg.d_ff)
+        return (x + att + y).to(att.dtype), kv
     x = x + att
-    x = x + swiglu(p.mlp, rmsnorm(p.ln2, x))
+    x = x + mlp(p.mlp, rmsnorm(p.ln2, x), cfg.d_ff)
     return x.to(att.dtype), kv
 
 
@@ -176,10 +222,18 @@ def backbone(params: DenseLM, cfg: LMConfig, x, positions, *, causal=True):
 
 
 def logits_fn(params: DenseLM, cfg: LMConfig, x):
+    """Logits over the vocabulary (this rank's share of it under tensor
+    parallelism, where the head is split)."""
     head = getattr(params, "lm_head", None)
     if cfg.tie_embeddings or head is None:
-        return x @ params.embed.table.to(x.dtype).T
-    return dense(head, x)
+        return tensor.lm_logits(x, params.embed.table, cfg.vocab, tied=True)
+    return tensor.lm_logits(x, head.w, cfg.vocab)
+
+
+def embed(params, cfg: LMConfig, tokens):
+    """The token embeddings (a vocab-parallel lookup where the table is
+    split)."""
+    return tensor.embed(params.embed.table, tokens, cfg.vocab)
 
 
 def _positions(b: int, s: int, device):
@@ -191,7 +245,7 @@ def forward(params: DenseLM, cfg: LMConfig, tokens):
     autograd: gradients reach the fp32 masters)."""
     params = BF16.cast_train(params)
     b, s = tokens.shape
-    x = params.embed.table[tokens.long()]
+    x = embed(params, cfg, tokens)
     x = backbone(params, cfg, x, _positions(b, s, x.device))
     return logits_fn(params, cfg, x)
 
@@ -211,7 +265,8 @@ def cross_entropy(logits, labels, *, mask=None):
 
 def loss(params: DenseLM, cfg: LMConfig, batch: dict):
     logits = forward(params, cfg, batch["tokens"])
-    return cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
+    return tensor.cross_entropy(logits, batch["labels"], cfg.vocab,
+                                mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -233,10 +288,11 @@ def prefill(params: DenseLM, cfg: LMConfig, tokens, cache):
     logits (B, 1, V), cache)."""
     params = BF16.cast(params)
     b, s = tokens.shape
-    x = params.embed.table[tokens.long()]
+    x = embed(params, cfg, tokens)
     positions = _positions(b, s, x.device)
     for i, lp in enumerate(params.layers):
-        x, (k, v) = layer_apply(lp, cfg, x, positions, causal=True)
+        x, (k, v) = layer_apply(lp, cfg, x, positions, causal=True,
+                                cache=cache["k"][i])
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = rmsnorm(params.ln_f, x)
@@ -268,33 +324,34 @@ def decode_attention_block(p, cfg: LMConfig, h, kc, vc, length):
     filled slots; returns ``wo`` of the output (B, 1, D).  ``p`` holds
     ``wq`` / ``wk`` / ``wv`` / ``wo`` (a layer, or the hybrid's shared
     block)."""
-    b = h.shape[0]
     positions = length[:, None]                                  # (B, 1)
-    q = dense(p.wq, h).reshape(b, 1, cfg.n_head, cfg.d_head)
-    k = dense(p.wk, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
-    v = dense(p.wv, h).reshape(b, 1, cfg.n_kv_head, cfg.d_head)
-    q = apply_rope(q, positions, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, theta=cfg.rope_theta)
+    hp = heads_of(p, cfg)
+    h = hp.copy_in(h)
+    q = apply_rope(hp.q(dense(p.wq, h)), positions, theta=cfg.rope_theta)
+    k = apply_rope(hp.for_cache(dense(p.wk, h), kc), positions,
+                   theta=cfg.rope_theta)
     kc = write_kv_cache(kc, k, length, uniform=cfg.uniform_decode)
-    vc = write_kv_cache(vc, v, length, uniform=cfg.uniform_decode)
-    o = decode_attention(q, kc, vc, lengths=length + 1)
-    return dense(p.wo, o.reshape(b, 1, cfg.n_head * cfg.d_head))
+    vc = write_kv_cache(vc, hp.for_cache(dense(p.wv, h), vc), length,
+                        uniform=cfg.uniform_decode)
+    o = decode_attention(q, hp.from_cache(kc), hp.from_cache(vc),
+                         lengths=length + 1)
+    return hp.out(o, p.wo)
 
 
 @torch.no_grad()
 def decode_step(params: DenseLM, cfg: LMConfig, tokens1, cache):
     """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
     params = BF16.cast(params)
-    x = params.embed.table[tokens1.long()]
+    x = embed(params, cfg, tokens1)
     length = cache["length"]
     for i, lp in enumerate(params.layers):
         att = decode_attention_block(lp, cfg, rmsnorm(lp.ln1, x),
                                      cache["k"][i], cache["v"][i], length)
         if cfg.parallel_block:
-            x = x + att + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
+            x = x + att + mlp(lp.mlp, rmsnorm(lp.ln2, x), cfg.d_ff)
         else:
             x = x + att
-            x = x + swiglu(lp.mlp, rmsnorm(lp.ln2, x))
+            x = x + mlp(lp.mlp, rmsnorm(lp.ln2, x), cfg.d_ff)
         x = x.to(att.dtype)
     x = rmsnorm(params.ln_f, x)
     logits = logits_fn(params, cfg, x)

@@ -13,6 +13,12 @@ token's.  Its prefill attention goes through ``nn.attention.attention(
 impl=cfg.attention_impl)``: on the kernels (``with_kernels``), the flash
 kernel K6 at the config's head dim (112 for zamba2-7b).
 
+Under tensor parallelism (``parallel.tensor``) the backbone is
+``ssm``'s, and the shared block's ``fuse`` is column-parallel before the
+column-parallel ``w[qkv]``: its output is gathered over ``model``
+(``tensor.gather``) into the block's residual stream, then the block's
+attention and MLP run as ``dense``'s do.
+
 The reference's docstring names a ``bp_hybrid_layer``; the JAX package has
 no such function, and nothing here stands for it.
 """
@@ -24,12 +30,11 @@ from torch import nn
 from repro_torch.device import resolve_device
 from repro_torch.models import dense, ssm
 from repro_torch.models.lmconfig import LMConfig
-from repro_torch.nn.attention import attention
 from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
-                                   dense as dense_apply, rmsnorm, swiglu,
+                                   dense as dense_apply, drawn, rmsnorm,
                                    make_generator)
-from repro_torch.nn.rope import apply_rope
+from repro_torch.parallel import tensor
 
 BF16 = Policy()
 
@@ -61,23 +66,26 @@ class SharedBlock(nn.Module):
         self.mlp = SwiGLU(d, cfg.d_ff, **kw)
 
 
-def shared_block_apply(p: SharedBlock, cfg: LMConfig, x, x0, positions):
+def fuse(p: SharedBlock, cfg: LMConfig, x, x0):
+    """``fuse`` of concat(x, x0), whole on every rank (column-parallel,
+    then gathered, where ``fuse`` is split)."""
+    xx = torch.cat([x, x0], dim=-1)
+    if tensor.split_of(p.fuse.w.shape[-1], cfg.d_model, "fuse") is None:
+        return dense_apply(p.fuse, xx)
+    return tensor.gather(dense_apply(p.fuse, tensor.copy_in(xx)))
+
+
+def shared_block_apply(p: SharedBlock, cfg: LMConfig, x, x0, positions,
+                       cache=None):
     """x, x0 (B, S, D) -> (the update to add to x, (k, v)), causal over the
     S tokens (the reference's ``kv_cache=`` branch has no caller: decode
-    runs ``decode_step``'s own)."""
-    b, s, _ = x.shape
-    h = dense_apply(p.fuse, torch.cat([x, x0], dim=-1))
-    hn = rmsnorm(p.ln1, h)
-    q = dense_apply(p.wq, hn).reshape(b, s, cfg.n_head, cfg.d_head)
-    k = dense_apply(p.wk, hn).reshape(b, s, cfg.n_kv_head, cfg.d_head)
-    v = dense_apply(p.wv, hn).reshape(b, s, cfg.n_kv_head, cfg.d_head)
-    q = apply_rope(q, positions, theta=cfg.rope_theta)
-    k = apply_rope(k, positions, theta=cfg.rope_theta)
-    o = attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                  chunk_size=cfg.attention_chunk)
-    h = h + dense_apply(p.wo, o.reshape(b, s, cfg.n_head * cfg.d_head))
-    h = h + swiglu(p.mlp, rmsnorm(p.ln2, h))
-    return h.to(x.dtype), (k, v)
+    runs ``decode_step``'s own); (k, v) as ``dense.attention_block``'s for
+    a ``cache``."""
+    h = fuse(p, cfg, x, x0)
+    att, kv = dense.attention_block(p, cfg, h, positions, cache=cache)
+    h = h + att
+    h = h + dense.mlp(p.mlp, rmsnorm(p.ln2, h), cfg.d_ff)
+    return h.to(x.dtype), kv
 
 
 class HybridLM(nn.Module):
@@ -88,23 +96,26 @@ class HybridLM(nn.Module):
     stack."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cut=None):
         super().__init__()
         device = resolve_device(device)
         g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
-        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
-        self.layers = nn.ModuleList(ssm.Block(cfg, **kw).to(dtype)
-                                    for _ in range(cfg.n_layer))
-        self.shared = SharedBlock(cfg, **kw).to(dtype)
-        self.ln_f = RMSNorm(cfg.d_model, device=device).to(dtype)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab, use_bias=False,
-                             **kw).to(dtype)
+        self.embed = drawn(Embedding(cfg.vocab, cfg.d_model, **kw), dtype,
+                           cut, "embed.")
+        self.layers = nn.ModuleList(
+            drawn(ssm.Block(cfg, **kw), dtype, cut, f"layers.{i}.")
+            for i in range(cfg.n_layer))
+        self.shared = drawn(SharedBlock(cfg, **kw), dtype, cut, "shared.")
+        self.ln_f = drawn(RMSNorm(cfg.d_model, device=device), dtype, cut,
+                          "ln_f.")
+        self.lm_head = drawn(Dense(cfg.d_model, cfg.vocab, use_bias=False,
+                                   **kw), dtype, cut, "lm_head.")
 
 
 def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> HybridLM:
-    return HybridLM(cfg, seed=seed, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, cut=None) -> HybridLM:
+    return HybridLM(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
 
 
 def backbone(params: HybridLM, cfg: LMConfig, x, positions):
@@ -129,15 +140,15 @@ def forward(params: HybridLM, cfg: LMConfig, tokens):
     """tokens (B, S) -> logits (B, S, V), in bf16."""
     params = BF16.cast_train(params)
     b, s = tokens.shape
-    x = params.embed.table[tokens.long()]
+    x = dense.embed(params, cfg, tokens)
     x = backbone(params, cfg, x, dense._positions(b, s, x.device))
-    return dense_apply(params.lm_head, x)
+    return dense.logits_fn(params, cfg, x)
 
 
 def loss(params: HybridLM, cfg: LMConfig, batch: dict):
     logits = forward(params, cfg, batch["tokens"])
-    return dense.cross_entropy(logits, batch["labels"],
-                               mask=batch.get("mask"))
+    return tensor.cross_entropy(logits, batch["labels"], cfg.vocab,
+                                mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -161,7 +172,7 @@ def prefill(params: HybridLM, cfg: LMConfig, tokens, cache):
     b, s = tokens.shape
     ssm.check_prompt(cfg, s)
     params = BF16.cast(params)
-    x = params.embed.table[tokens.long()]
+    x = dense.embed(params, cfg, tokens)
     x0 = x
     positions = dense._positions(b, s, x.device)
     every = cfg.shared_attn_every
@@ -171,13 +182,14 @@ def prefill(params: HybridLM, cfg: LMConfig, tokens, cache):
         cache["conv"][i] = conv_s
         cache["S"][i] = S
         if shared_at(cfg, i):
-            upd, (k, v) = shared_block_apply(params.shared, cfg, x, x0,
-                                             positions)
+            upd, (k, v) = shared_block_apply(
+                params.shared, cfg, x, x0, positions,
+                cache=cache["shared_k"][i // every])
             cache["shared_k"][i // every, :, :s] = k
             cache["shared_v"][i // every, :, :s] = v
             x = (x + upd).to(x.dtype)
     x = rmsnorm(params.ln_f, x)
-    logits = dense_apply(params.lm_head, x[:, -1:])
+    logits = dense.logits_fn(params, cfg, x[:, -1:])
     return logits, {**cache, "length": torch.full((b,), s, dtype=torch.int32,
                                                   device=x.device)}
 
@@ -186,7 +198,7 @@ def prefill(params: HybridLM, cfg: LMConfig, tokens, cache):
 def decode_step(params: HybridLM, cfg: LMConfig, tokens1, cache):
     """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
     params = BF16.cast(params)
-    x = params.embed.table[tokens1.long()][:, 0]         # (B, D)
+    x = dense.embed(params, cfg, tokens1)[:, 0]          # (B, D)
     x0 = x
     length = cache["length"]
     every = cfg.shared_attn_every
@@ -199,15 +211,15 @@ def decode_step(params: HybridLM, cfg: LMConfig, tokens1, cache):
         cache["S"][i] = st["S"]
         if not shared_at(cfg, i):
             continue
-        h = dense_apply(sp.fuse, torch.cat([x, x0], dim=-1))[:, None]
+        h = fuse(sp, cfg, x, x0)[:, None]
         inv = i // every
         h = h + dense.decode_attention_block(
             sp, cfg, rmsnorm(sp.ln1, h), cache["shared_k"][inv],
             cache["shared_v"][inv], length)
-        h = h + swiglu(sp.mlp, rmsnorm(sp.ln2, h))
+        h = h + dense.mlp(sp.mlp, rmsnorm(sp.ln2, h), cfg.d_ff)
         x = (x + h[:, 0]).to(x.dtype)
     x = rmsnorm(params.ln_f, x)
-    logits = dense_apply(params.lm_head, x[:, None])
+    logits = dense.logits_fn(params, cfg, x[:, None])
     return logits, {**cache, "length": length + 1}
 
 

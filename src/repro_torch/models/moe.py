@@ -19,6 +19,14 @@ count's, a choice's buffer position counts the earlier choices of every
 rank (the (k, T) order over the rows of all ranks), and the load-balancing
 statistics are summed over the axis.
 
+Under tensor parallelism (``parallel.tensor``) the banks are split along
+the expert axis (expert parallelism) and the router is replicated: each
+rank computes its own experts' share, for dropless serving and for the
+capacity routing alike (the dispatch and the gates are the whole batch's,
+computed on every rank, and read through ``tensor.copy_in`` for the
+rank's experts), the shared experts column- then row-parallel, and one
+all-reduce over ``model`` combines them.
+
 Parameters live in a :class:`MoELM` under the reference's key paths
 (``layers.<i>.moe.router.w``, ``layers.<i>.moe.w_gate`` of shape (E_pad,
 d, f), ``layers.<i>.moe.shared.w_up.w``); ``bridge`` splits the reference's
@@ -39,9 +47,10 @@ from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.partition import P
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import fsdp
+from repro_torch.parallel import tensor
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, SwiGLU,
-                                   dense as dense_apply, rmsnorm, swiglu,
-                                   make_generator)
+                                   dense as dense_apply, drawn, rmsnorm,
+                                   swiglu, make_generator)
 
 BF16 = Policy()
 
@@ -101,17 +110,50 @@ def _promoted(*ts):
     return [t.to(dt) for t in ts]
 
 
+def _local_experts(p: MoEFFN, cfg: LMConfig):
+    """This rank's range of the bank's experts (None: all of them)."""
+    return tensor.split_of(p.w_gate.shape[0], padded_experts(cfg),
+                           "moe/w_gate")
+
+
+def _combine(p: MoEFFN, cfg: LMConfig, x, y, experts):
+    """``y`` (the routed experts' output: this rank's experts' share where
+    ``experts`` is a range) plus the shared experts'; the shares summed
+    over ``model`` in one all-reduce."""
+    whole, shares = (y, None) if experts is None else (None, y)
+    if cfg.n_shared_experts:
+        d_ff = cfg.shared_d_ff or cfg.n_shared_experts * cfg.moe_d_ff
+        sp = p.shared
+        if tensor.split_of(sp.w_gate.w.shape[-1], d_ff, "moe/shared") is None:
+            sh = swiglu(sp, x)
+            whole = sh if whole is None else whole + sh
+        else:
+            h = tensor.copy_in(x)
+            sh = dense_apply(sp.w_down, F.silu(dense_apply(sp.w_gate, h))
+                             * dense_apply(sp.w_up, h))
+            shares = sh if shares is None else shares + sh
+    if shares is None:
+        return whole
+    shares = tensor.reduce_out(shares)
+    return shares if whole is None else whole + shares
+
+
 def moe_ffn_dense(p: MoEFFN, cfg: LMConfig, x):
     """Dropless MoE for serving: evaluate every bank expert (padded slots
     included, at gate 0) and weight each by the sparse top-k gates.  The
     fp32 (T, E_pad) gate matrix is cast to the activations' dtype before the
-    combine, as the reference casts it."""
+    combine, as the reference casts it.  Expert-parallel: this rank's
+    experts."""
     b, s, d = x.shape
     xf = x.reshape(-1, d)
     logits = dense_apply(p.router, xf)
     gates, idx, _ = router_topk(logits, cfg.top_k)
     w = torch.zeros((xf.shape[0], padded_experts(cfg)), dtype=torch.float32,
                     device=x.device).scatter_add_(1, idx, gates)
+    experts = _local_experts(p, cfg)
+    if experts is not None:
+        w, xf = tensor.narrow(tensor.copy_in(w), 1, experts), \
+            tensor.copy_in(xf)
     xf, wg, wu, wd = _promoted(xf, p.w_gate, p.w_up, p.w_down)
     # (E_pad, T, f) and (E_pad, T, d): the reference's "td,edf->tef" and
     # "tef,efd->ted" as products batched over the banks, which read each
@@ -120,10 +162,7 @@ def moe_ffn_dense(p: MoEFFN, cfg: LMConfig, x):
     u = torch.matmul(xf, wu)
     he = torch.matmul(F.silu(h) * u, wd)
     y = torch.einsum("te,etd->td", *_promoted(w.to(x.dtype), he))
-    y = y.reshape(b, s, d)
-    if cfg.n_shared_experts:
-        y = y + swiglu(p.shared, x)
-    return y
+    return _combine(p, cfg, x, y.reshape(b, s, d), experts)
 
 
 def capacity_dispatch(idx, gates, n_experts: int, capacity: int,
@@ -235,21 +274,27 @@ def moe_ffn(p: MoEFFN, cfg: LMConfig, x, *, return_aux: bool = False):
     cap = expert_capacity(cfg, t_all)
     e_pad = padded_experts(cfg)
     shift = None if axis is None else global_shift(idx, e_pad, axis)
+    experts = _local_experts(p, cfg)
+    lo, hi = experts or (0, e_pad)
+    if experts is not None:
+        # the dispatch is the whole batch's; this rank's experts read it
+        xf, gates = tensor.copy_in(xf), tensor.copy_in(gates)
     if cfg.moe_dispatch == "sorted":
         xe, slot_by_tk, keep_by_tk = sorted_dispatch(idx, gates, xf, e_pad,
                                                      cap, shift)
-        he = _expert_ffn(p, xe).reshape(e_pad * cap, d)
-        picked = he[slot_by_tk]                              # (k, T, D)
-        w = (gates.T * keep_by_tk).to(x.dtype)               # (k, T)
+        he = _expert_ffn(p, xe[lo:hi]).reshape((hi - lo) * cap, d)
+        slot = slot_by_tk - lo * cap
+        mine = (slot >= 0) & (slot < (hi - lo) * cap)
+        picked = he[slot.clamp(0, (hi - lo) * cap - 1)]      # (k, T, D)
+        w = (gates.T * (keep_by_tk & mine)).to(x.dtype)      # (k, T)
         y = torch.einsum("kt,ktd->td", *_promoted(w, picked))
     else:   # 'einsum': the GShard one-hot dispatch
         disp, combine = capacity_dispatch(idx, gates, e_pad, cap, shift)
+        disp, combine = disp[:, lo:hi], combine[:, lo:hi]
         xe = torch.einsum("tec,td->ecd", *_promoted(disp.to(x.dtype), xf))
         he = _expert_ffn(p, xe)
         y = torch.einsum("tec,ecd->td", *_promoted(combine.to(x.dtype), he))
-    y = y.reshape(b, s, d)
-    if cfg.n_shared_experts:
-        y = y + swiglu(p.shared, x)
+    y = _combine(p, cfg, x, y.reshape(b, s, d), experts)
     if not return_aux:
         return y
     fe = F.one_hot(idx[:, 0], cfg.n_experts).float()
@@ -287,26 +332,29 @@ class MoELM(nn.Module):
     it is drawn (as ``dense.DenseLM``)."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cut=None):
         super().__init__()
         device = resolve_device(device)
         g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
-        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
-        self.layers = nn.ModuleList(Layer(cfg, **kw).to(dtype)
-                                    for _ in range(cfg.n_layer))
-        self.ln_f = RMSNorm(cfg.d_model, device=device).to(dtype)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab, use_bias=False,
-                             **kw).to(dtype)
+        self.embed = drawn(Embedding(cfg.vocab, cfg.d_model, **kw), dtype,
+                           cut, "embed.")
+        self.layers = nn.ModuleList(
+            drawn(Layer(cfg, **kw), dtype, cut, f"layers.{i}.")
+            for i in range(cfg.n_layer))
+        self.ln_f = drawn(RMSNorm(cfg.d_model, device=device), dtype, cut,
+                          "ln_f.")
+        self.lm_head = drawn(Dense(cfg.d_model, cfg.vocab, use_bias=False,
+                                   **kw), dtype, cut, "lm_head.")
 
 
 def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> MoELM:
-    return MoELM(cfg, seed=seed, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, cut=None) -> MoELM:
+    return MoELM(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
 
 
-def _dropless_layer(lp: Layer, cfg: LMConfig, x, positions):
-    att, kv = dense.attention_block(lp, cfg, x, positions)
+def _dropless_layer(lp: Layer, cfg: LMConfig, x, positions, cache=None):
+    att, kv = dense.attention_block(lp, cfg, x, positions, cache=cache)
     x = x + att
     x = x + moe_ffn_dense(lp.moe, cfg, rmsnorm(lp.ln2, x))
     return x.to(att.dtype), kv
@@ -351,15 +399,16 @@ def forward(params: MoELM, cfg: LMConfig, tokens, *, dropless: bool = False):
     loss is then 0)."""
     params = BF16.cast_train(params)
     b, s = tokens.shape
-    x = params.embed.table[tokens.long()]
+    x = dense.embed(params, cfg, tokens)
     x, aux = _stack(params, cfg, x, dense._positions(b, s, x.device),
                     dropless)
-    return dense_apply(params.lm_head, x), aux / cfg.n_layer
+    return dense.logits_fn(params, cfg, x), aux / cfg.n_layer
 
 
 def loss(params: MoELM, cfg: LMConfig, batch: dict):
     logits, aux = forward(params, cfg, batch["tokens"])
-    ce = dense.cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
+    ce = tensor.cross_entropy(logits, batch["labels"], cfg.vocab,
+                              mask=batch.get("mask"))
     return ce + cfg.router_aux_weight * aux
 
 
@@ -373,14 +422,14 @@ def prefill(params: MoELM, cfg: LMConfig, tokens, cache):
     logits (B, 1, V), cache)."""
     params = BF16.cast(params)
     b, s = tokens.shape
-    x = params.embed.table[tokens.long()]
+    x = dense.embed(params, cfg, tokens)
     positions = dense._positions(b, s, x.device)
     for i, lp in enumerate(params.layers):
-        x, (k, v) = _dropless_layer(lp, cfg, x, positions)
+        x, (k, v) = _dropless_layer(lp, cfg, x, positions, cache["k"][i])
         cache["k"][i, :, :s] = k
         cache["v"][i, :, :s] = v
     x = rmsnorm(params.ln_f, x)
-    logits = dense_apply(params.lm_head, x[:, -1:])
+    logits = dense.logits_fn(params, cfg, x[:, -1:])
     return logits, {"k": cache["k"], "v": cache["v"],
                     "length": torch.full((b,), s, dtype=torch.int32,
                                          device=x.device)}
@@ -390,7 +439,7 @@ def prefill(params: MoELM, cfg: LMConfig, tokens, cache):
 def decode_step(params: MoELM, cfg: LMConfig, tokens1, cache):
     """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
     params = BF16.cast(params)
-    x = params.embed.table[tokens1.long()]
+    x = dense.embed(params, cfg, tokens1)
     length = cache["length"]
     for i, lp in enumerate(params.layers):
         x = x + dense.decode_attention_block(lp, cfg, rmsnorm(lp.ln1, x),
@@ -399,7 +448,7 @@ def decode_step(params: MoELM, cfg: LMConfig, tokens1, cache):
         y = moe_ffn_dense(lp.moe, cfg, rmsnorm(lp.ln2, x))
         x = (x + y).to(y.dtype)
     x = rmsnorm(params.ln_f, x)
-    logits = dense_apply(params.lm_head, x)
+    logits = dense.logits_fn(params, cfg, x)
     return logits, {"k": cache["k"], "v": cache["v"], "length": length + 1}
 
 

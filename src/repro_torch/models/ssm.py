@@ -18,6 +18,20 @@ last chunk's entering state times that chunk's decay, plus the chunk's own
 summary; pad steps have dt 0 and are inert), where the reference rebuilds
 it by a scan over every prompt token: the same sum in another order.
 ``prefill`` and ``decode_step`` write the cache's tensors in place.
+
+Under tensor parallelism (``parallel.tensor``) a rank holds its heads'
+columns of ``wz`` / ``wx`` / ``wdt``, its heads of ``dt_bias`` /
+``A_log`` / ``D`` and its rows of ``out``; ``wB`` / ``wC`` and
+``conv_w`` are replicated.  B and C are computed whole on every rank
+(their convolution too) and read through ``tensor.copy_in`` by the
+rank's heads; the rank reads its own x channels of ``conv_w`` and of
+``gate_ln``'s scale through ``copy_in`` as well.  The gated RMSNorm
+spans the whole ``d_inner``: its sum of squares is ``psum``-ed over
+``model`` (a sum whose every rank uses it for its own columns, so the
+backward sums too).  A cache's ``conv`` holds the rank's x channels and
+the whole B and C (the cache rule would cut the concatenated channels
+evenly; ROADMAP "Reference caveats" lists the bytes), ``S`` the rank's
+heads.
 """
 from __future__ import annotations
 
@@ -26,11 +40,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.dense import cross_entropy, remat
+from repro_torch.models.dense import remat
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, Policy, RMSNorm, dense,
-                                   rmsnorm, make_generator)
+                                   drawn, rmsnorm, make_generator)
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import tensor
 
 BF16 = Policy()
 
@@ -177,27 +193,65 @@ def _causal_conv(u, w, *, state=None):
     return out, ext[..., ext.shape[-2] - (k - 1):, :]
 
 
+def inner_cols(p: Block, cfg: LMConfig):
+    """This rank's range of the ``d_inner`` columns (its heads'; None:
+    all), checked against ``wdt``'s heads."""
+    cols = tensor.split_of(p.wx.w.shape[-1], cfg.d_inner, "wx")
+    heads = tensor.split_of(p.wdt.w.shape[-1], cfg.n_ssm_heads, "wdt")
+    if (cols is None) != (heads is None) or (
+            cols is not None and cols[0] != heads[0] * cfg.ssm_head_dim):
+        raise ValueError(f"wx columns {cols} do not hold wdt's heads "
+                         f"{heads}")
+    return cols
+
+
 def _mixer_inputs(p: Block, cfg: LMConfig, x):
     """The block's projections of x (..., T, D): z, dt (fp32), and xbc =
-    [x | B | C] before the convolution."""
+    [x | B | C] before the convolution (this rank's x channels)."""
     h_ = rmsnorm(p.ln, x)
-    z = dense(p.wz, h_)
-    xbc = torch.cat([dense(p.wx, h_), dense(p.wB, h_), dense(p.wC, h_)], -1)
-    dt = F.softplus(dense(p.wdt, h_).float() + p.dt_bias)
+    hf = h_ if inner_cols(p, cfg) is None else tensor.copy_in(h_)
+    z = dense(p.wz, hf)
+    xbc = torch.cat([dense(p.wx, hf), dense(p.wB, h_), dense(p.wC, h_)], -1)
+    dt = F.softplus(dense(p.wdt, hf).float() + p.dt_bias)
     return z, dt, xbc
 
 
+def _conv_weight(p: Block, cfg: LMConfig, dtype):
+    """``conv_w`` over this rank's x channels and the whole B and C."""
+    w, cols = p.conv_w, inner_cols(p, cfg)
+    if cols is not None:
+        di = cfg.d_inner
+        w = torch.cat([tensor.narrow(tensor.copy_in(w[:, :di]), 1, cols),
+                       w[:, di:]], 1)
+    return w.to(dtype)
+
+
 def _split_xbc(cfg: LMConfig, xbc):
-    di, n = cfg.d_inner, cfg.ssm_state
+    """(x heads (..., H, P), B, C) of the convolved channels; B and C,
+    whole on every rank, read by this rank's heads."""
+    n = cfg.ssm_state
+    di = xbc.shape[-1] - 2 * n
     xin = xbc[..., :di]
-    xh = xin.reshape(*xin.shape[:-1], cfg.n_ssm_heads, cfg.ssm_head_dim)
-    return xh, xbc[..., di:di + n], xbc[..., di + n:]
+    xh = xin.reshape(*xin.shape[:-1], di // cfg.ssm_head_dim,
+                     cfg.ssm_head_dim)
+    Bp, Cp = xbc[..., di:di + n], xbc[..., di + n:]
+    if di != cfg.d_inner:
+        Bp, Cp = tensor.copy_in(Bp), tensor.copy_in(Cp)
+    return xh, Bp, Cp
 
 
-def _gated_out(p: Block, y, z, dtype):
-    """rmsnorm(y * silu(z)) through ``out``; y (..., T, d_inner) fp32."""
+def _gated_out(p: Block, cfg: LMConfig, y, z, dtype, *, eps: float = 1e-6):
+    """rmsnorm(y * silu(z)) through ``out``; y (..., T, d_inner) fp32 (this
+    rank's columns: the norm's sum of squares summed over ``model``)."""
     y = y.to(dtype)
-    return dense(p.out, rmsnorm(p.gate_ln, y * F.silu(z)))
+    cols = inner_cols(p, cfg)
+    if cols is None:
+        return dense(p.out, rmsnorm(p.gate_ln, y * F.silu(z)))
+    g = (y * F.silu(z)).float()
+    ss = coll.psum(g.square().sum(-1, keepdim=True), tensor.current())
+    scale = tensor.narrow(tensor.copy_in(p.gate_ln.scale), 0, cols)
+    n = (g * torch.rsqrt(ss / cfg.d_inner + eps) * scale.float()).to(dtype)
+    return tensor.row_dense(p.out, n, cfg.d_inner, "out")
 
 
 def mamba_with_state(p: Block, cfg: LMConfig, x, *, chunked: bool = True):
@@ -207,7 +261,7 @@ def mamba_with_state(p: Block, cfg: LMConfig, x, *, chunked: bool = True):
     t = x.shape[-2]
     z, dt, xbc = _mixer_inputs(p, cfg, x)
     conv_state = xbc[..., max(t - (cfg.ssm_conv - 1), 0):, :]
-    u, _ = _causal_conv(xbc, p.conv_w.to(xbc.dtype))
+    u, _ = _causal_conv(xbc, _conv_weight(p, cfg, xbc.dtype))
     xh, Bp, Cp = _split_xbc(cfg, F.silu(u))
     A = -torch.exp(p.A_log)
     if chunked:
@@ -215,8 +269,8 @@ def mamba_with_state(p: Block, cfg: LMConfig, x, *, chunked: bool = True):
                            chunk=min(cfg.ssm_chunk, t), return_state=True)
     else:
         y, S = ssd_reference(xh, dt, A, Bp, Cp, p.D), None
-    y = y.reshape(*y.shape[:-2], cfg.d_inner)
-    return _gated_out(p, y, z, x.dtype), (conv_state, S)
+    y = y.reshape(*y.shape[:-2], -1)
+    return _gated_out(p, cfg, y, z, x.dtype), (conv_state, S)
 
 
 def block_apply(p: Block, cfg: LMConfig, x, *, chunked: bool = True):
@@ -239,12 +293,12 @@ def block_decode(p: Block, cfg: LMConfig, x1, state):
     """x1 (..., D), state {"conv": (..., K-1, C), "S": (..., H, N, P)} ->
     (y (..., D), new state)."""
     z, dt, xbc = _mixer_inputs(p, cfg, x1[..., None, :])
-    xbc, conv_state = _causal_conv(xbc, p.conv_w.to(xbc.dtype),
+    xbc, conv_state = _causal_conv(xbc, _conv_weight(p, cfg, xbc.dtype),
                                    state=state["conv"])
     xh, Bp, Cp = _split_xbc(cfg, F.silu(xbc)[..., 0, :])
     A = -torch.exp(p.A_log)
     S, y = ssd_decode_step(state["S"], xh, dt[..., 0, :], A, Bp, Cp, p.D)
-    y = _gated_out(p, y.reshape(*y.shape[:-2], cfg.d_inner)[..., None, :], z,
+    y = _gated_out(p, cfg, y.reshape(*y.shape[:-2], -1)[..., None, :], z,
                    x1.dtype)
     return y[..., 0, :], {"conv": conv_state, "S": S}
 
@@ -260,22 +314,25 @@ class MambaLM(nn.Module):
     it is drawn (as ``dense.DenseLM``)."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cut=None):
         super().__init__()
         device = resolve_device(device)
         g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
-        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
-        self.layers = nn.ModuleList(Block(cfg, **kw).to(dtype)
-                                    for _ in range(cfg.n_layer))
-        self.ln_f = RMSNorm(cfg.d_model, device=device).to(dtype)
-        self.lm_head = Dense(cfg.d_model, cfg.vocab, use_bias=False,
-                             **kw).to(dtype)
+        self.embed = drawn(Embedding(cfg.vocab, cfg.d_model, **kw), dtype,
+                           cut, "embed.")
+        self.layers = nn.ModuleList(
+            drawn(Block(cfg, **kw), dtype, cut, f"layers.{i}.")
+            for i in range(cfg.n_layer))
+        self.ln_f = drawn(RMSNorm(cfg.d_model, device=device), dtype, cut,
+                          "ln_f.")
+        self.lm_head = drawn(Dense(cfg.d_model, cfg.vocab, use_bias=False,
+                                   **kw), dtype, cut, "lm_head.")
 
 
 def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> MambaLM:
-    return MambaLM(cfg, seed=seed, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, cut=None) -> MambaLM:
+    return MambaLM(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
 
 
 def backbone(params: MambaLM, cfg: LMConfig, x, positions=None, *,
@@ -295,13 +352,15 @@ def backbone(params: MambaLM, cfg: LMConfig, x, positions=None, *,
 def forward(params: MambaLM, cfg: LMConfig, tokens, *, chunked: bool = True):
     """tokens (B, T) -> logits (B, T, V), in bf16."""
     params = BF16.cast_train(params)
-    x = params.embed.table[tokens.long()]
-    return dense(params.lm_head, backbone(params, cfg, x, chunked=chunked))
+    x = tensor.embed(params.embed.table, tokens, cfg.vocab)
+    return tensor.lm_logits(backbone(params, cfg, x, chunked=chunked),
+                            params.lm_head.w, cfg.vocab)
 
 
 def loss(params: MambaLM, cfg: LMConfig, batch: dict):
     logits = forward(params, cfg, batch["tokens"])
-    return cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
+    return tensor.cross_entropy(logits, batch["labels"], cfg.vocab,
+                                mask=batch.get("mask"))
 
 
 # serving: a recurrent state instead of a KV cache, O(1) a decode step
@@ -328,14 +387,14 @@ def prefill(params: MambaLM, cfg: LMConfig, tokens, cache):
     b, t = tokens.shape
     check_prompt(cfg, t)
     params = BF16.cast(params)
-    x = params.embed.table[tokens.long()]
+    x = tensor.embed(params.embed.table, tokens, cfg.vocab)
     for i, lp in enumerate(params.layers):
         y, (conv_s, S) = mamba_with_state(lp, cfg, x)
         x = (x + y).to(x.dtype)
         cache["conv"][i] = conv_s
         cache["S"][i] = S
     x = rmsnorm(params.ln_f, x)
-    logits = dense(params.lm_head, x[:, -1:])
+    logits = tensor.lm_logits(x[:, -1:], params.lm_head.w, cfg.vocab)
     return logits, {"conv": cache["conv"], "S": cache["S"],
                     "length": torch.full((b,), t, dtype=torch.int32,
                                          device=x.device)}
@@ -345,7 +404,7 @@ def prefill(params: MambaLM, cfg: LMConfig, tokens, cache):
 def decode_step(params: MambaLM, cfg: LMConfig, tokens1, cache):
     """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
     params = BF16.cast(params)
-    x = params.embed.table[tokens1.long()][:, 0]         # (B, D)
+    x = tensor.embed(params.embed.table, tokens1, cfg.vocab)[:, 0]  # (B, D)
     for i, lp in enumerate(params.layers):
         y, st = block_decode(lp, cfg, x, {"conv": cache["conv"][i],
                                           "S": cache["S"][i]})
@@ -353,7 +412,7 @@ def decode_step(params: MambaLM, cfg: LMConfig, tokens1, cache):
         cache["conv"][i] = st["conv"]
         cache["S"][i] = st["S"]
     x = rmsnorm(params.ln_f, x)
-    logits = dense(params.lm_head, x[:, None])
+    logits = tensor.lm_logits(x[:, None], params.lm_head.w, cfg.vocab)
     return logits, {"conv": cache["conv"], "S": cache["S"],
                     "length": cache["length"] + 1}
 

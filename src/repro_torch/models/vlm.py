@@ -11,6 +11,10 @@ Parameters live in a :class:`VLM`: a ``dense.DenseLM`` plus ``projector``
 ``bridge`` carries across as it is.  ``prefill`` runs every layer's causal
 attention over the P + S positions (K6 under ``with_kernels``) and writes
 their K/V at offset 0 of the cache in place; decoding is dense's.
+
+Under tensor parallelism (``parallel.tensor``) ``w1`` and ``w2`` are both
+column-parallel: ``w1``'s output is gathered over ``model`` before
+``w2``, and ``w2``'s into the whole embedding.
 """
 from __future__ import annotations
 
@@ -20,8 +24,10 @@ from torch import nn
 from repro_torch.models import dense
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.partition import P
+from repro_torch.parallel import tensor
 from repro_torch.nn.layers import (Dense, LayerNorm, Policy, dense as linear,
-                                   gelu, layernorm, rmsnorm, make_generator)
+                                   drawn, gelu, layernorm, rmsnorm,
+                                   make_generator)
 
 BF16 = Policy()
 
@@ -42,28 +48,40 @@ class VLM(dense.DenseLM):
     cast to ``dtype``)."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(cfg, seed=seed, device=device, dtype=dtype)
+                 dtype: torch.dtype = torch.float32, cut=None):
+        super().__init__(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
         device = self.embed.table.device
         g = make_generator(device, seed + 1)
-        self.projector = Projector(cfg, generator=g, device=device).to(dtype)
+        self.projector = drawn(Projector(cfg, generator=g, device=device),
+                               dtype, cut, "projector.")
 
 
 def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> VLM:
-    return VLM(cfg, seed=seed, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, cut=None) -> VLM:
+    return VLM(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
 
 
 def project_patches(params: VLM, patches):
     p = params.projector
-    h = gelu(linear(p.w1, layernorm(p.ln, patches)))
-    return linear(p.w2, h)
+    d = p.w2.w.shape[0]
+    h = layernorm(p.ln, patches)
+    for w in (p.w1, p.w2):
+        if tensor.split_of(w.w.shape[-1], d, "projector") is None:
+            h = linear(w, h)
+        else:
+            # the patches are bf16: promote before the input's all-reduce,
+            # which then sums fp32 cotangents as the one-device product does
+            h = h.to(torch.promote_types(h.dtype, w.w.dtype))
+            h = tensor.gather(linear(w, tensor.copy_in(h)))
+        if w is p.w1:
+            h = gelu(h)
+    return h
 
 
-def _embed(params: VLM, batch: dict):
+def _embed(params: VLM, cfg: LMConfig, batch: dict):
     """[projected patches, token embeddings] (B, P + S, D) and P."""
     img = project_patches(params, batch["patches"].to(torch.bfloat16))
-    txt = params.embed.table[batch["tokens"].long()]
+    txt = dense.embed(params, cfg, batch["tokens"])
     return torch.cat([img, txt], dim=1), img.shape[1]
 
 
@@ -71,7 +89,7 @@ def forward(params: VLM, cfg: LMConfig, batch: dict):
     """batch: ``patches`` (B, P, frontend_dim) and ``tokens`` (B, S) ->
     logits (B, S, V) of the text positions, in bf16."""
     params = BF16.cast_train(params)
-    x, n_img = _embed(params, batch)
+    x, n_img = _embed(params, cfg, batch)
     b, n = x.shape[:2]
     x = dense.backbone(params, cfg, x, dense._positions(b, n, x.device))
     return dense.logits_fn(params, cfg, x[:, n_img:])
@@ -79,8 +97,8 @@ def forward(params: VLM, cfg: LMConfig, batch: dict):
 
 def loss(params: VLM, cfg: LMConfig, batch: dict):
     logits = forward(params, cfg, batch)
-    return dense.cross_entropy(logits, batch["labels"],
-                               mask=batch.get("mask"))
+    return tensor.cross_entropy(logits, batch["labels"], cfg.vocab,
+                                mask=batch.get("mask"))
 
 
 # serving: prefill consumes patches + prompt; decoding is dense's
@@ -93,11 +111,12 @@ def prefill(params: VLM, cfg: LMConfig, batch: dict, cache):
     """Fill the cache with the patches and prompt tokens of ``batch``;
     returns (last-position logits (B, 1, V), cache of length P + S)."""
     params = BF16.cast(params)
-    x, _ = _embed(params, batch)
+    x, _ = _embed(params, cfg, batch)
     b, n = x.shape[:2]
     positions = dense._positions(b, n, x.device)
     for i, lp in enumerate(params.layers):
-        x, (k, v) = dense.layer_apply(lp, cfg, x, positions, causal=True)
+        x, (k, v) = dense.layer_apply(lp, cfg, x, positions, causal=True,
+                                      cache=cache["k"][i])
         cache["k"][i, :, :n] = k
         cache["v"][i, :, :n] = v
     x = rmsnorm(params.ln_f, x)

@@ -22,6 +22,13 @@ decode step adds the position embedding of ``cache["length"][0]``, slot
 0's length, to every slot; and that position indexes a table of 8192 rows,
 where JAX's gather clamps a larger index, so the port clamps it too.
 ``prefill`` consumes the prompt's first token only.
+
+Under tensor parallelism (``parallel.tensor``) the self- and
+cross-attention projections and ``mlp/w_in`` are column-parallel (their
+biases split with them), ``[wx]o`` and ``mlp/w_out`` row-parallel with
+their replicated biases added once, after the all-reduce
+(``tensor.row_dense``); the tied embedding is vocab-parallel where
+``model`` divides the vocabulary (whisper-medium's 51865 it does not).
 """
 from __future__ import annotations
 
@@ -29,13 +36,14 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
-from repro_torch.models.dense import cross_entropy, remat, write_kv_cache
+from repro_torch.models.dense import remat, write_kv_cache
 from repro_torch.models.lmconfig import LMConfig
 from repro_torch.nn.attention import attention, decode_attention
 from repro_torch.nn.partition import P
 from repro_torch.nn.layers import (Dense, Embedding, GeluMLP, LayerNorm,
-                                   Policy, dense, gelu_mlp, layernorm,
-                                   make_generator)
+                                   Policy, dense, drawn, gelu, gelu_mlp,
+                                   layernorm, make_generator)
+from repro_torch.parallel import tensor
 
 BF16 = Policy()
 # rows of the decoder's position table (the reference's decode step)
@@ -84,47 +92,63 @@ class WhisperLM(nn.Module):
     is drawn (as ``dense.DenseLM``)."""
 
     def __init__(self, cfg: LMConfig, *, seed: int = 0, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, cut=None):
         super().__init__()
         device = resolve_device(device)
         g = make_generator(device, seed)
         kw = dict(generator=g, device=device)
-        self.enc_layers = nn.ModuleList(EncLayer(cfg, **kw).to(dtype)
-                                        for _ in range(cfg.n_enc_layer))
-        self.enc_ln = LayerNorm(cfg.d_model, device=device).to(dtype)
-        self.embed = Embedding(cfg.vocab, cfg.d_model, **kw).to(dtype)
-        self.dec_layers = nn.ModuleList(DecLayer(cfg, **kw).to(dtype)
-                                        for _ in range(cfg.n_layer))
-        self.dec_ln = LayerNorm(cfg.d_model, device=device).to(dtype)
+        self.enc_layers = nn.ModuleList(
+            drawn(EncLayer(cfg, **kw), dtype, cut, f"enc_layers.{i}.")
+            for i in range(cfg.n_enc_layer))
+        self.enc_ln = drawn(LayerNorm(cfg.d_model, device=device), dtype,
+                            cut, "enc_ln.")
+        self.embed = drawn(Embedding(cfg.vocab, cfg.d_model, **kw), dtype,
+                           cut, "embed.")
+        self.dec_layers = nn.ModuleList(
+            drawn(DecLayer(cfg, **kw), dtype, cut, f"dec_layers.{i}.")
+            for i in range(cfg.n_layer))
+        self.dec_ln = drawn(LayerNorm(cfg.d_model, device=device), dtype,
+                            cut, "dec_ln.")
         if cfg.frontend_dim != cfg.d_model:   # stub features not at d_model
-            self.frame_proj = Dense(cfg.frontend_dim, cfg.d_model,
-                                    **kw).to(dtype)
+            self.frame_proj = drawn(Dense(cfg.frontend_dim, cfg.d_model,
+                                          **kw), dtype, cut, "frame_proj.")
 
 
 def init_params(cfg: LMConfig, *, seed: int = 0, device=None,
-                dtype: torch.dtype = torch.float32) -> WhisperLM:
-    return WhisperLM(cfg, seed=seed, device=device, dtype=dtype)
+                dtype: torch.dtype = torch.float32, cut=None) -> WhisperLM:
+    return WhisperLM(cfg, seed=seed, device=device, dtype=dtype, cut=cut)
 
 
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
 
+def _heads(p, cfg: LMConfig, prefix: str) -> tensor.Heads:
+    return tensor.block_heads(p, cfg.n_head, cfg.n_kv_head, cfg.d_head,
+                              prefix)
+
+
 def _mha(p, cfg: LMConfig, xq, xkv, *, prefix: str, causal: bool):
     """Attention of ``xq`` (B, S, D) over ``xkv`` (B, T, D) through the
     projections ``<prefix>q`` ... ``<prefix>o``; returns (out, (k, v))."""
-    b, s, _ = xq.shape
-    t = xkv.shape[1]
-    q = dense(getattr(p, prefix + "q"), xq).reshape(b, s, cfg.n_head,
-                                                    cfg.d_head)
-    k = dense(getattr(p, prefix + "k"), xkv).reshape(b, t, cfg.n_kv_head,
-                                                     cfg.d_head)
-    v = dense(getattr(p, prefix + "v"), xkv).reshape(b, t, cfg.n_kv_head,
-                                                     cfg.d_head)
+    hp = _heads(p, cfg, prefix)
+    same = xkv is xq
+    xq = hp.copy_in(xq)
+    xkv = xq if same else hp.copy_in(xkv)
+    q = hp.q(dense(getattr(p, prefix + "q"), xq))
+    k = hp.kv(dense(getattr(p, prefix + "k"), xkv))
+    v = hp.kv(dense(getattr(p, prefix + "v"), xkv))
     o = attention(q, k, v, causal=causal, impl=cfg.attention_impl,
                   chunk_size=cfg.attention_chunk)
-    o = dense(getattr(p, prefix + "o"), o.reshape(b, s, cfg.n_head * cfg.d_head))
-    return o, (k, v)
+    return hp.out(o, getattr(p, prefix + "o")), (k, v)
+
+
+def mlp(p: GeluMLP, x, d_ff: int):
+    """``gelu_mlp``, column- then row-parallel (its ``w_out`` bias once)."""
+    if tensor.split_of(p.w_in.w.shape[-1], d_ff, "mlp/w_in") is None:
+        return gelu_mlp(p, x)
+    h = gelu(dense(p.w_in, tensor.copy_in(x)))
+    return tensor.row_dense(p.w_out, h, d_ff, "mlp/w_out")
 
 
 def _angles(pos, dim: int):
@@ -153,7 +177,7 @@ def encode(params: WhisperLM, cfg: LMConfig, frames):
         h = layernorm(lp.ln1, x)
         att, _ = _mha(lp, cfg, h, h, prefix="w", causal=False)
         x = x + att
-        x = x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x))
+        x = x + mlp(lp.mlp, layernorm(lp.ln2, x), cfg.d_ff)
         return x.to(att.dtype)
 
     one = remat(cfg, one)
@@ -166,7 +190,7 @@ def decode_train(params: WhisperLM, cfg: LMConfig, tokens, enc_out):
     """Teacher-forced decoder: tokens (B, S) over ``enc_out`` (B, T_f, D)
     -> logits (B, S, V) through the tied head."""
     s = tokens.shape[1]
-    x = params.embed.table[tokens.long()]
+    x = tensor.embed(params.embed.table, tokens, cfg.vocab)
     x = x + _sinusoid(s, cfg.d_model, x.dtype, x.device)[None]
 
     def one(lp, x, enc_out):
@@ -176,14 +200,15 @@ def decode_train(params: WhisperLM, cfg: LMConfig, tokens, enc_out):
         h = layernorm(lp.ln_x, x)
         xatt, _ = _mha(lp, cfg, h, enc_out, prefix="x", causal=False)
         x = x + xatt
-        x = x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x))
+        x = x + mlp(lp.mlp, layernorm(lp.ln2, x), cfg.d_ff)
         return x.to(att.dtype)
 
     one = remat(cfg, one)
     for lp in params.dec_layers:
         x = one(lp, x, enc_out)
     x = layernorm(params.dec_ln, x)
-    return x @ params.embed.table.to(x.dtype).T            # tied head
+    return tensor.lm_logits(x, params.embed.table, cfg.vocab,
+                            tied=True)                       # tied head
 
 
 def forward(params: WhisperLM, cfg: LMConfig, batch: dict):
@@ -196,7 +221,8 @@ def forward(params: WhisperLM, cfg: LMConfig, batch: dict):
 
 def loss(params: WhisperLM, cfg: LMConfig, batch: dict):
     logits = forward(params, cfg, batch)
-    return cross_entropy(logits, batch["labels"], mask=batch.get("mask"))
+    return tensor.cross_entropy(logits, batch["labels"], cfg.vocab,
+                                mask=batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------
@@ -227,10 +253,9 @@ def prefill(params: WhisperLM, cfg: LMConfig, batch: dict, cache):
     enc_out = encode(params, cfg, batch["frames"].to(torch.bfloat16))
     b, tf = enc_out.shape[:2]
     for i, lp in enumerate(params.dec_layers):
-        k = dense(lp.xk, enc_out).reshape(b, tf, cfg.n_kv_head, cfg.d_head)
-        v = dense(lp.xv, enc_out).reshape(b, tf, cfg.n_kv_head, cfg.d_head)
-        cache["xk"][i] = k
-        cache["xv"][i] = v
+        hp = _heads(lp, cfg, "x")
+        cache["xk"][i] = hp.for_cache(dense(lp.xk, enc_out), cache["xk"][i])
+        cache["xv"][i] = hp.for_cache(dense(lp.xv, enc_out), cache["xv"][i])
     return decode_step(params, cfg, batch["tokens"][:, :1], cache)
 
 
@@ -247,27 +272,31 @@ def position_embedding(cfg: LMConfig, length, dtype):
 def decode_step(params: WhisperLM, cfg: LMConfig, tokens1, cache):
     """One decode step: tokens1 (B, 1) -> (logits (B, 1, V), cache)."""
     params = BF16.cast(params)
-    b = tokens1.shape[0]
-    x = params.embed.table[tokens1.long()]
+    x = tensor.embed(params.embed.table, tokens1, cfg.vocab)
     length = cache["length"]
     x = x + position_embedding(cfg, length, x.dtype)
-    hq = lambda p, h, n: dense(p, h).reshape(b, 1, n, cfg.d_head)
     for i, lp in enumerate(params.dec_layers):
+        hp = _heads(lp, cfg, "w")
         h = layernorm(lp.ln1, x)
-        q = hq(lp.wq, h, cfg.n_head)
-        kc = write_kv_cache(cache["k"][i], hq(lp.wk, h, cfg.n_kv_head),
+        q = hp.q(dense(lp.wq, h))
+        kc = write_kv_cache(cache["k"][i],
+                            hp.for_cache(dense(lp.wk, h), cache["k"][i]),
                             length, uniform=cfg.uniform_decode)
-        vc = write_kv_cache(cache["v"][i], hq(lp.wv, h, cfg.n_kv_head),
+        vc = write_kv_cache(cache["v"][i],
+                            hp.for_cache(dense(lp.wv, h), cache["v"][i]),
                             length, uniform=cfg.uniform_decode)
-        o = decode_attention(q, kc, vc, lengths=length + 1)
-        x = x + dense(lp.wo, o.reshape(b, 1, cfg.n_head * cfg.d_head))
-        q = hq(lp.xq, layernorm(lp.ln_x, x), cfg.n_head)
-        o = decode_attention(q, cache["xk"][i], cache["xv"][i])
-        x = x + dense(lp.xo, o.reshape(b, 1, cfg.n_head * cfg.d_head))
-        x = x + gelu_mlp(lp.mlp, layernorm(lp.ln2, x))
+        o = decode_attention(q, hp.from_cache(kc), hp.from_cache(vc),
+                             lengths=length + 1)
+        x = x + hp.out(o, lp.wo)
+        hx = _heads(lp, cfg, "x")
+        q = hx.q(dense(lp.xq, layernorm(lp.ln_x, x)))
+        o = decode_attention(q, hx.from_cache(cache["xk"][i]),
+                             hx.from_cache(cache["xv"][i]))
+        x = x + hx.out(o, lp.xo)
+        x = x + mlp(lp.mlp, layernorm(lp.ln2, x), cfg.d_ff)
         x = x.to(o.dtype)
     x = layernorm(params.dec_ln, x)
-    logits = x @ params.embed.table.to(x.dtype).T
+    logits = tensor.lm_logits(x, params.embed.table, cfg.vocab, tied=True)
     return logits, {**cache, "length": length + 1}
 
 

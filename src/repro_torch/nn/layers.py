@@ -235,5 +235,16 @@ def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
+def drawn(module: nn.Module, dtype: torch.dtype, cut=None,
+          prefix: str = "") -> nn.Module:
+    """A module just drawn, cast to ``dtype``; with ``cut`` (a rank's
+    ``parallel.fsdp.Layout.cut``) its leaves, keyed under ``prefix``,
+    replaced by the rank's slices at once: the families' ``init_params``
+    draw one module at a time, so a rank holds at most one whole module
+    beside its slices."""
+    module = module.to(dtype)
+    return module if cut is None else cut(prefix, module)
+
+
 def count_params(module: nn.Module) -> int:
     return sum(p.numel() for p in module.parameters())

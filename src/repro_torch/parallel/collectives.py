@@ -7,6 +7,11 @@ Each differentiable collective is a ``torch.autograd.Function`` whose
 backward is the reference's transpose:
 
 * ``psum`` -> ``psum`` (the BP exchange and its backward all-reduce);
+* tensor parallelism's conjugate pair (Megatron's ``g`` and ``f``):
+  :func:`reduce_from` all-reduces in the forward only, :func:`copy_to` in
+  the backward only; both count as ``psum`` (an all-reduce on the wire);
+* :func:`all_gather_rep`, a gather whose result is used whole -> this
+  rank's slice of the cotangent;
 * tiled ``all_gather`` -> reduce-scatter (sum) of the cotangent;
 * tiled ``all_to_all`` -> the inverse ``all_to_all``.
 
@@ -196,6 +201,53 @@ def psum(xs, axis: Axis):
     return _PSum.apply(axis, *xs)
 
 
+def _sum_wide(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """The sum over ``axis`` of ``x``, accumulated in fp32 for a 16-bit
+    float (one rounding to ``x``'s dtype, as a one-device product's fp32
+    accumulator rounds once), returned in ``x``'s dtype."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _flat_psum([x.float()], axis)[0].to(x.dtype)
+    return _flat_psum([x], axis)[0]
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        return _sum_wide(x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, axis, x):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _sum_wide(g, ctx.axis)
+
+
+def reduce_from(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Megatron's ``g``: the sum over ``axis`` in the forward (in fp32 for
+    a 16-bit float), the identity in the backward.  For a value every rank then uses whole (a row-parallel
+    layer's output, a vocab-parallel lookup): its cotangent is the same on
+    every rank, so summing it, as :func:`psum` does, would multiply the
+    gradient by the axis's extent."""
+    return x if axis.size == 1 else _ReduceFrom.apply(axis, x)
+
+
+def copy_to(x: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """Megatron's ``f``, :func:`reduce_from`'s conjugate: the identity in
+    the forward, the sum over ``axis`` in the backward.  For a replicated
+    value each rank uses only in part (a column-parallel layer's input):
+    each rank's cotangent is partial, and their sum the whole gradient."""
+    return x if axis.size == 1 else _CopyTo.apply(axis, x)
+
+
 def pmean(x: torch.Tensor, axis: Axis) -> torch.Tensor:
     return x if axis.size == 1 else psum(x, axis) / axis.size
 
@@ -224,6 +276,28 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _reduce_scatter_dim(g, ctx.axis, ctx.dim), None, None
+
+
+class _AllGatherRep(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim):
+        ctx.axis, ctx.dim, ctx.n = axis, dim, x.shape[dim]
+        parts, _, _ = _gather_list(x, axis)
+        return torch.cat([p.to(x.device) for p in parts], dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.axis.index * ctx.n, ctx.n), None, None
+
+
+def all_gather_rep(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
+    """Tiled all-gather whose result every rank uses whole (Megatron's
+    gather from the model-parallel region): the cotangent is the same on
+    every rank, so the backward takes this rank's slice of it where
+    :func:`all_gather`'s reduce-scatter would sum ``axis.size`` copies."""
+    if axis.size == 1:
+        return x
+    return _AllGatherRep.apply(x, axis, dim)
 
 
 def all_gather(x: torch.Tensor, axis: Axis, dim: int = 0) -> torch.Tensor:
@@ -322,7 +396,7 @@ def psum_tree(tree: dict, axes: Sequence[Axis]) -> dict:
     keys = list(tree)
     vals = [tree[k] for k in keys]
     for axis in axes:
-        if axis.size > 1:
+        if axis.size > 1 and vals:
             vals = _flat_psum(vals, axis)
     return dict(zip(keys, vals))
 

@@ -28,7 +28,14 @@ step compiles from its partition rules under ``cfg.fsdp``
 
 A leaf whose sanitized spec names no data axis (a norm's scale, a bias, a
 dim the axis does not divide: nothing is padded) is replicated, and the
-step sums its gradient over the axis.  :func:`data_parallel` tells the
+step sums its gradient over the axis.
+
+Under tensor parallelism the layout has a second axis, ``model``
+(``parallel.tensor``): a leaf whose spec names it is split along that dim
+for good (the forward reads its slice), and along its data dim, if any, as
+above; a leaf such as ``wq.w`` ``P('data', 'model')`` is split on both
+dims.  A dim that names both axes is a layout the port does not compute,
+and raises naming the leaf.  :func:`data_parallel` tells the
 forward which axis the batch is split over (the MoE router's statistics
 are the global batch's).
 """
@@ -118,44 +125,72 @@ def current_data_axis() -> Optional[Axis]:
 class Layout:
     """Where every parameter leaf lives on this rank.  ``specs``: the
     sanitized spec of each key (``train.trainstep.state_shardings``);
-    ``shapes``: each leaf's full shape; ``axis``: the data axis.  A leaf
-    whose spec names ``axis`` is split along that dim into ``axis.size``
-    equal slices (the spec's sanitizing guarantees it divides), slice i on
-    the rank at coordinate i; any other leaf is whole on every rank."""
+    ``shapes``: each leaf's full shape; ``axis``: the data axis;
+    ``model``: the tensor-parallel axis (None: none).  A leaf whose spec
+    names ``axis`` is split along that dim into ``axis.size`` equal slices
+    (the spec's sanitizing guarantees it divides), slice i on the rank at
+    coordinate i, and likewise over ``model`` (``mdims``); any other leaf
+    is whole on every rank."""
 
     def __init__(self, specs: Mapping, shapes: Mapping[str, tuple],
-                 axis: Axis):
+                 axis: Axis, model: Optional[Axis] = None):
         self.specs = dict(specs)
         self.shapes = {k: tuple(s) for k, s in shapes.items()}
         self.axis = axis
+        self.model = model if model is not None and model.size > 1 else None
         self.dims = {k: (data_dim(s, axis.name) if axis.size > 1 else None)
                      for k, s in self.specs.items()}
+        self.mdims = {k: (data_dim(s, self.model.name) if self.model
+                          else None) for k, s in self.specs.items()}
+        for k, d in self.dims.items():
+            if d is not None and d == self.mdims[k]:
+                raise ValueError(f"{k}: spec {self.specs[k]} splits one dim "
+                                 f"over both {axis.name!r} and "
+                                 f"{self.model.name!r}")
 
     @property
     def sharded(self) -> list:
         return [k for k, d in self.dims.items() if d is not None]
 
+    def _cuts(self, key: str):
+        """[(dim, axis)] of the leaf's splits, the model axis first."""
+        return [(d, a) for d, a in ((self.mdims[key], self.model),
+                                    (self.dims[key], self.axis))
+                if d is not None]
+
     def local_shape(self, key: str) -> tuple:
-        shape, d = list(self.shapes[key]), self.dims[key]
-        if d is not None:
-            shape[d] //= self.axis.size
+        shape = list(self.shapes[key])
+        for d, a in self._cuts(key):
+            shape[d] //= a.size
         return tuple(shape)
 
     def local(self, key: str, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the full leaf ``full`` (a copy)."""
-        d = self.dims[key]
-        if d is None:
-            return full.clone()
-        n = full.shape[d] // self.axis.size
-        return full.narrow(d, self.axis.index * n, n).clone()
+        for d, a in self._cuts(key):
+            n = full.shape[d] // a.size
+            full = full.narrow(d, a.index * n, n)
+        return full.clone()
 
     def full(self, key: str, local: torch.Tensor) -> torch.Tensor:
         """The full leaf from every rank's slice ``local`` (every rank of
-        the axis calls this together), without autograd."""
-        d = self.dims[key]
+        the axes calls this together), without autograd."""
         with torch.no_grad():
-            return local if d is None else coll.all_gather(local, self.axis,
-                                                           d)
+            for d, a in reversed(self._cuts(key)):
+                local = coll.all_gather(local, a, d)
+        return local
+
+    def cut(self, prefix: str, module: torch.nn.Module) -> torch.nn.Module:
+        """``module`` (the leaves under ``prefix`` of a model being drawn)
+        with each leaf replaced by this rank's slice, in place: the
+        families' ``init_params(cut=...)`` call it on each module as soon
+        as it is drawn, so a rank holds at most one whole module beside its
+        slices."""
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                key = prefix + name
+                if tuple(p.shape) != self.local_shape(key):
+                    p.data = self.local(key, p.data)
+        return module
 
     def shard_(self, model: torch.nn.Module) -> torch.nn.Module:
         """Cut ``model``'s full leaves to this rank's slices in place (a leaf
@@ -194,22 +229,39 @@ class Layout:
     def global_norm(self, tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
         """fp32 L2 norm of the full tensors whose slices (sharded keys) or
         copies (replicated keys, the same on every rank) ``tree`` holds:
-        the sharded leaves' squares summed over the axis, each replicated
-        element counted once."""
+        each leaf's squares summed over the axes it is split over, each
+        replicated element counted once."""
         zero = next(iter(tree.values())).new_zeros((), dtype=torch.float32)
-        sq = lambda keys: sum((tree[k].float().square().sum() for k in keys),
-                              zero)
-        shard = sq(self.sharded)
+        sums = {}
+        for k, t in tree.items():
+            kind = (self.dims[k] is not None, self.mdims[k] is not None)
+            sums[kind] = sums.get(kind, zero) + t.float().square().sum()
+        total = sums.get((False, False), zero)
+        over = lambda kinds: torch.stack([sums.get(k, zero) for k in kinds])
+        # one all-reduce an axis: [both, this axis only]
         if self.axis.size > 1:
-            shard = coll.psum(shard, self.axis)
-        return torch.sqrt(shard + sq([k for k in tree
-                                      if self.dims[k] is None]))
+            both, data = coll.psum(over([(True, True), (True, False)]),
+                                   self.axis).unbind(0)
+        else:
+            both, data = sums.get((True, True), zero), sums.get(
+                (True, False), zero)
+        if self.model is not None:
+            both, model = coll.psum(torch.stack(
+                [both, sums.get((False, True), zero)]), self.model).unbind(0)
+        else:
+            model = sums.get((False, True), zero)
+        return torch.sqrt(total + data + model + both)
 
     def bytes_held(self, tree: Mapping[str, torch.Tensor]) -> dict:
-        """{"sharded": bytes, "replicated": bytes} of ``tree`` on this
-        rank."""
-        out = {"sharded": 0, "replicated": 0}
+        """Bytes of ``tree`` on this rank by how each leaf is held, four
+        disjoint kinds that sum to the whole: {"sharded" (split over the
+        data axis alone), "model_split" (over ``model`` alone), "both",
+        "replicated" (over neither)}."""
+        out = {"sharded": 0, "model_split": 0, "both": 0, "replicated": 0}
+        kinds = {(True, False): "sharded", (False, True): "model_split",
+                 (True, True): "both", (False, False): "replicated"}
         for k, t in tree.items():
-            kind = "replicated" if self.dims[k] is None else "sharded"
+            kind = kinds[(self.dims[k] is not None,
+                          self.mdims[k] is not None)]
             out[kind] += t.numel() * t.element_size()
         return out

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import weakref
 from typing import Mapping, Optional, Sequence
 
 import torch
@@ -44,11 +45,28 @@ def make_mesh(shape: Sequence[int], names: Sequence[str], *,
                       mesh_dim_names=tuple(names))
 
 
+# what a mesh says of itself, kept by id with a weak reference to the mesh
+# (a DeviceMesh rebuilds its rank tensor at each ``.mesh``, ~0.2 ms, and a
+# step asks its axes' extents thousands of times)
+_MESH_FACTS: dict = {}
+
+
+def _facts(mesh: DeviceMesh) -> dict:
+    key = id(mesh)
+    hit = _MESH_FACTS.get(key)
+    if hit is None or hit[0]() is not mesh:
+        gone = lambda _, key=key: _MESH_FACTS.pop(key, None)
+        hit = (weakref.ref(mesh, gone), {"shape": {
+            n: int(s) for n, s in zip(mesh.mesh_dim_names, mesh.mesh.shape)}})
+        _MESH_FACTS[key] = hit
+    return hit[1]
+
+
 def mesh_shape(mesh: Optional[DeviceMesh]) -> dict:
     """{axis name: extent} of ``mesh`` ({} for no mesh)."""
     if mesh is None:
         return {}
-    return {n: int(s) for n, s in zip(mesh.mesh_dim_names, mesh.mesh.shape)}
+    return dict(_facts(mesh)["shape"])
 
 
 def refactor_mesh(mesh: DeviceMesh,
@@ -75,13 +93,37 @@ def refactor_mesh(mesh: DeviceMesh,
                       mesh_dim_names=tuple(new_names))
 
 
+def merged_axis(mesh: Optional[DeviceMesh], names: Sequence[str]) -> "Axis":
+    """One :class:`Axis` over the adjacent axes ``names`` of ``mesh`` taken
+    together (outer first; e.g. ("pod", "data"), the LM step's data
+    parallelism across pods): the axis itself where only one of them is
+    wider than 1, else a mesh over the same ranks with them merged (a new
+    mesh: every rank calls this together)."""
+    ext = mesh_shape(mesh)
+    wide = [n for n in names if ext.get(n, 1) > 1]
+    if len(wide) <= 1:
+        return Axis(mesh, wide[0] if wide else names[-1])
+    order = list(ext)
+    at = [order.index(n) for n in names]
+    if at != list(range(at[0], at[0] + len(at))):
+        raise ValueError(f"axes {tuple(names)} are not adjacent in {order}")
+    joined = "*".join(names)
+    new_names = order[:at[0]] + [joined] + order[at[-1] + 1:]
+    new_shape = [ext[n] for n in order[:at[0]]] + [
+        math.prod(ext[n] for n in names)] + [ext[n] for n in
+                                             order[at[-1] + 1:]]
+    return Axis(DeviceMesh(mesh.device_type,
+                           mesh.mesh.reshape(tuple(new_shape)),
+                           mesh_dim_names=tuple(new_names)), joined)
+
+
 def rename_mesh(mesh: DeviceMesh, renames: Mapping[str, str]) -> DeviceMesh:
     names = tuple(renames.get(n, n) for n in mesh.mesh_dim_names)
     return DeviceMesh(mesh.device_type, mesh.mesh, mesh_dim_names=names)
 
 
 def axis_size(mesh: Optional[DeviceMesh], name: str) -> int:
-    return mesh_shape(mesh).get(name, 1)
+    return 1 if mesh is None else _facts(mesh)["shape"].get(name, 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,11 +143,21 @@ class Axis:
     def index(self) -> int:
         if self.size == 1:
             return 0
-        return self.mesh.get_local_rank(self.name)
+        facts = _facts(self.mesh)
+        key = ("index", self.name)
+        if key not in facts:
+            facts[key] = self.mesh.get_local_rank(self.name)
+        return facts[key]
 
     @property
     def group(self):
-        return None if self.size == 1 else self.mesh.get_group(self.name)
+        if self.size == 1:
+            return None
+        facts = _facts(self.mesh)
+        key = ("group", self.name)
+        if key not in facts:
+            facts[key] = self.mesh.get_group(self.name)
+        return facts[key]
 
 
 def axis_extent(axis: Axis) -> int:

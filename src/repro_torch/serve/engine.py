@@ -14,6 +14,21 @@ prompt length, the engine builds these steps once and caches them
 captured at its first call (``graphs=``).  Every tensor a step touches is
 static: the slot cache and the batch-1 prefill cache are allocated once and
 written in place, never rebound.
+
+On a rank of a ("data", "model") mesh (``mesh=``) the engine is
+tensor-parallel: ``params`` are the rank's slices (``serve.steps
+.serve_layout``), the steps run under ``parallel.tensor.model_parallel``,
+the caches are the rank's (``serve.steps.init_local_cache``): the slots'
+rows split over 'data' where it divides them, the KV heads as the cache
+rules say.  Every rank runs the same host loop over every slot; a prefill
+(batch 1) runs on every rank, and only the ranks that hold its slot keep
+its cache; a decode step runs on the rank's rows, its greedy tokens taken
+over the vocabulary's split (``tensor.greedy``) and gathered over the
+batch's axes.  Under ``cfg.factored_decode`` with narrow GQA the decode
+step runs on the factored mesh (``serve.steps.decode_mesh_plan``: 'model'
+as (kvh, brep)): the slots' rows split over ('data', 'brep'), the KV heads
+over 'kvh', and the step gathers the weight slices over 'brep' before it
+computes on 'kvh', as GSPMD does.
 """
 from __future__ import annotations
 
@@ -27,6 +42,9 @@ import torch
 from repro_torch import graphs as graphs_lib
 from repro_torch.device import resolve_device
 from repro_torch.nn.layers import Policy
+from repro_torch.parallel import collectives as coll
+from repro_torch.parallel import tensor
+from repro_torch.parallel.mesh_utils import Axis, mesh_shape
 
 
 @dataclasses.dataclass
@@ -57,18 +75,25 @@ class DecodeEngine:
 
     def __init__(self, model, cfg, params, *, batch_slots: int,
                  max_len: int, eos_id: int = -1, device=None,
-                 graphs: Optional[bool] = None):
+                 graphs: Optional[bool] = None, mesh=None):
         self.device = resolve_device(device)
-        self.graphs = graphs_lib.use_graphs(graphs, self.device)
+        backend = None
+        if mesh is not None:
+            import torch.distributed as dist
+            backend = dist.get_backend()
+        self.graphs = graphs_lib.use_graphs(graphs, self.device, backend)
         self.model, self.cfg = model, cfg
         self.params = Policy().cast(params).to(self.device)
         self.batch = batch_slots
         self.max_len = max_len
         self.eos_id = eos_id
-        self.cache = model.init_cache(cfg, batch_slots, max_len,
-                                      device=self.device)
-        # the batch-1 cache every prefill writes before its slot copy
-        self.cache1 = model.init_cache(cfg, 1, max_len, device=self.device)
+        self._mesh(mesh)
+        if mesh is None:
+            self.cache = model.init_cache(cfg, batch_slots, max_len,
+                                          device=self.device)
+            # the batch-1 cache every prefill writes before its slot copy
+            self.cache1 = model.init_cache(cfg, 1, max_len,
+                                           device=self.device)
         self.slots: list[Optional[Request]] = [None] * batch_slots
         self.budget = np.zeros(batch_slots, np.int32)
         self.cur = np.zeros(batch_slots, np.int32)   # last sampled token
@@ -78,27 +103,85 @@ class DecodeEngine:
         self.compile_misses = 1
         self._decode = self._step(self._decode_fn)
 
+    def _mesh(self, mesh):
+        """The tensor-parallel layout of a rank of ``mesh`` (module
+        docstring): the steps' axes, the slots' rows this rank holds
+        (``rows``), and its caches.  Without a mesh: one device."""
+        self.mesh, self.tp = mesh, Axis(mesh, "model")
+        self.decode_tp, self.brep, self.batch_axes = self.tp, None, []
+        self.rows = slice(0, self.batch)
+        if mesh is None:
+            return
+        from repro_torch.serve import steps
+        cfg, lm = self.cfg, self.model
+        layout = steps.serve_layout(lm, cfg, mesh)
+        extents = mesh_shape(mesh)
+        dmesh, factored = mesh, False
+        if cfg.factored_decode and steps.decode_split(cfg, extents):
+            dmesh, _, _ = steps.decode_mesh_plan(cfg, mesh)
+            factored = True
+            self.decode_tp, self.brep = Axis(dmesh, "kvh"), Axis(dmesh, "brep")
+            kv = ("k", "v", "xk", "xv", "shared_k", "shared_v", "length")
+            if any(k not in kv for k in lm.init_cache(
+                    cfg, 1, 1, device="meta")):
+                raise NotImplementedError(
+                    f"{cfg.arch_id}: the factored decode plan holds KV "
+                    "caches only")
+            self._flat = layout
+            self._kvh = steps.kvh_shapes(lm, cfg, dmesh)
+        dext = mesh_shape(dmesh)
+        self.cache = steps.init_local_cache(
+            lm, cfg, self.batch, self.max_len, dext, layout,
+            factored=factored, device=self.device)
+        self.cache1 = steps.init_local_cache(
+            lm, cfg, 1, self.max_len, extents, layout, device=self.device)
+        n = self.cache["length"].shape[0]
+        if n < self.batch:
+            self.batch_axes = [Axis(dmesh, a) for a in ("data", "brep")
+                               if a in dext and dext[a] > 1]
+            j = coll.dp_index(self.batch_axes)
+            self.rows = slice(j * n, (j + 1) * n)
+
     def _step(self, fn):
         return (graphs_lib.CapturedStep(fn, pool=self._pool) if self.graphs
                 else fn)
 
+    def _decode_params(self):
+        """The parameters a decode step computes with: the rank's slices,
+        or under the factored plan its 'kvh' slices
+        (``serve.steps.factored_params``)."""
+        if self.brep is None:
+            return self.params
+        from repro_torch.serve import steps
+        return steps.factored_params(self.params, self._flat, self._kvh,
+                                     self.brep, self.decode_tp)
+
     def _decode_fn(self, tokens):
         """One batched decode step on the slot cache, (B, 1) tokens ->
-        (B, 1, V) logits; the new lengths written back in place."""
-        logits, cache = self.model.decode_step(self.params, self.cfg, tokens,
-                                               self.cache)
+        (B, 1, V) logits (the rank's rows, and its share of the
+        vocabulary); the new lengths written back in place."""
+        with tensor.model_parallel(self.decode_tp):
+            logits, cache = self.model.decode_step(
+                self._decode_params(), self.cfg, tokens, self.cache)
         self.cache["length"].copy_(cache["length"])
         return logits
 
     def _prefill_fn(self, prompt):
         """Prefill of one (1, S) prompt into the zeroed batch-1 cache ->
-        (1, 1, V) logits."""
+        (1, 1, V) logits (the rank's share of the vocabulary)."""
         for t in self.cache1.values():
             t.zero_()
-        logits, cache = self.model.prefill(self.params, self.cfg, prompt,
-                                           self.cache1)
+        with tensor.model_parallel(self.tp):
+            logits, cache = self.model.prefill(self.params, self.cfg, prompt,
+                                               self.cache1)
         self.cache1["length"].copy_(cache["length"])
         return logits
+
+    def greedy(self, logits, axis=None):
+        """Greedy tokens of logits over the rank's share of the vocabulary
+        (of the decode step's axis, or ``axis``)."""
+        with tensor.model_parallel(axis or self.decode_tp):
+            return tensor.greedy(logits, self.cfg.vocab)
 
     def _prefill1(self, prompt):
         """The prefill step of this prompt's length, built at its first use."""
@@ -113,17 +196,24 @@ class DecodeEngine:
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
         logits = self._prefill1(prompt)
-        # copy the batch-1 cache into this slot
-        for key, dst in self.cache.items():
-            if key == "length":
-                dst[slot] = self.cache1[key][0]
-            else:
-                dst[:, slot] = self.cache1[key][:, 0]
+        # copy the batch-1 cache into this slot, where this rank holds it
+        if self.rows.start <= slot < self.rows.stop:
+            row = slot - self.rows.start
+            for key, dst in self.cache.items():
+                src = self.cache1[key]
+                if key == "length":
+                    dst[row] = src[0]
+                    continue
+                src = src[:, 0]
+                if dst.shape[-2] != src.shape[-2]:    # KV heads over 'kvh'
+                    n = dst.shape[-2]
+                    src = src.narrow(-2, self.decode_tp.index * n, n)
+                dst[:, row] = src
         req.generated = []
         self.slots[slot] = req
         # the prefill's last logits already give generated token #1
         self.budget[slot] = req.max_new_tokens - 1
-        self.cur[slot] = int(torch.argmax(logits[0, -1]))
+        self.cur[slot] = int(self.greedy(logits[0, -1], self.tp))
         req.generated.append(int(self.cur[slot]))
         t1 = time.perf_counter()
         self.last_stats["prefill"].append(dict(
@@ -156,9 +246,11 @@ class DecodeEngine:
                 continue
             # one batched decode step
             t0 = time.perf_counter()
-            tokens = torch.as_tensor(self.cur, device=self.device)[:, None]
+            tokens = torch.as_tensor(self.cur[self.rows],
+                                     device=self.device)[:, None]
             logits = self._decode(tokens)
-            nxt = torch.argmax(logits[:, 0], dim=-1).cpu().numpy()
+            nxt = coll.gather_rows(self.greedy(logits[:, 0]),
+                                   self.batch_axes).cpu().numpy()
             self.last_stats["decode_step_s"].append(time.perf_counter() - t0)
             produced = 0
             for i in range(self.batch):

@@ -15,10 +15,11 @@ copies nothing from it, so ``TrainRunner`` can capture it as a CUDA graph
 :func:`make_af2_train_step` runs it eagerly.
 
 The LM zoo's step (:func:`make_lm_train_step`, the reference's
-``make_lm_train_step``) runs on one device, or data-parallel over the
-``data`` axis of a ("data", "model") mesh with each leaf sharded as the
-family's partition rules say under ``cfg.fsdp`` (``parallel.fsdp``); the
-reference's sharding helpers (``sanitize_spec``, ``shardings_for``,
+``make_lm_train_step``) runs on one device, or over a ("data", "model")
+mesh: data-parallel over ``data`` with each leaf sharded as the family's
+partition rules say under ``cfg.fsdp`` (``parallel.fsdp``), and
+tensor-parallel over ``model`` (``parallel.tensor``); the reference's
+sharding helpers (``sanitize_spec``, ``shardings_for``,
 ``state_shardings``) give the spec each rank holds its slice by.
 """
 from __future__ import annotations
@@ -34,7 +35,8 @@ from repro_torch.device import resolve_device
 from repro_torch.nn.partition import P, make_param_specs
 from repro_torch.parallel import collectives as coll
 from repro_torch.parallel import fsdp
-from repro_torch.parallel.mesh_utils import Axis, mesh_shape
+from repro_torch.parallel import tensor
+from repro_torch.parallel.mesh_utils import Axis, merged_axis, mesh_shape
 from repro_torch.parallel.plan import (BuiltPlan, ParallelPlan, as_plan,
                                        complete_partial_grads)
 from repro_torch.train.optim import (Ema, Optimizer, OptState,
@@ -332,24 +334,36 @@ def _opt_branch_shardings(params_shapes: Mapping, pspecs: Mapping,
 # LM train step (the reference's make_lm_train_step)
 # ---------------------------------------------------------------------------
 
-def lm_layout(lm, cfg, model: torch.nn.Module, mesh,
-              data_axes=("data",)) -> fsdp.Layout:
-    """The data-parallel layout of ``model``'s full leaves over ``mesh``:
-    each leaf split over the data axis along the dim its sanitized spec
-    names it (``cfg.fsdp``), else replicated.  One data axis; the mesh's
-    other axes (``model``) must have extent 1: tensor parallelism is not
-    ported."""
-    if len(data_axes) != 1:
-        raise NotImplementedError(f"one data axis, got {data_axes}")
+def lm_shapes(lm, cfg) -> dict:
+    """{key: full shape} of the family's parameters (drawn on ``meta``:
+    nothing is allocated)."""
+    model = lm.init_params(cfg, device="meta")
+    return {k: tuple(p.shape) for k, p in model.named_parameters()}
+
+
+def lm_layout(lm, cfg, model, mesh, data_axes=("data",)) -> fsdp.Layout:
+    """The layout of the leaves of ``model`` (a module of full leaves, or
+    {key: full shape}: :func:`lm_shapes`) over ``mesh``: each leaf split
+    over 'data' along the dim its sanitized spec names it (``cfg.fsdp``),
+    and over 'model' (tensor parallelism) along the dim its spec
+    names that, else replicated.  ``data_axes``: the batch's axes, 'data'
+    last ("pod" before it replicates every leaf); another axis of the mesh
+    wider than 1 raises."""
+    if data_axes[-1] != "data":
+        raise NotImplementedError(f"the batch's axes end in 'data' (the "
+                                  f"partition rules' FSDP axis), got "
+                                  f"{data_axes}")
     wide = {a: e for a, e in mesh_shape(mesh).items()
-            if a not in data_axes and e > 1}
+            if a not in data_axes + ("model",) and e > 1}
     if wide:
         raise NotImplementedError(
-            f"tensor parallelism over {wide} is not ported: the LM step "
-            f"splits the batch and the parameters over {data_axes} only")
-    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()}
+            f"the LM step splits over {data_axes} and 'model', "
+            f"not over {wide}")
+    shapes = (dict(model) if isinstance(model, Mapping) else
+              {k: tuple(p.shape) for k, p in model.named_parameters()})
     specs = state_shardings(lm, cfg, mesh, shapes)["params"]
-    return fsdp.Layout(specs, shapes, Axis(mesh, data_axes[0]))
+    return fsdp.Layout(specs, shapes, Axis(mesh, "data"),
+                       model=Axis(mesh, "model"))
 
 
 def init_lm_state(model: torch.nn.Module, optimizer: Optimizer, *,
@@ -435,10 +449,14 @@ def make_lm_train_step(lm, cfg, optimizer: Optimizer, mesh=None, *,
     ``mesh=None``: one device (:func:`lm_value_and_grad`); the reference's
     ``constrain`` at the layer boundaries is the identity.
 
-    With a ``mesh`` (the reference's ``(N, 1)`` mesh over ("data",
+    With a ``mesh`` (the reference's ``(N, M)`` mesh over ("data",
     "model"); ``state`` from :func:`init_lm_state` with the
-    :func:`lm_layout` over it), the step is data-parallel, and fully
-    sharded where the layout says: ``batch`` is the global batch, the same
+    :func:`lm_layout` over it), the step is tensor-parallel over ``model``
+    (``parallel.tensor``: each rank holds its slices for good, and the
+    families' forward runs the collectives; the loss is the same on every
+    rank of the axis, and so is each replicated leaf's gradient, so
+    nothing is summed over ``model``), and data-parallel, fully sharded
+    where the layout says: ``batch`` is the global batch, the same
     on every rank, and each data rank takes its rows (:func:`data_rows`;
     with ``microbatch`` m it runs its rows of each microbatch in turn).
     The forward reads ``parallel.fsdp.Layout.view`` of the state's slices,
@@ -464,14 +482,17 @@ def make_lm_train_step(lm, cfg, optimizer: Optimizer, mesh=None, *,
         return train_step
 
     micro = microbatch if microbatch and microbatch > 1 else 1
-    (name,) = data_axes
-    axis = Axis(mesh, name)
+    # the batch's rows, the loss and the MoE routing span every data axis;
+    # the layout shards over 'data' alone, the others ('pod') replicate
+    axis = merged_axis(mesh, data_axes)
+    replicas = [Axis(mesh, a) for a in data_axes if a != "data"]
+    model_axis = Axis(mesh, "model")
 
     def train_step(state: dict, batch: dict):
         layout = state.get("layout")
-        if layout is None or layout.axis.name != name:
+        if layout is None or layout.axis.name != "data":
             raise ValueError("the state has no layout over the data axis "
-                             f"{name!r}: make it by init_lm_state(model, "
+                             "'data': make it by init_lm_state(model, "
                              "optimizer, layout=lm_layout(...))")
         model = state["params"]
         params = param_dict(model)
@@ -487,8 +508,8 @@ def make_lm_train_step(lm, cfg, optimizer: Optimizer, mesh=None, *,
                for p in leaves]
         for part, w in zip(parts, weights):
             # the backward's remat recompute runs the forward again: the
-            # same axis for it
-            with fsdp.data_parallel(axis):
+            # same axes for it
+            with fsdp.data_parallel(axis), tensor.model_parallel(model_axis):
                 obj = lm.loss(layout.view(model, dtype), cfg, part) * w
                 grads = torch.autograd.grad(obj, leaves, allow_unused=True)
             loss = loss + obj.detach()
@@ -499,6 +520,9 @@ def make_lm_train_step(lm, cfg, optimizer: Optimizer, mesh=None, *,
         grads = {k: a / micro for k, a in zip(keys, acc)}
         grads.update(coll.psum_tree(
             {k: grads[k] for k in keys if layout.dims[k] is None}, [axis]))
+        grads.update(coll.psum_tree(
+            {k: grads[k] for k in keys if layout.dims[k] is not None},
+            replicas))
         norm = layout.global_norm(grads)
         _, state["opt"] = optimizer.update(grads, state["opt"], params,
                                            grad_norm=norm)
@@ -509,7 +533,7 @@ def make_lm_train_step(lm, cfg, optimizer: Optimizer, mesh=None, *,
 
 def lm_full_state(state: dict) -> dict:
     """``state`` with every leaf of the parameters and moments whole: under
-    a layout each sharded leaf gathered (every rank of the axis calls this
+    a layout each sharded leaf gathered (every rank of the mesh calls this
     together) and copied to the host one leaf at a time; without one,
     ``{"params": the parameters by key, "opt": the OptState}``.  The
     checkpoint's tree is ``checkpoint.train_state_tree`` of it."""

@@ -425,18 +425,38 @@ def test_virtual_worlds_in_turn():
 
 
 # ---------------------------------------------------------------------------
-# LM cells: sized at the production mesh, traced at a model extent of 1
+# LM cells: sized and traced at the production mesh, and at a model
+# extent of 1
 # ---------------------------------------------------------------------------
 
 def test_lm_cell_sized_at_production_mesh_and_cli(tmp_path, monkeypatch):
+    """glm4-9b decode_32k on the (16, 16) mesh: sized from the reference's
+    specs, and traced (tensor-parallel over 'model' 16).  The traced
+    arguments exceed the sized ones by the weights alone: a serving rank
+    holds its 'model' slices whole over 'data' (ROADMAP "Reference
+    caveats") where the specs also cut them over 'data' (``cfg.fsdp``)."""
+    from repro_torch.models import get_model
+    from repro_torch.nn.partition import make_param_specs
+    from repro_torch.train.trainstep import lm_stacked, param_dict
     monkeypatch.setattr(D, "OUT_DIR", tmp_path)
     D.main(["--arch", "glm4-9b", "--shape", "decode_32k", "--no-probes"])
     rec = json.loads((tmp_path / "glm4-9b__decode_32k__single_pod.json")
                      .read_text())
-    assert rec["status"] == "sized"
-    assert "tensor parallelism" in rec["trace_skipped"]
-    assert "per_device_flops" not in rec["full"]
-    assert rec["full"]["memory"]["argument_bytes"] == 10_885_985_344
+    assert rec["status"] == "ok" and "trace_skipped" not in rec
+    sized = rec["sized"]
+    assert sized["argument_bytes"] == 10_885_985_344
+    full = rec["full"]
+    assert full["per_device_flops"] > 0
+    assert full["collectives_by_axis"]["model"]["all-reduce"]["count"] > 0
+    cfg = tconfigs.get_config("glm4-9b")
+    lm = get_model(cfg)
+    params = param_dict(lm.init_params(cfg, device="meta"))
+    whole = D.tree_bytes(params, make_param_specs(
+        params, lm.partition_rules(cfg), stacked=lm_stacked(cfg)),
+        {"data": 1, "model": 16}) // 2     # the init's fp32 -> bf16
+    assert full["memory"]["argument_bytes"] == (
+        sized["argument_bytes"] - sized["parts"]["params"] + whole)
+    assert full["memory"]["alias_bytes"] == sized["alias_bytes"]
 
 
 @pytest.mark.parametrize("shape", ["train_4k", "decode_32k"])

@@ -58,7 +58,8 @@ PARALLEL_MODULES = ("repro_torch.parallel", "repro_torch.parallel.plan",
                     "repro_torch.parallel.mesh_utils",
                     "repro_torch.parallel.collectives",
                     "repro_torch.parallel.ranks",
-                    "repro_torch.parallel.fsdp", "repro_torch.analysis",
+                    "repro_torch.parallel.fsdp",
+                    "repro_torch.parallel.tensor", "repro_torch.analysis",
                     "repro_torch.analysis.roofline")
 
 

@@ -130,10 +130,9 @@ def test_moe_ffn_dense_matches_jax_fp32(setup):
     assert max_abs(got, want) < 1e-5
 
 
-def test_training_routing_raises_naming_the_roadmap(setup):
-    """The training routing no longer raises: the first layer's
-    capacity-routed ``moe_ffn`` with the router loss, on fp32 inputs,
-    against the reference's (within 1e-5 of the largest |output|, the loss
+def test_capacity_routed_moe_ffn_matches_the_reference(setup):
+    """The first layer's capacity-routed ``moe_ffn`` with the router loss,
+    on fp32 inputs, against the reference's (within 1e-5 of the largest |output|, the loss
     within 1e-6); ``tests/test_torch_lm_train.py`` holds the whole
     ``forward(dropless=False)`` through each family's loss."""
     cfg, params, model = setup
